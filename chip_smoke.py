@@ -28,6 +28,23 @@ Phases, each of which exits non-zero on any failure:
    version's time over the columns it ran, and the least time the card
    could take.
 
+7-10. align_batch at full width, one phase per path, each with its launch
+   counts zeroed just before and read just after the call, a warm repeat
+   that must agree, a subsample of 128 pairs equal to device="cpu" (the
+   plain versions), and 4 sampled pairs equal to a numpy DP (distance,
+   every end location, start locations):
+   7. HW locations, shared target: 10,240 reads x 120 bp, windows of one
+      random 100,000-bp target with 6% substitutions (reduce_lanes on the
+      shared row and the per-lane start re-runs, hits_lanes);
+   8. NW distance, banded: 8,192 pairs of a random 1,000-bp query and a
+      copy with 3% edits (nw_banded);
+   9. SHW locations, banded: the same queries against their copy plus a
+      300-bp random tail (shw_banded, shw_banded_hits);
+   10. HW locations, sigma=100, per-lane: 8,192 reads x 120 bp against
+      their own 1,000-bp windows (reduce_bitplane, hits_bitplane).
+11. Each new kernel timed and held against its plain version on its phase's
+   operands, over every column.
+
 Output: the kernels' JSON line, the end-to-end JSON line, the card line, and
 last {"ok": true, "device": {...}}.  Data comes from --seed.
 """
@@ -35,6 +52,8 @@ last {"ok": true, "device": {...}}.  Data comes from --seed.
 from __future__ import annotations
 
 import argparse
+import functools
+import inspect
 import json
 import sys
 import time
@@ -69,11 +88,22 @@ READS, QLEN, N_RANDOM = 8192, 120, 96
 BASE_LEN, TILES = 1 << 20, 4          # sigma=4 target: BASE_LEN random, tiled
 BIG_SIGMA, BIG_SIGMA_LEN = 100, 1 << 20
 SHW_LEN, SHW_READS, SEG_LEN, SEG_READS = 5000, 128, 60_000, 32
+# align_batch phases (scripts/hw_batched_path.py's HW workload; NW/SHW pairs
+# of 1,000 bp, so nw_b = 32 words and the banded kernels run).
+HW_READS, HW_QLEN, HW_TLEN, HW_RATE = 10_240, 120, 100_000, 0.06
+PAIRS, PAIR_LEN, PAIR_EDITS, SHW_TAIL = 8_192, 1_000, 0.03, 300
+BP_READS, BP_QLEN, BP_WIN, BP_SIGMA = 8_192, 120, 1_000, 100
+SUBSAMPLE, DP_SAMPLES = 128, 4
 KERNEL_SOURCE = "edlib_tpu_torch/ops/csrc/myers.cu"
 REPLACES = {
     "reduce_lanes": "edlib_tpu/ops/pallas_kernel.py:605",
     "sweep_shared": "edlib_tpu/ops/pallas_kernel.py:342",
     "reduce_bitplane": "edlib_tpu/ops/pallas_kernel.py:2040",
+    "hits_lanes": "edlib_tpu/ops/pallas_kernel.py:874",
+    "hits_bitplane": "edlib_tpu/ops/pallas_kernel.py:2083",
+    "nw_banded": "edlib_tpu/ops/pallas_kernel.py:1066",
+    "shw_banded": "edlib_tpu/ops/pallas_kernel.py:1215",
+    "shw_banded_hits": "edlib_tpu/ops/pallas_kernel.py:1348",
 }
 
 
@@ -147,6 +177,67 @@ def dp_best_hw_card(reads, t_ids, dev):
     return best.cpu().numpy().astype(np.int64), (j - 1).cpu().numpy()
 
 
+def dp_last_row(q, t, free_start: bool):
+    """Bottom row D[Q][j], j = 0..T, of the edit-distance DP of query q
+    against the prefixes of t, in numpy row by row; free_start: HW (row 0
+    is all 0), else NW/SHW (row 0 is j)."""
+    T = len(t)
+    ar = np.arange(T + 1, dtype=np.int32)
+    row = np.zeros(T + 1, np.int32) if free_start else ar.copy()
+    for i, sym in enumerate(q, start=1):
+        diag = row[:-1] + (t != sym)
+        e = np.empty(T + 1, np.int32)
+        e[0] = i
+        np.minimum(diag, row[1:] + 1, out=e[1:])
+        row = np.minimum.accumulate(e - ar) + ar
+    return row
+
+
+def dp_align(q, t, mode: str, task: str) -> dict:
+    """edlib's editDistance and locations for one pair (k = -1) from the DP:
+    every end location reaching the best (with edlib's -1 end location,
+    score Q, where its 64-bit blocks pad the query: Q % 64 != 0), and for
+    HW the start of each end as the last minimal SHW end of the reversed
+    query over the reversed target prefix (edlib.cpp:230-266)."""
+    Q, T = len(q), len(t)
+    row = dp_last_row(q, t, mode == "HW")
+    if mode == "NW":
+        return {"editDistance": int(row[T]),
+                "locations": [(0 if task == "locations" else None, T - 1)]}
+    real = row[1:]
+    best_real = int(real.min())
+    quirk = Q % 64 != 0
+    best = min(best_real, Q) if quirk else best_real
+    ends = [-1] if quirk and best == Q else []
+    if best_real == best:
+        ends += [int(j) for j in np.nonzero(real == best)[0]]
+    starts = []
+    for e in ends:
+        if task != "locations":
+            starts.append(None)
+        elif mode == "SHW" or e == -1:
+            starts.append(0)
+        else:
+            rr = dp_last_row(q[::-1], t[:e + 1][::-1], False)[1:]
+            starts.append(e - int(np.nonzero(rr == rr.min())[0][-1]))
+    return {"editDistance": best, "locations": list(zip(starts, ends))}
+
+
+def edit_copy(rng, q, rate, sigma):
+    """q with edits at `rate` per symbol: substitutions, deletions and
+    insertions (after the symbol) in equal shares."""
+    r = rng.rand(len(q))
+    dele = r < rate / 3
+    sub = (r >= rate / 3) & (r < 2 * rate / 3)
+    ins = (r >= 2 * rate / 3) & (r < rate)
+    t = q.copy()
+    t[sub] = (t[sub] + rng.randint(1, sigma, int(sub.sum()))) % sigma
+    counts = np.where(dele, 0, np.where(ins, 2, 1))
+    out = np.repeat(t, counts)
+    out[np.cumsum(counts)[ins] - 1] = rng.randint(0, sigma, int(ins.sum()))
+    return out.astype(np.int32)
+
+
 # --------------------------------------------------------------------------
 # Kernels vs plain versions
 # --------------------------------------------------------------------------
@@ -215,6 +306,59 @@ def check_kernels(rng, dev, ck):
             check_equal(f"reduce_bitplane nw={nw} hin0={hin0}",
                         ck.reduce_bitplane(*args, nb, 1, sigma),
                         ck.reduce_bitplane_plain(*args, nb, 1, sigma))
+            best = hit_targets(rng, ck.reduce_bitplane(*args, nb, 1, sigma))
+            hargs = args[:7] + (best, hin0, nb, 1, sigma)
+            check_equal(f"hits_bitplane nw={nw} hin0={hin0}",
+                        [ck.hits_bitplane(*hargs)],
+                        [ck.hits_bitplane_plain(*hargs)])
+    for nw in (1, 4, 9):
+        for hin0 in (0, 1):
+            ops = lane_operands(rng, dev, n_lanes=300, n_rows=6, T=400, s1=5,
+                                nw=nw)
+            best = hit_targets(rng, ck.reduce_lanes(*ops, hin0))
+            check_equal(f"hits_lanes nw={nw} hin0={hin0}",
+                        [ck.hits_lanes(*ops, best, hin0)],
+                        [ck.hits_lanes_plain(*ops, best, hin0)])
+    # Band windows of every register width and two scratch widths (3, 20),
+    # sliding by 0, 1 and several words at chunk boundaries.
+    chunk = 64
+    for n_win, nw in ((1, 3), (2, 8), (4, 9), (8, 16), (12, 32), (16, 24),
+                      (3, 7), (20, 40)):
+        peq, targets, lo, hi, prow, trow = lane_operands(
+            rng, dev, n_lanes=300, n_rows=6, T=400, s1=5, nw=nw)
+        n_chunks = -(-400 // chunk)
+        steps = rng.choice([0, 0, 1, 2, 5], n_chunks - 1)
+        woff = np.minimum(np.concatenate([[0], np.cumsum(steps)]),
+                          nw - n_win).astype(np.int32)
+        woff_t = torch.from_numpy(woff).to(dev)
+        band = (peq, targets, woff_t)
+        tail = (prow, trow, n_win, chunk)
+        check_equal(f"nw_banded n_win={n_win} nw={nw}",
+                    [ck.nw_banded(*band, hi, *tail)],
+                    [ck.nw_banded_plain(*band, hi, *tail)])
+        got = ck.shw_banded(*band, lo, hi, *tail)
+        check_equal(f"shw_banded n_win={n_win} nw={nw}", got,
+                    ck.shw_banded_plain(*band, lo, hi, *tail))
+        best = hit_targets(rng, got)
+        check_equal(f"shw_banded_hits n_win={n_win} nw={nw}",
+                    [ck.shw_banded_hits(*band, lo, hi, prow, trow, best,
+                                        n_win, chunk)],
+                    [ck.shw_banded_hits_plain(*band, lo, hi, prow, trow,
+                                              best, n_win, chunk)])
+
+
+def hit_targets(rng, reduced):
+    """A hit kernel's best per lane: the reduce's best for most lanes, a
+    random value or -(1<<30) (no hits) for some."""
+    import torch
+    best = reduced[0].clone()
+    n = best.shape[0]
+    pick = torch.from_numpy(rng.rand(n) < 0.2).to(best.device)
+    rand = torch.from_numpy(rng.randint(0, 200, n).astype(np.int32)).to(
+        best.device)
+    best = torch.where(pick, rand, best)
+    best[::11] = -(1 << 30)
+    return best.contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -235,11 +379,11 @@ class Recorder:
             setattr(ck, name, self._wrap(name, fn))
 
     def _wrap(self, name, fn):
+        @functools.wraps(fn)
         def call(*args):
             if self.on:
                 self.calls[name].append(args)
             return fn(*args)
-        call.__name__ = name
         return call
 
     def take(self):
@@ -291,22 +435,66 @@ def profile_call(fn, top: int = 8) -> dict:
                     for k, ms, c in rows[:top]]}
 
 
-def lane_call_cost(peq_words, targets, lo, hi, prow, trow, ops_col):
-    """(bytes, ops) a per-lane reduce call needs: every profile row and every
-    target row a lane reads (up to the furthest column any lane scans in it),
-    the lane vectors in and the four outputs out; ops_col operations for
+def lane_call_cost(words_per_row, targets, hi, prow, trow, n_vecs, ops_col,
+                   out_bytes):
+    """(bytes, ops) a per-lane call needs: every profile row and every
+    target row a lane reads (up to the furthest column any lane scans in
+    it), the lane vectors in and the outputs out; ops_col operations for
     every column a lane scans."""
     import torch
     T = targets.shape[1]
-    n = lo.shape[0]
+    n = hi.shape[0]
     cols = hi.long().clamp(0, T)
     row_cols = torch.zeros(targets.shape[0], dtype=torch.int64,
                            device=cols.device)
     row_cols.scatter_reduce_(0, trow.long(), cols, "amax")
     n_prof = int(torch.unique(prow[cols > 0]).numel())
-    nbytes = (n_prof * peq_words * 4 + int(row_cols.sum()) * 4
-              + n * 4 * 4 + n * 4 * 4)
+    nbytes = (n_prof * words_per_row * 4 + int(row_cols.sum()) * 4
+              + n * n_vecs * 4 + out_bytes)
     return nbytes, int(cols.sum()) * ops_col
+
+
+def call_plan(ck, name, args):
+    """(bytes, ops, lanes, cols, words, plain args, plain cols) of one
+    recorded call.  Operations per lane-column: 13 per advanced word
+    (OPS_PER_WORD), plus for the bit-plane Eq one 3-input op per plane and
+    alternative and the OR into the word, and per column two per plane for
+    the symbol's bit masks and two for the wildcard test; plus
+    OPS_PER_COLUMN for the score and the reduction or hit mask.  A per-lane
+    call's plain version runs over all of its columns, the shared sweep's
+    over its first SHARED_PLAIN_COLS."""
+    if name == "sweep_shared":
+        peq_t, target, hin0, col_lo, col_hi = args
+        nw, n = peq_t.shape[1], peq_t.shape[2]
+        end = min(target.shape[0], col_hi)
+        plain_cols = min(end, SHARED_PLAIN_COLS)
+        return (peq_t.numel() * 4 + end * 4 + n * 8,
+                n * end * (nw * OPS_PER_WORD + OPS_PER_COLUMN_SHARED), n,
+                end, nw, (peq_t, target, hin0, col_lo, plain_cols),
+                plain_cols)
+    params = tuple(inspect.signature(getattr(ck, name)).parameters)
+    a = dict(zip(params, args))
+    targets, hi = a["targets"], a["hi"]
+    n = hi.shape[0]
+    end = min(targets.shape[1], int(hi.max())) if n else 0
+    if "planes" in a:
+        nw, nb, n_alts = a["pad"].shape[1], a["nb"], a["n_alts"]
+        words = a["planes"].shape[1] + nw
+        ops_col = (nw * (OPS_PER_WORD + n_alts * (nb + 1)) + 2 * nb + 2
+                   + OPS_PER_COLUMN)
+    else:
+        nw = a["n_win"] if "n_win" in a else a["peq"].shape[2]
+        words = a["peq"].shape[1] * a["peq"].shape[2]
+        ops_col = nw * OPS_PER_WORD + OPS_PER_COLUMN
+    if "best" in a:
+        out_bytes = n * -(-targets.shape[1] // 32) * 4
+    else:
+        out_bytes = n * 4 * (4 if name in ("reduce_lanes", "reduce_bitplane")
+                             else 3 if name == "shw_banded" else 1)
+    n_vecs = sum(k in a for k in ("lo", "hi", "prow", "trow", "best"))
+    nbytes, ops = lane_call_cost(words, targets, hi, a["prow"], a["trow"],
+                                 n_vecs, ops_col, out_bytes)
+    return nbytes, ops, n, end, nw, args, end
 
 
 def bound(nbytes, ops):
@@ -316,49 +504,18 @@ def bound(nbytes, ops):
 
 
 def measure(ck, name, calls):
-    """Kernel time, plain time and bound summed over a main path's calls of
-    one kernel, each call's output held against its plain version's.  The
-    per-lane reduces run their plain versions over every column of the call;
-    the shared sweep over its first SHARED_PLAIN_COLS columns (plain_cols
-    says how many were timed)."""
+    """Kernel time, plain time and bound summed over a path's calls of one
+    kernel, each call's output held against its plain version's on the
+    call's operands (see call_plan for the columns the plain version
+    runs)."""
     import torch
     kernel = getattr(ck, name)
     plain = getattr(ck, name + "_plain")
     out = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nbytes=0, ops=0,
                max_abs_err=0.0, calls=[])
     for args in calls:
-        if name == "sweep_shared":
-            peq_t, target, hin0, col_lo, col_hi = args
-            nw, n = peq_t.shape[1], peq_t.shape[2]
-            end = min(target.shape[0], col_hi)
-            nbytes = peq_t.numel() * 4 + end * 4 + n * 8
-            ops = n * end * (nw * OPS_PER_WORD + OPS_PER_COLUMN_SHARED)
-            plain_cols = min(end, SHARED_PLAIN_COLS)
-            checked = (peq_t, target, hin0, col_lo, plain_cols)
-        else:
-            # Operand positions: reduce_lanes(peq, targets, lo, hi, prow,
-            # trow, hin0); reduce_bitplane(planes, pad, targets, lo, hi,
-            # prow, trow, hin0, nb, n_alts, wildcard).
-            i = 1 if name == "reduce_lanes" else 2
-            targets, lo, hi, prow, trow = args[i:i + 5]
-            if name == "reduce_lanes":
-                nw = args[0].shape[2]
-                nbytes, ops = lane_call_cost(
-                    args[0].shape[1] * nw, targets, lo, hi, prow, trow,
-                    nw * OPS_PER_WORD + OPS_PER_COLUMN)
-            else:
-                nw, nb, n_alts = args[1].shape[1], args[8], args[9]
-                # Eq per word: one 3-input op per plane and alternative plus
-                # the OR into the word; per column two ops per plane for the
-                # symbol's bit masks and two for the wildcard test.
-                nbytes, ops = lane_call_cost(
-                    args[0].shape[1] + nw, targets, lo, hi, prow, trow,
-                    nw * (OPS_PER_WORD + n_alts * (nb + 1))
-                    + 2 * nb + 2 + OPS_PER_COLUMN)
-            n = lo.shape[0]
-            end = min(targets.shape[1], int(hi.max()))
-            plain_cols = end
-            checked = args
+        nbytes, ops, n, end, nw, checked, plain_cols = call_plan(
+            ck, name, args)
         reps = 3 if end * n > 1e8 else 10
         ms = time_ms(lambda: kernel(*args), reps)
         got = kernel(*checked)
@@ -367,6 +524,8 @@ def measure(ck, name, calls):
         want = plain(*checked)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(got, torch.Tensor):
+            got, want = [got], [want]
         out["max_abs_err"] = max(out["max_abs_err"],
                                  check_equal(f"{name} on main-path operands",
                                              got, want))
@@ -379,12 +538,87 @@ def measure(ck, name, calls):
         out["calls"].append(dict(lanes=n, cols=end, nw=nw, ms=ms,
                                  plain_ms=plain_ms, plain_cols=plain_cols,
                                  bound_ms=b))
-        log(f"{name} call: {n} lanes x {end} cols, kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms over {plain_cols} cols, equal")
+        log(f"{name} call: {n} lanes x {end} cols (nw {nw}), kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms over {plain_cols} cols, "
+            f"equal")
         del got, want
         torch.cuda.empty_cache()
     out["bound_by"] = bound(out["nbytes"], out["ops"])[1]
     return out
+
+
+def kernel_entry(name, m, launches, path, card):
+    """One kernel's record in the kernels line."""
+    return {
+        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES[name], "launches": launches,
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"],
+        "plain_cols": sum(c["plain_cols"] for c in m["calls"]),
+        "cols": sum(c["cols"] for c in m["calls"]),
+        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        "library_ms": None, "path": path, "calls": m["calls"], "card": card}
+
+
+def drive(ck, rec, label, call, required):
+    """One path through its public entry point: launch counts zeroed just
+    before the call and read just after, every kernel call's operands
+    recorded, then a warm repeat that must return the same."""
+    import torch
+    ck.reset_launch_counts()
+    rec.on = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    rec.on = False
+    launches = ck.launch_counts()
+    calls = rec.take()
+    log(f"{label}: {cold:.2f} s cold, launches {launches}")
+    for name in required:
+        if launches[name] == 0:
+            fail(f"{label} never launched {name}")
+    t0 = time.perf_counter()
+    again = call()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    if again != out:
+        fail(f"{label}: a second call on the same batch disagrees")
+    return out, launches, calls, cold, warm
+
+
+def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
+                mode, task, rng):
+    """align_batch's results: one per pair, distances in range, a
+    subsample of SUBSAMPLE pairs equal to device="cpu" (a shared target
+    stays shared), DP_SAMPLES of them equal to the numpy DP."""
+    shared = isinstance(targets, bytes)
+    if len(out) != len(queries):
+        fail(f"{label}: {len(out)} results for {len(queries)} pairs")
+    for i, r in enumerate(out):
+        if not (0 <= r["editDistance"] <= len(queries[i]) + (
+                0 if shared else len(targets[i]))) or not r["locations"]:
+            fail(f"{label}: pair {i} has no valid result: {r}")
+    idx = np.sort(rng.choice(len(queries), SUBSAMPLE, replace=False))
+    t0 = time.perf_counter()
+    ref = align_batch([queries[i] for i in idx],
+                      targets if shared else [targets[i] for i in idx],
+                      mode=mode, task=task, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for j, i in enumerate(idx):
+        if out[i] != ref[j]:
+            fail(f"{label}: pair {i} differs from device='cpu': {out[i]} vs "
+                 f"{ref[j]}")
+    for i in idx[:DP_SAMPLES]:
+        want = dp_align(q_ids[i], t_ids if shared else t_ids[i], mode, task)
+        got = {key: out[i][key] for key in want}
+        if got != want:
+            fail(f"{label}: pair {i} differs from the numpy DP: {got} vs "
+                 f"{want}")
+    log(f"{label}: {SUBSAMPLE} pairs equal device='cpu' ({cpu_s:.1f} s), "
+        f"{DP_SAMPLES} the numpy DP")
+    return cpu_s
 
 
 # --------------------------------------------------------------------------
@@ -562,34 +796,105 @@ def main(argv=None) -> int:
         fail("segmented batch differs from the plain versions")
     log("SHW and segmented batches equal the plain versions")
 
-    # 6. Timings on the main paths' own operands.
+    # 7-10. align_batch, one phase per path.
+    align_batch = edlib_tpu_torch.align_batch
+    phases = {}
+
+    def run_phase(label, queries, targets, q_ids, t_ids, mode, task,
+                  required):
+        call = lambda: align_batch(queries, targets, mode=mode, task=task)
+        out, counts, calls, cold, warm = drive(ck, rec, label, call,
+                                               required)
+        cpu_s = check_align(label, align_batch, out, queries, targets,
+                            q_ids, t_ids, mode, task, rng)
+        prof_ = profile_call(call)
+        phases[label] = dict(pairs=len(queries), mode=mode, task=task,
+                             cold_s=cold, warm_s=warm, cpu_subsample_s=cpu_s,
+                             warm_profile=prof_)
+        return counts, calls
+
+    # 7. HW locations against one shared 100,000-bp target.
+    t_hw = rng.randint(0, 4, HW_TLEN).astype(np.int32)
+    starts = rng.randint(0, HW_TLEN - HW_QLEN, HW_READS)
+    hw_ids = t_hw[starts[:, None] + np.arange(HW_QLEN)[None, :]]
+    muts = rng.rand(HW_READS, HW_QLEN) < HW_RATE
+    hw_ids[muts] = (hw_ids[muts] + rng.randint(1, 4, int(muts.sum()))) % 4
+    hw_counts, hw_calls = run_phase(
+        "hw_shared", to_bytes(hw_ids, acgt), acgt[t_hw].tobytes(), hw_ids,
+        t_hw, "HW", "locations", ("reduce_lanes", "hits_lanes"))
+    rows = [c[1].shape[0] for c in hw_calls["reduce_lanes"]]
+    if 1 not in rows or max(rows) == 1:
+        fail(f"hw_shared: reduce_lanes ran target rows {rows}, not the "
+             "shared row and the per-lane start re-runs")
+
+    # 8. NW distance and 9. SHW locations, 1,000-bp pairs (banded).
+    pq = rng.randint(0, 4, (PAIRS, PAIR_LEN)).astype(np.int32)
+    pt = [edit_copy(rng, q, PAIR_EDITS, 4) for q in pq]
+    p_queries = to_bytes(pq, acgt)
+    nw_counts, nw_calls = run_phase(
+        "nw_banded", p_queries, [acgt[t].tobytes() for t in pt], pq, pt,
+        "NW", "distance", ("nw_banded",))
+    st = [np.concatenate([t, rng.randint(0, 4, SHW_TAIL)]).astype(np.int32)
+          for t in pt]
+    shw_counts, shw_calls = run_phase(
+        "shw_banded", p_queries, [acgt[t].tobytes() for t in st], pq, st,
+        "SHW", "locations", ("shw_banded", "shw_banded_hits"))
+
+    # 10. HW locations, sigma = 100, each read against its own window.
+    win = rng.randint(0, BP_SIGMA, (BP_READS, BP_WIN)).astype(np.int32)
+    off = rng.randint(0, BP_WIN - BP_QLEN, BP_READS)
+    bp_ids = win[np.arange(BP_READS)[:, None],
+                 off[:, None] + np.arange(BP_QLEN)[None, :]]
+    muts = rng.rand(BP_READS, BP_QLEN) < HW_RATE
+    bp_ids[muts] = (bp_ids[muts]
+                    + rng.randint(1, BP_SIGMA, int(muts.sum()))) % BP_SIGMA
+    bp_counts, bp_calls = run_phase(
+        "hw_sigma100", to_bytes(bp_ids, letters), to_bytes(win, letters),
+        bp_ids, win, "HW", "locations", ("reduce_bitplane", "hits_bitplane"))
+
+    # 6 and 11. Timings on each path's own operands.
     kernels = []
-    for name, calls, counts in (
-            ("reduce_lanes", main_calls["reduce_lanes"], launches),
-            ("sweep_shared", main_calls["sweep_shared"], launches),
+    for name, calls, counts, path in (
+            ("reduce_lanes", main_calls["reduce_lanes"], launches,
+             "map_reads sigma=4"),
+            ("sweep_shared", main_calls["sweep_shared"], launches,
+             "map_reads sigma=4"),
             ("reduce_bitplane", bitplane_calls["reduce_bitplane"],
-             launches100)):
+             launches100, "map_reads sigma=100"),
+            ("hits_lanes", hw_calls["hits_lanes"], hw_counts, "hw_shared"),
+            ("hits_bitplane", bp_calls["hits_bitplane"], bp_counts,
+             "hw_sigma100"),
+            ("nw_banded", nw_calls["nw_banded"], nw_counts, "nw_banded"),
+            ("shw_banded", shw_calls["shw_banded"], shw_counts, "shw_banded"),
+            ("shw_banded_hits", shw_calls["shw_banded_hits"], shw_counts,
+             "shw_banded")):
         m = measure(ck, name, calls)
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"],
-            "plain_cols": sum(c["plain_cols"] for c in m["calls"]),
-            "cols": sum(c["cols"] for c in m["calls"]),
-            "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None,
-            "path": "sigma=100" if name == "reduce_bitplane" else "sigma=4",
-            "calls": m["calls"], "card": card})
-        log(f"timed {name}: {m['ms']:.3f} ms (plain {m['plain_ms']:.1f} ms, "
-            f"bound {m['bound_ms']:.4f} ms)")
+        kernels.append(kernel_entry(name, m, counts[name], path, card))
+        log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
+            f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
+    # The map_reads kernels on the align_batch paths, beside their entries.
+    for name, calls, counts, path in (
+            ("reduce_lanes", hw_calls["reduce_lanes"], hw_counts,
+             "hw_shared"),
+            ("reduce_bitplane", bp_calls["reduce_bitplane"], bp_counts,
+             "hw_sigma100")):
+        m = measure(ck, name, calls)
+        entry = next(k for k in kernels if k["name"] == name)
+        sub = kernel_entry(name, m, counts[name], path, card)
+        entry.setdefault("other_paths", []).append(
+            {k: sub[k] for k in ("path", "launches", "max_abs_err", "ms",
+                                 "plain_ms", "plain_cols", "cols",
+                                 "bound_ms", "bound_by", "calls")})
+        log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
+            f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {
         "card": card, "reads": B, "qlen": QLEN, "target_len": len(t_ids),
         "sigma": 4, "k": -1, "map_reads_cold_s": cold_s,
         "map_reads_warm_s": warm_s, "full_shared_sweep_s": sweep_s,
         "sigma100_target_len": len(t100), "sigma100_map_reads_cold_s":
-        cold100_s, "build_s": build_s, "warm_profile": prof}}))
+        cold100_s, "build_s": build_s, "warm_profile": prof,
+        "align_batch": phases}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

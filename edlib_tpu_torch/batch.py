@@ -1,0 +1,640 @@
+"""Batched alignment on the card: the port of edlib_tpu/batch.py.
+
+Pairs are bucketed by shape (power-of-two word count and scan length), each
+bucket's profiles and targets go to the card in one piece, and the sweep
+kernels (ops/cuda_kernel.py, driven per bucket by ops/sweeper.py) return
+per-lane reductions and hit masks.  Post-processing follows the same
+location rules as the single-pair orchestrator, so the results equal
+edlib_tpu.align_batch field for field.
+
+Routes, as the JAX package takes them with a device:
+
+* NW: the banded NW kernel with a bucket-level k-doubling ladder for
+  buckets of >= EDLIB_TPU_BAND_MIN_WORDS (8) words; smaller buckets read the
+  final column from the full reduce.
+* HW/SHW: the reduce, then (for all minimal end locations) the hit mask at
+  the found best.  SHW buckets of >= EDLIB_TPU_BAND_MIN_WORDS words take the
+  banded SHW kernels under a k-doubling ladder.  Buckets whose pairs share
+  one target object read that one target row.
+* Per-lane buckets with sigma >= 32 (or past the per-lane kernels' 64-row
+  alphabet cap) take the bit-plane kernels, unless EDLIB_TPU_BITPLANE=0.
+  Where the JAX package would take its eq-stream kernels or its XLA stream
+  engine instead (dense equalities past the cap), the port raises
+  NotImplementedError: those are not ported yet.
+* HW start locations: every (pair, end location) reversed-SHW re-run goes
+  into one more bucketed reduce.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from edlib_tpu_torch import encode
+from edlib_tpu_torch.align import _neg1_candidate_exists, align
+from edlib_tpu_torch.ops import cuda_kernel as ck
+from edlib_tpu_torch.ops.sweeper import Sweeper, decode_hit_words
+from edlib_tpu_torch.types import (
+    STATUS_OK,
+    AlignMode,
+    AlignResult,
+    AlignTask,
+)
+
+_INF = float("inf")
+_CHUNK = 256               # the JAX package's scan grain (band schedule)
+_BIG_SENTINEL = 0x3FFFFFFF
+
+
+def _pow2_at_least(x: int, floor: int = 1) -> int:
+    n = floor
+    while n < x:
+        n *= 2
+    return n
+
+
+class GlobalAlphabet:
+    """Shared symbol table across a batch (engine ids are mapping-invariant;
+    per-pair alphabetLength is computed separately for API parity)."""
+
+    def __init__(self):
+        self.letter_idx = np.full(256, -1, dtype=np.int16)
+        self.alphabet = bytearray()
+
+    def encode(self, seq: bytes) -> np.ndarray:
+        arr = np.frombuffer(seq, dtype=np.uint8)
+        unseen = arr[self.letter_idx[arr] < 0]
+        if unseen.size:
+            # First-appearance order (matches transform_sequences,
+            # edlib.cpp:1417-1462) so these ids stay safe to surface.
+            uniq, first = np.unique(unseen, return_index=True)
+            for c in uniq[np.argsort(first)]:
+                self.letter_idx[c] = len(self.alphabet)
+                self.alphabet.append(int(c))
+        return self.letter_idx[arr].astype(np.int32)
+
+    @property
+    def sigma(self) -> int:
+        return len(self.alphabet)
+
+
+class PairSummary:
+    """Everything the orchestration needs from one pair's sweep, without the
+    O(T) score stream (edlib.cpp:657-693 keeps only this much too)."""
+
+    __slots__ = ("best", "pos_first", "pos_last", "last_score", "positions")
+
+    def __init__(self, best, pos_first, pos_last, last_score, positions):
+        self.best = best              # min over real end positions
+        self.pos_first = pos_first    # first position attaining it
+        self.pos_last = pos_last      # last position attaining it
+        self.last_score = last_score  # score at position tlen-1 (NW)
+        self.positions = positions    # all minimal positions, or None
+
+
+def _filter_best_positions(best: int, positions, qlen: int, k_eff
+                           ) -> Tuple[int, List[int]]:
+    """Same contract as align._filter_locations, from (best, hit list)."""
+    overall = int(best)
+    if _neg1_candidate_exists(qlen):
+        overall = min(overall, qlen)
+    if overall > k_eff:
+        return -1, []
+    out: List[int] = []
+    if _neg1_candidate_exists(qlen) and qlen == overall:
+        out.append(-1)
+    if int(best) == overall:
+        out.extend(int(p) for p in positions)
+    return overall, out
+
+
+_BITPLANE_MAX_ALTS = 4
+
+
+@functools.lru_cache(maxsize=32)
+def _bigalpha_plan_cached(sigma: int, eq_key: bytes):
+    eqb = np.frombuffer(eq_key, dtype=bool).reshape(sigma, sigma).copy()
+    np.fill_diagonal(eqb, True)
+    cnt = eqb.sum(1)
+    universal = cnt >= sigma
+    live = ~universal
+    n_alts = int(cnt[live].max()) if live.any() else 1
+    if n_alts > _BITPLANE_MAX_ALTS:
+        return None
+    altset = np.full((sigma, n_alts), -1, np.int32)
+    for v in np.nonzero(live)[0]:
+        alts = np.nonzero(eqb[v])[0]
+        altset[v, :len(alts)] = alts
+    return altset, universal, n_alts
+
+
+def _bigalpha_plan(sigma: int, eq: np.ndarray):
+    """Host-side decomposition of the equality matrix for the bit-plane
+    kernels: per-symbol alternative-id table, universal-row mask (rows
+    matching everything ride the packed pad mask), and the alternative
+    count E.  None when some non-universal row matches more than
+    _BITPLANE_MAX_ALTS symbols.  Cached per equality matrix."""
+    eqb = np.ascontiguousarray(eq[:sigma, :sigma].astype(bool))
+    return _bigalpha_plan_cached(sigma, eqb.tobytes())
+
+
+def _bigalpha_route(sigma: int, eq: np.ndarray, nw_b: int):
+    """The bit-plane plan for a per-lane bucket past the per-lane kernels'
+    alphabet cap.  Where the JAX package would take its eq-stream kernels or
+    its XLA stream engine instead, raise: neither is ported yet."""
+    if os.environ.get("EDLIB_TPU_BITPLANE", "") != "0":
+        plan = _bigalpha_plan(sigma, eq)
+        if plan is not None and ck.bitplane_ok(nw_b, sigma, plan[2]):
+            return plan
+    raise NotImplementedError(
+        f"edlib_tpu_torch: a per-lane bucket with sigma+1 = {sigma + 1} > "
+        f"{ck.max_sigma1(nw_b, False)} whose equalities the bit-plane "
+        "kernels do not take (or EDLIB_TPU_BITPLANE=0) needs the eq-stream "
+        "kernels, not ported yet (ROADMAP Queue B 12)")
+
+
+def _bucket_profiles(queries, eq: np.ndarray, sigma: int, nw_b: int,
+                     dev) -> torch.Tensor:
+    """Query profiles int32 (B, sigma+1, nw_b) on the device, equal to
+    encode.build_peq_words of each query: identity profiles built in one
+    pass, then each symbol's row ORed with the rows of its equal symbols."""
+    B = len(queries)
+    qlens = np.fromiter((len(q) for q in queries), np.int32, B)
+    q_arr = np.zeros((B, max(int(qlens.max()), 1)), np.int32)
+    for row, q in enumerate(queries):
+        q_arr[row, :len(q)] = q
+    peq = ck.build_peq_device(torch.from_numpy(q_arr).to(dev),
+                              torch.from_numpy(qlens).to(dev), sigma, nw_b)
+    extra = np.argwhere(eq & ~np.eye(sigma, dtype=bool))
+    if len(extra):
+        ident = peq.clone()
+        for a, b in extra:
+            peq[:, a] |= ident[:, b]
+    return peq
+
+
+def _bucket_targets(t_list, sigma: int, t_scan: int) -> np.ndarray:
+    targets = np.full((len(t_list), t_scan), sigma, dtype=np.int32)
+    for row, t_ids in enumerate(t_list):
+        targets[row, :len(t_ids)] = t_ids
+    return targets
+
+
+def _run_bucket_bitplane(idxs, pairs, metas, sigma, plan, nw_b, t_scan,
+                         hin0, want_hits, dev) -> List[PairSummary]:
+    """One per-lane bucket of any alphabet size through the bit-plane
+    kernels: Eq rows rebuilt in the kernel from query-id bit planes."""
+    altset, universal, n_alts = plan
+    nb = ck.bitplane_nb(sigma)
+    sent = (1 << nb) - 1
+    R = nw_b * 32
+    B = len(idxs)
+    q_alts = np.full((B, n_alts, R), sent, np.int32)
+    pad_words = np.zeros((B, nw_b), np.uint32)
+    lo = np.zeros(B, np.int32)
+    hi = np.zeros(B, np.int32)
+    row_bit = (np.uint32(1) << (np.arange(R, dtype=np.uint32) % 32))
+    for row, i in enumerate(idxs):
+        q_ids, t_ids = pairs[i]
+        qlen = len(q_ids)
+        qv = np.asarray(q_ids, np.int64)
+        alts = altset[qv].T                        # (n_alts, qlen)
+        q_alts[row, :, :qlen] = np.where(alts >= 0, alts, sent)
+        always = np.ones(R, bool)
+        always[:qlen] = universal[qv]
+        pad_words[row] = np.bitwise_or.reduce(
+            np.where(always, row_bit, 0).reshape(nw_b, 32), axis=1)
+        lo[row] = metas[i][1]
+        hi[row] = metas[i][1] + len(t_ids)
+    targets = _bucket_targets([pairs[i][1] for i in idxs], sigma, t_scan)
+    outs = ck.reduce_flat_device_bitplane(
+        *(torch.from_numpy(a).to(dev) for a in (
+            q_alts, pad_words.view(np.int32), targets, lo, hi)),
+        hin0=hin0, sigma=sigma, chunk=_CHUNK, want_hits=want_hits)
+    best, pf, pl_, last = (o.cpu().numpy() for o in outs[:4])
+    hits = decode_hit_words(outs[4]) if want_hits else None
+    out = []
+    for row, i in enumerate(idxs):
+        w = metas[i][1]
+        positions = hits[row] - w if want_hits else None
+        out.append(PairSummary(int(best[row]), int(pf[row]) - w,
+                               int(pl_[row]) - w, int(last[row]), positions))
+    return out
+
+
+def _shw_banded_bucket(sweeper, peq, targets, lo, hi, kb, k_user,
+                       want_hits, shared):
+    """Banded SHW bucket: k-doubling ladder over the sliding-window
+    kernel, capped at the per-lane guaranteed bounds kb (>= each lane's
+    true best, so the capped run always completes every lane within the
+    k_user cutoff) — the device counterpart of the reference's SHW under
+    the doubling loop (edlib.cpp:58-78 banding + 154-160 boundaries).
+
+    Returns (best, pos_first, pos_last, positions) per lane, scan-column
+    space; not-found lanes (true best > k_user) report _BIG_SENTINEL /
+    empty positions.
+    """
+    B = len(kb)
+    k_lim = max(int(kb.max(initial=1)), 1)
+    if k_user >= 0:
+        k_lim = min(k_lim, max(int(k_user), 1))
+    best = np.full(B, _BIG_SENTINEL, np.int64)
+    pf = np.full(B, -1, np.int64)
+    pl_ = np.full(B, -1, np.int64)
+    done = np.zeros(B, bool)
+    k_cur = min(64, k_lim)
+    while True:
+        rb, rf, rl = sweeper.reduce_shw_banded(peq, targets, lo, hi, k_cur,
+                                               shared=shared)
+        newly = ~done & (rb[:B] <= k_cur)
+        best[newly] = rb[:B][newly]
+        pf[newly] = rf[:B][newly]
+        pl_[newly] = rl[:B][newly]
+        done |= newly
+        if done.all() or k_cur >= k_lim:
+            break
+        k_cur = min(k_cur * 2, k_lim)
+        if 2 * k_cur >= peq.shape[2] * 32:
+            # The next window would span every word: go straight to the
+            # guaranteed cap (one final rung instead of log2 full-width
+            # rungs).
+            k_cur = k_lim
+    positions: List[Optional[np.ndarray]] = [None] * B
+    if want_hits:
+        if done.any():
+            # All minimal cells of a found lane lie within +-best of the
+            # diagonal, so one hits pass at the found maximum covers all.
+            k_h = max(int(best[done].max()), 1)
+            bb = np.full(peq.shape[0], -(1 << 30), np.int64)
+            bb[:B][done] = best[done]
+            hits = sweeper.hits_shw_banded(peq, targets, lo, hi, bb, k_h,
+                                           shared=shared)
+            for b in range(B):
+                positions[b] = hits[b] if done[b] \
+                    else np.empty(0, np.int64)
+        else:
+            positions = [np.empty(0, np.int64) for _ in range(B)]
+    return best, pf, pl_, positions
+
+
+def _buckets(pairs):
+    """{(nw_b, t_scan): pair indices} and per-pair (nw_b, W, t_scan)."""
+    buckets: Dict[Tuple[int, int], List[int]] = defaultdict(list)
+    metas = []
+    for i, (q_ids, t_ids) in enumerate(pairs):
+        nw_b = _pow2_at_least(encode.num_words(len(q_ids)))
+        w = nw_b * 32 - len(q_ids)
+        t_scan = _pow2_at_least(len(t_ids) + w, floor=32)
+        buckets[(nw_b, t_scan)].append(i)
+        metas.append((nw_b, w, t_scan))
+    return buckets, metas
+
+
+def _is_shared(pairs, idxs) -> bool:
+    return (len(idxs) > 1
+            and all(pairs[i][1] is pairs[idxs[0]][1] for i in idxs))
+
+
+def _run_bucketed_summary(pairs: List[Tuple[np.ndarray, np.ndarray]],
+                          sigma: int, eq: np.ndarray, hin0: int,
+                          want_hits: bool, dev, shw_kb=None,
+                          k_user: int = -1) -> List[PairSummary]:
+    """Bucketed sweeps returning per-pair summaries (real position space):
+    a reduction pass, plus (only when the all-minimal-locations list is
+    needed) a packed hit-mask pass.  Buckets whose pairs all share one
+    target object read that one target."""
+    buckets, metas = _buckets(pairs)
+    out: List[Optional[PairSummary]] = [None] * len(pairs)
+    for (nw_b, t_scan), idxs in buckets.items():
+        shared = _is_shared(pairs, idxs)
+        if not (shared or sigma + 1 <= ck.max_sigma1(nw_b, False)):
+            plan = _bigalpha_route(sigma, eq, nw_b)
+            for i, summ in zip(idxs, _run_bucket_bitplane(
+                    idxs, pairs, metas, sigma, plan, nw_b, t_scan, hin0,
+                    want_hits, dev)):
+                out[i] = summ
+            continue
+        use_band = (shw_kb is not None and hin0 == 1
+                    and nw_b >= _band_min_words())
+        if (not shared and not use_band and sigma >= 32
+                and os.environ.get("EDLIB_TPU_BITPLANE", "") != "0"):
+            # Mid-size alphabets take the bit-plane kernels, as the JAX
+            # package routes them.
+            plan = _bigalpha_plan(sigma, eq)
+            if plan is not None and ck.bitplane_ok(nw_b, sigma, plan[2]):
+                for i, summ in zip(idxs, _run_bucket_bitplane(
+                        idxs, pairs, metas, sigma, plan, nw_b, t_scan,
+                        hin0, want_hits, dev)):
+                    out[i] = summ
+                continue
+        peq = _bucket_profiles([pairs[i][0] for i in idxs], eq, sigma, nw_b,
+                               dev)
+        lo = np.array([metas[i][1] for i in idxs], np.int64)
+        hi = lo + np.array([len(pairs[i][1]) for i in idxs], np.int64)
+        if shared:
+            targets = pairs[idxs[0]][1]
+        else:
+            targets = _bucket_targets([pairs[i][1] for i in idxs], sigma,
+                                      t_scan)
+        sweeper = Sweeper(dev, _CHUNK)
+        if use_band:
+            kb = np.array([shw_kb[i] for i in idxs], np.int64)
+            bbest, bpf, bpl, bpos = _shw_banded_bucket(
+                sweeper, peq, targets, lo, hi, kb, k_user, want_hits,
+                shared)
+            for row, i in enumerate(idxs):
+                w = metas[i][1]
+                positions = bpos[row] - w if want_hits else None
+                out[i] = PairSummary(int(bbest[row]), int(bpf[row]) - w,
+                                     int(bpl[row]) - w, _BIG_SENTINEL,
+                                     positions)
+            continue
+        best, pf, pl_, last = sweeper.reduce(peq, targets, lo, hi, hin0,
+                                             shared=shared)
+        if want_hits:
+            hit_cols = sweeper.hits(peq, targets, lo, hi, best, hin0,
+                                    shared=shared)
+        for row, i in enumerate(idxs):
+            w = metas[i][1]
+            positions = hit_cols[row] - w if want_hits else None
+            out[i] = PairSummary(int(best[row]), int(pf[row]) - w,
+                                 int(pl_[row]) - w, int(last[row]),
+                                 positions)
+    return out
+
+
+_NW_BAND_MIN_WORDS = 8  # band pruning pays only for multi-word queries
+
+
+def _band_min_words() -> int:
+    """Minimum bucket word count for the banded kernels
+    (EDLIB_TPU_BAND_MIN_WORDS, as in the JAX package)."""
+    return int(os.environ.get("EDLIB_TPU_BAND_MIN_WORDS",
+                              _NW_BAND_MIN_WORDS))
+
+
+def _run_bucketed_nw_banded(pairs: List[Tuple[np.ndarray, np.ndarray]],
+                            sigma: int, eq: np.ndarray, k_user: int,
+                            dev) -> np.ndarray:
+    """Batched banded NW distances with bucket-level k-doubling.
+
+    Returns (len(pairs),) int64: the exact distance where it is <= k_user
+    (always found when k_user < 0), else -1.  Each doubling reruns the
+    bucket with a wider static diagonal band; banded results > the current
+    k are discarded as unreliable (edlib.cpp:58-78 + 796-870).  Buckets too
+    small to band read the final column from the full reduce.
+    """
+    out = np.full(len(pairs), -1, np.int64)
+    buckets, metas = _buckets(pairs)
+    for (nw_b, t_scan), idxs in buckets.items():
+        shared = _is_shared(pairs, idxs)
+        if not (shared or sigma + 1 <= ck.max_sigma1(nw_b, False)):
+            # Full-sweep NW distance via the bit-plane reduce.
+            plan = _bigalpha_route(sigma, eq, nw_b)
+            summs = _run_bucket_bitplane(idxs, pairs, metas, sigma, plan,
+                                         nw_b, t_scan, 1, False, dev)
+            for row, i in enumerate(idxs):
+                out[i] = int(summs[row].last_score)
+            continue
+
+        B = len(idxs)
+        peq = _bucket_profiles([pairs[i][0] for i in idxs], eq, sigma, nw_b,
+                               dev)
+        hi = np.array([metas[i][1] + len(pairs[i][1]) for i in idxs],
+                      np.int64)
+        D = np.array([len(pairs[i][0]) - len(pairs[i][1]) for i in idxs],
+                     np.int64)
+        cap = max(max(len(pairs[i][0]), len(pairs[i][1])) for i in idxs)
+        if shared:
+            targets = pairs[idxs[0]][1]
+        else:
+            targets = _bucket_targets([pairs[i][1] for i in idxs], sigma,
+                                      t_scan)
+        sweeper = Sweeper(dev, _CHUNK)
+
+        if nw_b < _band_min_words():
+            lo = np.maximum(hi - 1, 0)
+            _, _, _, last = sweeper.reduce(peq, targets, lo, hi, 1,
+                                           shared=shared)
+            for row, i in enumerate(idxs):
+                out[i] = int(last[row])
+            continue
+
+        k_lim = cap if k_user < 0 else min(k_user, cap)
+        # Hamming cap: the bucket ladder at max over lanes of the bound
+        # finishes every lane (encode.nw_upper_bound).
+        hb_max = max(max((encode.nw_upper_bound(pairs[i][0], pairs[i][1],
+                                                eq) for i in idxs),
+                         default=1), 1)
+        k_lim = min(k_lim, hb_max)
+        k_cur = min(max(64, int(np.abs(D).min(initial=0))), k_lim)
+        done = np.zeros(B, bool)
+        while True:
+            feas = ~done & (np.abs(D) <= k_cur)
+            if feas.any():
+                # ceil((D-k)/2) / floor((D+k)/2) over the feasible lanes
+                d_lo = int(np.min(-((k_cur - D[feas]) // 2)))
+                d_hi = int(np.max((D[feas] + k_cur) // 2))
+                rl = sweeper.reduce_nw_banded(peq, targets, hi, d_lo, d_hi,
+                                              shared=shared)
+                newly = feas & (rl <= k_cur)
+                for row in np.nonzero(newly)[0]:
+                    out[idxs[row]] = int(rl[row])
+                done |= newly
+            if done.all() or k_cur >= k_lim:
+                break
+            k_cur = min(k_cur * 2, k_lim)
+    if k_user >= 0:
+        # The hamming cap can complete lanes whose distance exceeds the
+        # user k; keep the documented <=k_user-or-minus-1 contract.
+        out[out > k_user] = -1
+    return out
+
+
+def align_batch_device(queries, targets, mode="NW", task="distance", k=-1,
+                       additionalEqualities=None, device=None) -> List[dict]:
+    """edlib_tpu.batch.align_batch_device for tasks distance and locations
+    on `device` (a torch.device: the card, or the CPU for the plain
+    versions).  task="path" raises NotImplementedError."""
+    mode = AlignMode.parse(mode)
+    task = AlignTask.parse(task)
+    if task == AlignTask.PATH:
+        raise NotImplementedError(
+            "edlib_tpu_torch: task='path' is not ported yet "
+            "(ROADMAP Queue A 11)")
+    if k is None:
+        k = -1
+
+    # The device path needs a consistent byte space across the batch; fall
+    # back to per-pair align (each again a batch of one) for exotic
+    # hashable alphabets.
+    try:
+        byte_pairs = []
+        eq_pairs = None
+        map_cache: Dict[int, bytes] = {}
+
+        def to_bytes(s):
+            got = map_cache.get(id(s))
+            if got is None:
+                got = map_cache[id(s)] = encode._map_ascii(s)
+            return got
+
+        for q, t in zip(queries, targets):
+            byte_pairs.append((to_bytes(q), to_bytes(t)))
+        if additionalEqualities is not None:
+            eq_pairs = [(encode._eq_symbol_to_byte(a),
+                         encode._eq_symbol_to_byte(b))
+                        for a, b in additionalEqualities]
+    except encode.NeedsAlphabetMapping:
+        return [align(q, t, mode=mode, task=task, k=k,
+                      additionalEqualities=additionalEqualities,
+                      device=device)
+                for q, t in zip(queries, targets)]
+
+    glob = GlobalAlphabet()
+    # Encode each distinct object once: broadcast targets share one id
+    # array, which lets the bucketed sweeps detect shared-target buckets by
+    # object identity.
+    enc_cache: Dict[int, np.ndarray] = {}
+
+    def enc(seq: bytes) -> np.ndarray:
+        key = id(seq)
+        got = enc_cache.get(key)
+        if got is None:
+            got = enc_cache[key] = glob.encode(seq)
+        return got
+
+    id_pairs = [(enc(qb), enc(tb)) for qb, tb in byte_pairs]
+    sigma = glob.sigma
+    eq = encode.build_equality_matrix(bytes(glob.alphabet), eq_pairs)
+    k_eff = _INF if k < 0 else k
+
+    # Each distinct object's byte set once: a broadcast target of 1e5
+    # symbols is not re-scanned for every read.
+    byte_sets: Dict[int, frozenset] = {}
+
+    def byte_set(seq: bytes) -> frozenset:
+        got = byte_sets.get(id(seq))
+        if got is None:
+            got = byte_sets[id(seq)] = frozenset(seq)
+        return got
+
+    results: List[AlignResult] = []
+    main_idx = []  # indices with non-empty sequences needing device sweeps
+    for i, (q_ids, t_ids) in enumerate(id_pairs):
+        qb, tb = byte_pairs[i]
+        res = AlignResult(status=STATUS_OK,
+                          alphabet_length=len(byte_set(qb) | byte_set(tb)))
+        if len(q_ids) == 0 or len(t_ids) == 0:
+            # Early empty-sequence convention (edlib.cpp:166-184).
+            if mode == AlignMode.NW:
+                res.edit_distance = max(len(q_ids), len(t_ids))
+                res.end_locations = np.array([len(t_ids) - 1], np.int64)
+            else:
+                res.edit_distance = len(q_ids)
+                res.end_locations = np.array([-1], np.int64)
+            res.num_locations = 1
+        else:
+            main_idx.append(i)
+        results.append(res)
+
+    if main_idx and mode == AlignMode.NW:
+        dists = _run_bucketed_nw_banded([id_pairs[i] for i in main_idx],
+                                        sigma, eq, k, device)
+        for i, d in zip(main_idx, dists):
+            res = results[i]
+            if 0 <= d <= k_eff:
+                res.edit_distance = int(d)
+                res.end_locations = np.array([len(id_pairs[i][1]) - 1],
+                                             np.int64)
+                res.num_locations = 1
+    elif main_idx:
+        hin0 = 0 if mode == AlignMode.HW else 1
+        sweep_pairs = [id_pairs[i] for i in main_idx]
+        shw_kb = None
+        if mode == AlignMode.SHW:
+            # SHW minimal end positions never exceed Q-1+best with
+            # best <= min(k, Q), so columns beyond Q+min(k, Q) cannot
+            # contribute — truncate the scan (edlib.cpp:644-654).
+            trunc = []
+            slice_cache: Dict[Tuple[int, int], np.ndarray] = {}
+            for q_ids, t_ids in sweep_pairs:
+                lim = len(q_ids) + min(len(q_ids),
+                                       k if k >= 0 else len(q_ids))
+                if len(t_ids) > lim:
+                    # One slice object per (target, lim) so broadcast
+                    # targets stay shared.
+                    key = (id(t_ids), lim)
+                    if key not in slice_cache:
+                        slice_cache[key] = t_ids[:lim]
+                    t_ids = slice_cache[key]
+                trunc.append((q_ids, t_ids))
+            sweep_pairs = trunc
+            # Guaranteed per-pair bounds on the SHW best: best <= d_NW <=
+            # the hamming bound, and best <= Q, so the banded ladder capped
+            # there always completes every lane.
+            shw_kb = np.array(
+                [min(encode.nw_upper_bound(q, t, eq), max(len(q), 1))
+                 for q, t in sweep_pairs], np.int64)
+        summaries = _run_bucketed_summary(sweep_pairs, sigma, eq, hin0, True,
+                                          device, shw_kb=shw_kb, k_user=k)
+        for i, summ in zip(main_idx, summaries):
+            res = results[i]
+            best, positions = _filter_best_positions(
+                summ.best, summ.positions, len(id_pairs[i][0]), k_eff)
+            res.edit_distance = best
+            if best >= 0:
+                res.end_locations = np.array(positions, np.int64)
+                res.num_locations = len(positions)
+
+    if task == AlignTask.LOC:
+        _fill_start_locations(results, id_pairs, main_idx, mode, sigma, eq,
+                              device)
+    return [r.to_dict() for r in results]
+
+
+def _fill_start_locations(results, id_pairs, main_idx, mode, sigma, eq,
+                          dev):
+    """Start locations; HW batches every reversed-SHW re-run on the card."""
+    if mode != AlignMode.HW:
+        for i in main_idx:
+            res = results[i]
+            if res.edit_distance >= 0:
+                res.start_locations = np.zeros(res.num_locations, np.int64)
+        return
+
+    sub_pairs = []   # (reversed query, reversed target prefix) per re-run
+    sub_owner = []
+    for i in main_idx:
+        res = results[i]
+        if res.edit_distance < 0:
+            continue
+        res.start_locations = np.zeros(res.num_locations, np.int64)
+        q_ids, t_ids = id_pairs[i]
+        rq = q_ids[::-1].copy()
+        for j, e in enumerate(res.end_locations):
+            e = int(e)
+            if e == -1:
+                res.start_locations[j] = 0  # open edge case, edlib.cpp:237-249
+                continue
+            # The last minimal reversed-SHW position p satisfies
+            # p <= Q-1+e_d, so only the last Q+e_d target chars before e
+            # can matter (the band-death exit, edlib.cpp:644-654).
+            lim = len(q_ids) + res.edit_distance
+            rt_prefix = t_ids[max(0, e + 1 - lim):e + 1][::-1].copy()
+            sub_pairs.append((rq, rt_prefix))
+            sub_owner.append((i, j, e))
+
+    if not sub_pairs:
+        return
+    # Only the LAST minimal SHW position is needed (edlib.cpp:258-260): the
+    # reduce pass carries it directly, no hit pass.
+    summaries = _run_bucketed_summary(sub_pairs, sigma, eq, hin0=1,
+                                      want_hits=False, dev=dev)
+    for (i, j, e), summ in zip(sub_owner, summaries):
+        results[i].start_locations[j] = e - summ.pos_last

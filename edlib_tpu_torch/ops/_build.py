@@ -35,6 +35,16 @@ SIGNATURES = {
                               _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "myers_sweep_shared": [_I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P],
+    "myers_hits_lanes": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
+                         _P, _I, _P, _P],
+    "myers_hits_bitplane": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+                            _P, _I, _I, _P, _P, _I, _P, _P],
+    "myers_nw_banded": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P,
+                        _I, _P, _P, _P],
+    "myers_shw_banded": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P,
+                         _P, _I, _P, _P, _P, _P, _P],
+    "myers_shw_banded_hits": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
+                              _P, _P, _P, _I, _P, _P, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -3,18 +3,28 @@
 // the stream arrive as void*, every function returns the cudaError_t of its
 // launch (0 = cudaSuccess) and never synchronises or allocates.
 //
-// Three kernels, one thread per alignment lane:
+// Eight kernels, one thread per alignment lane.  Each replaces a kernel of
+// edlib_tpu/ops/pallas_kernel.py:
 //
-//   myers_reduce_lanes     replaces edlib_tpu/ops/pallas_kernel.py
-//                          _reduce_kernel (:434), per-lane form, launched by
-//                          _sweep_reduce_call (:580, pallas_call :605) through
-//                          reduce_flat_device (:1761).
-//   myers_reduce_bitplane  replaces the bit-plane form of the same kernel
+//   myers_reduce_lanes     _reduce_kernel (:434), per-lane form, launched by
+//                          _sweep_reduce_call (:580, pallas_call :605); its
+//                          shared form (shared=True, same call) is this
+//                          kernel with one target row for every lane.
+//   myers_reduce_bitplane  the bit-plane form of the same kernel
 //                          (_bitplane_tb :407, _bitplane_eq :415), launched by
 //                          _sweep_reduce_bitplane_call (:2013, pallas_call
-//                          :2040) through reduce_flat_device_bitplane (:2105).
-//   myers_sweep_shared     replaces _shared_kernel (:249), launched by
+//                          :2040).
+//   myers_sweep_shared     _shared_kernel (:249), launched by
 //                          sweep_best_pallas_shared (:325, pallas_call :342).
+//   myers_hits_lanes       _hits_kernel (:768), per-lane and shared forms,
+//                          launched by _sweep_hits_call (:855, pallas_call
+//                          :874).
+//   myers_hits_bitplane    its bit-plane form, _sweep_hits_bitplane_call
+//                          (:2062, pallas_call :2083).
+//   myers_nw_banded        _nw_banded_kernel (:961, pallas_call :1066).
+//   myers_shw_banded       _shw_banded_kernel (:1091, pallas_call :1215).
+//   myers_shw_banded_hits  _shw_banded_hits_kernel (:1243, pallas_call
+//                          :1348).
 //
 // What bounds them on this card: integer issue.  advance_word below is 20
 // two-input operations as written, 13 as Hopper issues them (a logic function
@@ -24,24 +34,35 @@
 // H100 SXM issues 64 INT32 operations per SM per clock: 132 SMs x 64 x
 // 1.98 GHz, about 16.7e12 operations/s.  The bytes are small beside that: one
 // symbol (4 B) per lane-column, the Eq words come from a few KB per lane that
-// stay in L1/L2.
+// stay in L1/L2; a hit mask writes one bit per lane-column.
 //
 // What this first design does about it: nothing yet.  Each thread keeps its
 // lane's Pv/Mv words and running reduction in registers (templated on the
-// word count for 1-8 words; more words keep their state in a global scratch
-// buffer laid out (NW, lanes) so a warp's accesses coalesce), loops over the
-// columns itself, and loads each column's symbol and Eq words from memory.  A
-// lane stops at its own window end hi, so padded candidates (hi = 0) cost
-// nothing.  The per-column loads are latency-bound when few lanes are
-// resident (a shared sweep of 32 stragglers runs on one warp); splitting the
-// target across blocks and a register-blocked Eq prefetch are later work.
+// word count for 1-8 words, on the band window width for 1, 2, 4, 8, 12 and
+// 16 words; other counts keep their state in a global scratch buffer laid out
+// (NW, lanes) so a warp's accesses coalesce), loops over the columns itself,
+// and loads each column's symbol and Eq words from memory.  A lane stops at
+// its own window end hi, so padded candidates (hi = 0) cost nothing.  The
+// per-column loads are latency-bound when few lanes are resident (a shared
+// sweep of 32 stragglers runs on one warp); splitting the target across
+// blocks and a register-blocked Eq prefetch are later work.
 //
 // Semantics are the TPU kernels' exactly:
 //   score starts at NW*32 (the padded bottom cell of column -1), hin of the
 //   top word is 0 (HW: free leading gap) or +1 (SHW/NW), and for scan columns
 //   c in [lo, hi):  best = min score, pfirst = first column reaching it,
-//   plast = last column reaching it; last = score at column hi-1.
+//   plast = last column reaching it; last = score at column hi-1; the hit
+//   mask has bit c%32 of word c/32 set where score == best.
 //   Columns past the row length are not scanned (callers keep hi <= T).
+// The banded kernels advance only the window of n_win words whose top word
+// for column c is woff[c / chunk] (nondecreasing).  Words below the window
+// keep the reset state (Pv = ~0, Mv = 0), which is the band's ramp init, so
+// a word entering the window needs no initialisation; words that left it are
+// never read again.  The window's top word takes hin = +1.  The carried score
+// is the window's bottom row: it starts at (woff[0] + n_win) * 32 and gains
+// 32 for every word the window slides down.  Outputs count only columns where
+// the window has reached the bottom word (woff == NW - n_win); a value above
+// the band's k is an overestimate, never below the true one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -74,11 +95,17 @@ __device__ __forceinline__ void advance_word(uint32_t& pv, uint32_t& mv,
   hpos = out_pos;
 }
 
+// Visitors: a sweep calls update(score, c, live) for every scanned column
+// c < min(hi, n_cols) and finish(end) after the last one.  live is false
+// where a banded window has not reached the bottom word.
+
+// (best, pfirst, plast) over [lo, hi) and last = score at hi-1.
 struct Reduction {
+  int lo, hi;
   int32_t best = kBig, pfirst = -1, plast = -1, last = kBig;
 
-  // Called for every scanned column c < hi.
-  __device__ __forceinline__ void update(int32_t score, int c, int lo, int hi) {
+  __device__ __forceinline__ void update(int32_t score, int c, bool live) {
+    if (!live) return;
     if (c >= lo) {
       if (score <= best) plast = c;
       if (score < best) {
@@ -87,6 +114,38 @@ struct Reduction {
       }
     }
     if (c == hi - 1) last = score;
+  }
+  __device__ __forceinline__ void finish(int) {}
+};
+
+// last = score at hi-1 only (the banded NW readout).
+struct LastScore {
+  int hi;
+  int32_t last = kBig;
+
+  __device__ __forceinline__ void update(int32_t score, int c, bool live) {
+    if (live && c == hi - 1) last = score;
+  }
+  __device__ __forceinline__ void finish(int) {}
+};
+
+// Bit c%32 of row[c/32] set where c >= lo and score == best.  Words with no
+// hit are left as the caller zeroed them.
+struct HitMask {
+  int lo;
+  int32_t best;
+  int32_t* row;
+  uint32_t mask = 0u;
+
+  __device__ __forceinline__ void update(int32_t score, int c, bool live) {
+    if (live && c >= lo && score == best) mask |= 1u << (c & 31);
+    if ((c & 31) == 31) {
+      if (mask) row[c >> 5] = static_cast<int32_t>(mask);
+      mask = 0u;
+    }
+  }
+  __device__ __forceinline__ void finish(int end) {
+    if (mask) row[(end - 1) >> 5] = static_cast<int32_t>(mask);
   }
 };
 
@@ -135,13 +194,11 @@ struct BitplaneEq {
 
 // Sweep one lane over columns [0, min(hi, n_cols)).  NW > 0: the word count,
 // state in registers.  NW == 0: nw words, state in scratch (stride apart).
-template <int NW, class Eq>
-__device__ __forceinline__ Reduction sweep_lane(Eq eq, int nw, int n_cols,
-                                                int lo, int hi,
-                                                uint32_t hin_pos,
-                                                uint32_t* spv, uint32_t* smv,
-                                                size_t stride) {
-  Reduction red;
+template <int NW, class Eq, class Visit>
+__device__ __forceinline__ void sweep_lane(Eq eq, int nw, int n_cols, int hi,
+                                           uint32_t hin_pos, uint32_t* spv,
+                                           uint32_t* smv, size_t stride,
+                                           Visit& v) {
   const int end = min(hi, n_cols);
   if constexpr (NW > 0) {
     uint32_t pv[NW], mv[NW];
@@ -157,7 +214,7 @@ __device__ __forceinline__ Reduction sweep_lane(Eq eq, int nw, int n_cols,
 #pragma unroll
       for (int w = 0; w < NW; ++w) advance_word(pv[w], mv[w], eq.word(w), hneg, hpos);
       score += static_cast<int32_t>(hpos) - static_cast<int32_t>(hneg);
-      red.update(score, c, lo, hi);
+      v.update(score, c, true);
     }
   } else {
     for (int w = 0; w < nw; ++w) {
@@ -175,10 +232,89 @@ __device__ __forceinline__ Reduction sweep_lane(Eq eq, int nw, int n_cols,
         smv[w * stride] = mv;
       }
       score += static_cast<int32_t>(hpos) - static_cast<int32_t>(hneg);
-      red.update(score, c, lo, hi);
+      v.update(score, c, true);
     }
   }
-  return red;
+  if (end > 0) v.finish(end);
+}
+
+// The band's sliding word window (see the header): woff (n_chunks,) top word
+// per chunk of `chunk` columns, n_win words wide, over a profile of nw words.
+struct Band {
+  const int32_t* woff;
+  int chunk, n_win, nw;
+};
+
+// Banded sweep of one lane over columns [0, min(hi, n_cols)), hin = +1 into
+// the window's top word.  NWIN > 0: the window width, window state in
+// registers (words slide down through them).  NWIN == 0: all nw words' state
+// in scratch, the window indexed in place.
+template <int NWIN, class Visit>
+__device__ __forceinline__ void sweep_banded(PeqEq eq, Band band, int n_cols,
+                                             int hi, uint32_t* spv,
+                                             uint32_t* smv, size_t stride,
+                                             Visit& v) {
+  const int end = min(hi, n_cols);
+  if (end <= 0) return;
+  const int n_win = NWIN > 0 ? NWIN : band.n_win;
+  const int bottom = band.nw - n_win;
+  int off = band.woff[0];
+  int32_t score = (off + n_win) * 32;
+  uint32_t pv[NWIN > 0 ? NWIN : 1], mv[NWIN > 0 ? NWIN : 1];
+  if constexpr (NWIN > 0) {
+#pragma unroll
+    for (int w = 0; w < NWIN; ++w) {
+      pv[w] = ~0u;
+      mv[w] = 0u;
+    }
+  } else {
+    for (int w = 0; w < band.nw; ++w) {
+      spv[w * stride] = ~0u;
+      smv[w * stride] = 0u;
+    }
+  }
+  for (int c0 = 0; c0 < end; c0 += band.chunk) {
+    if (c0 > 0) {
+      const int next = band.woff[c0 / band.chunk];
+      const int slide = next - off;
+      score += slide * 32;
+      off = next;
+      if constexpr (NWIN > 0) {
+        // Words move up one register per slid word; the words entering at
+        // the bottom have never been advanced, so they hold the reset.
+        for (int s = 0; s < min(slide, NWIN); ++s) {
+#pragma unroll
+          for (int w = 0; w + 1 < NWIN; ++w) {
+            pv[w] = pv[w + 1];
+            mv[w] = mv[w + 1];
+          }
+          pv[NWIN - 1] = ~0u;
+          mv[NWIN - 1] = 0u;
+        }
+      }
+    }
+    const bool at_bottom = off == bottom;
+    const int c1 = min(c0 + band.chunk, end);
+    for (int c = c0; c < c1; ++c) {
+      eq.at(c);
+      uint32_t hneg = 0u, hpos = 1u;
+      if constexpr (NWIN > 0) {
+#pragma unroll
+        for (int w = 0; w < NWIN; ++w)
+          advance_word(pv[w], mv[w], eq.word(off + w), hneg, hpos);
+      } else {
+        for (int w = off; w < off + n_win; ++w) {
+          uint32_t p = spv[w * stride], m = smv[w * stride];
+          advance_word(p, m, eq.word(w), hneg, hpos);
+          spv[w * stride] = p;
+          smv[w * stride] = m;
+        }
+      }
+      score += static_cast<int32_t>(hpos) - static_cast<int32_t>(hneg);
+      v.update(score, c, at_bottom);
+    }
+  }
+  v.finish(end);
 }
 
 struct LaneArgs {
@@ -194,7 +330,10 @@ struct LaneArgs {
   int32_t* pfirst;
   int32_t* plast;
   int32_t* last;
-  uint32_t* scratch;  // 2 * nw * n_lanes words when NW == 0
+  uint32_t* scratch;       // 2 * nw * n_lanes words for the scratch paths
+  const int32_t* want;     // hit kernels: the best each lane's mask marks
+  int32_t* hits;           // hit kernels: (n_lanes, n_out) words, zeroed
+  int n_out;
 };
 
 __device__ __forceinline__ void store(const LaneArgs& a, int lane,
@@ -205,16 +344,45 @@ __device__ __forceinline__ void store(const LaneArgs& a, int lane,
   a.last[lane] = r.last;
 }
 
+__device__ __forceinline__ PeqEq peq_eq(const uint32_t* peq, int s1, int nw,
+                                        const LaneArgs& a, int lane) {
+  return PeqEq{peq + (size_t)a.prow[lane] * s1 * nw,
+               a.targets + (size_t)a.trow[lane] * a.n_cols, nw, nullptr};
+}
+
+__device__ __forceinline__ BitplaneEq bitplane_eq(
+    const uint32_t* planes, const uint32_t* pad, int nw, int nb, int n_alts,
+    int wildcard, const LaneArgs& a, int lane) {
+  const int row = a.prow[lane];
+  BitplaneEq eq;
+  eq.planes = planes + (size_t)row * n_alts * nb * nw;
+  eq.pad = pad + (size_t)row * nw;
+  eq.tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
+  eq.nw = nw;
+  eq.nb = nb;
+  eq.n_alts = n_alts;
+  eq.wildcard = wildcard;
+  return eq;
+}
+
+__device__ __forceinline__ uint32_t* scratch_pv(const LaneArgs& a, int lane) {
+  return a.scratch + lane;
+}
+
+__device__ __forceinline__ uint32_t* scratch_mv(const LaneArgs& a, int nw,
+                                                int lane) {
+  return a.scratch + (size_t)nw * a.n_lanes + lane;
+}
+
 template <int NW>
 __global__ void __launch_bounds__(kThreads)
 reduce_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.n_lanes) return;
-  PeqEq eq{peq + (size_t)a.prow[lane] * s1 * nw,
-           a.targets + (size_t)a.trow[lane] * a.n_cols, nw, nullptr};
-  const Reduction r = sweep_lane<NW>(
-      eq, nw, a.n_cols, a.lo[lane], a.hi[lane], a.hin_pos, a.scratch + lane,
-      a.scratch + (size_t)nw * a.n_lanes + lane, (size_t)a.n_lanes);
+  Reduction r{a.lo[lane], a.hi[lane]};
+  sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, r.hi, a.hin_pos,
+                 scratch_pv(a, lane), scratch_mv(a, nw, lane),
+                 (size_t)a.n_lanes, r);
   store(a, lane, r);
 }
 
@@ -225,19 +393,75 @@ reduce_bitplane_kernel(const uint32_t* __restrict__ planes,
                        int n_alts, int wildcard, LaneArgs a) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.n_lanes) return;
-  const int row = a.prow[lane];
-  BitplaneEq eq;
-  eq.planes = planes + (size_t)row * n_alts * nb * nw;
-  eq.pad = pad + (size_t)row * nw;
-  eq.tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
-  eq.nw = nw;
-  eq.nb = nb;
-  eq.n_alts = n_alts;
-  eq.wildcard = wildcard;
-  const Reduction r = sweep_lane<NW>(
-      eq, nw, a.n_cols, a.lo[lane], a.hi[lane], a.hin_pos, a.scratch + lane,
-      a.scratch + (size_t)nw * a.n_lanes + lane, (size_t)a.n_lanes);
+  Reduction r{a.lo[lane], a.hi[lane]};
+  sweep_lane<NW>(bitplane_eq(planes, pad, nw, nb, n_alts, wildcard, a, lane),
+                 nw, a.n_cols, r.hi, a.hin_pos, scratch_pv(a, lane),
+                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, r);
   store(a, lane, r);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+hits_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.n_lanes) return;
+  HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
+  sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, a.hi[lane],
+                 a.hin_pos, scratch_pv(a, lane), scratch_mv(a, nw, lane),
+                 (size_t)a.n_lanes, h);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+hits_bitplane_kernel(const uint32_t* __restrict__ planes,
+                     const uint32_t* __restrict__ pad, int nw, int nb,
+                     int n_alts, int wildcard, LaneArgs a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.n_lanes) return;
+  HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
+  sweep_lane<NW>(bitplane_eq(planes, pad, nw, nb, n_alts, wildcard, a, lane),
+                 nw, a.n_cols, a.hi[lane], a.hin_pos, scratch_pv(a, lane),
+                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, h);
+}
+
+template <int NWIN>
+__global__ void __launch_bounds__(kThreads)
+nw_banded_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
+                 LaneArgs a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.n_lanes) return;
+  LastScore r{a.hi[lane]};
+  sweep_banded<NWIN>(peq_eq(peq, s1, band.nw, a, lane), band, a.n_cols, r.hi,
+                     scratch_pv(a, lane), scratch_mv(a, band.nw, lane),
+                     (size_t)a.n_lanes, r);
+  a.last[lane] = r.last;
+}
+
+template <int NWIN>
+__global__ void __launch_bounds__(kThreads)
+shw_banded_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
+                  LaneArgs a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.n_lanes) return;
+  Reduction r{a.lo[lane], a.hi[lane]};
+  sweep_banded<NWIN>(peq_eq(peq, s1, band.nw, a, lane), band, a.n_cols, r.hi,
+                     scratch_pv(a, lane), scratch_mv(a, band.nw, lane),
+                     (size_t)a.n_lanes, r);
+  a.best[lane] = r.best;
+  a.pfirst[lane] = r.pfirst;
+  a.plast[lane] = r.plast;
+}
+
+template <int NWIN>
+__global__ void __launch_bounds__(kThreads)
+shw_banded_hits_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
+                       LaneArgs a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.n_lanes) return;
+  HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
+  sweep_banded<NWIN>(peq_eq(peq, s1, band.nw, a, lane), band, a.n_cols,
+                     a.hi[lane], scratch_pv(a, lane),
+                     scratch_mv(a, band.nw, lane), (size_t)a.n_lanes, h);
 }
 
 // Every lane against one target.  The block stages kChunk symbols at a time in
@@ -309,14 +533,32 @@ int blocks_for(int n_lanes) { return (n_lanes + kThreads - 1) / kThreads; }
 
 LaneArgs lane_args(const void* targets, int n_cols, const void* lo,
                    const void* hi, const void* prow, const void* trow,
-                   int n_lanes, int hin0, void* best, void* pfirst,
-                   void* plast, void* last, void* scratch) {
-  return LaneArgs{static_cast<const int32_t*>(targets), n_cols,
-                  static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi),
-                  static_cast<const int32_t*>(prow), static_cast<const int32_t*>(trow),
-                  n_lanes, hin0 ? 1u : 0u, static_cast<int32_t*>(best),
-                  static_cast<int32_t*>(pfirst), static_cast<int32_t*>(plast),
-                  static_cast<int32_t*>(last), static_cast<uint32_t*>(scratch)};
+                   int n_lanes, int hin0, void* scratch) {
+  LaneArgs a{};
+  a.targets = static_cast<const int32_t*>(targets);
+  a.n_cols = n_cols;
+  a.lo = static_cast<const int32_t*>(lo);
+  a.hi = static_cast<const int32_t*>(hi);
+  a.prow = static_cast<const int32_t*>(prow);
+  a.trow = static_cast<const int32_t*>(trow);
+  a.n_lanes = n_lanes;
+  a.hin_pos = hin0 ? 1u : 0u;
+  a.scratch = static_cast<uint32_t*>(scratch);
+  return a;
+}
+
+void set_reduction(LaneArgs& a, void* best, void* pfirst, void* plast,
+                   void* last) {
+  a.best = static_cast<int32_t*>(best);
+  a.pfirst = static_cast<int32_t*>(pfirst);
+  a.plast = static_cast<int32_t*>(plast);
+  a.last = static_cast<int32_t*>(last);
+}
+
+void set_hits(LaneArgs& a, const void* want, void* hits, int n_out) {
+  a.want = static_cast<const int32_t*>(want);
+  a.hits = static_cast<int32_t*>(hits);
+  a.n_out = n_out;
 }
 
 }  // namespace
@@ -336,6 +578,62 @@ LaneArgs lane_args(const void* targets, int n_cols, const void* lo,
     default: LAUNCH(0); break;        \
   }
 
+// Band windows are 1, 2 or a multiple of 4 words wide
+// (pallas_kernel._WIN_ROUND), or the whole profile: these widths get
+// register-resident windows, any other the scratch path.
+#define MYERS_DISPATCH_WIN(n_win, LAUNCH) \
+  switch (n_win) {                        \
+    case 1: LAUNCH(1); break;             \
+    case 2: LAUNCH(2); break;             \
+    case 4: LAUNCH(4); break;             \
+    case 8: LAUNCH(8); break;             \
+    case 12: LAUNCH(12); break;           \
+    case 16: LAUNCH(16); break;           \
+    default: LAUNCH(0); break;            \
+  }
+
+namespace {
+
+// The three banded kernels' common launch.  kind 0: NW (out0 = last);
+// 1: SHW reduce (out0..2 = best, pfirst, plast); 2: SHW hits.
+int launch_banded(int kind, int device, const void* peq, int s1, int nw,
+                  const void* targets, int n_cols, const void* woff,
+                  int n_chunks, int chunk, int n_win, const void* lo,
+                  const void* hi, const void* prow, const void* trow,
+                  int n_lanes, void* out0, void* out1, void* out2,
+                  const void* want, void* hits, int n_out, void* scratch,
+                  void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (n_win < 1 || n_win > nw || chunk < 1 || n_chunks < 1 ||
+      (long long)n_chunks * chunk < n_cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, 1,
+                         scratch);
+  set_reduction(a, out0, out1, out2, out0);
+  set_hits(a, want, hits, n_out);
+  const Band band{static_cast<const int32_t*>(woff), chunk, n_win, nw};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* p = static_cast<const uint32_t*>(peq);
+  const int blocks = blocks_for(n_lanes);
+  if (kind == 0) {
+#define LAUNCH(N) nw_banded_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
+    MYERS_DISPATCH_WIN(n_win, LAUNCH)
+#undef LAUNCH
+  } else if (kind == 1) {
+#define LAUNCH(N) shw_banded_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
+    MYERS_DISPATCH_WIN(n_win, LAUNCH)
+#undef LAUNCH
+  } else {
+#define LAUNCH(N) shw_banded_hits_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
+    MYERS_DISPATCH_WIN(n_win, LAUNCH)
+#undef LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 extern "C" {
 
 // Every entry point takes the CUDA device of its operands first (the
@@ -350,8 +648,9 @@ int myers_reduce_lanes(int device, const void* peq, int s1, int nw,
                        void* plast, void* last, void* scratch, void* stream) {
   if (n_lanes <= 0) return 0;
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  const LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes,
-                               hin0, best, pfirst, plast, last, scratch);
+  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
+                         scratch);
+  set_reduction(a, best, pfirst, plast, last);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
 #define LAUNCH(N) reduce_lanes_kernel<N><<<blocks_for(n_lanes), kThreads, 0, st>>>(p, s1, nw, a)
@@ -371,8 +670,9 @@ int myers_reduce_bitplane(int device, const void* planes, const void* pad,
   if (n_lanes <= 0) return 0;
   if (nb < 1 || nb > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  const LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes,
-                               hin0, best, pfirst, plast, last, scratch);
+  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
+                         scratch);
+  set_reduction(a, best, pfirst, plast, last);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* pl = static_cast<const uint32_t*>(planes);
   const uint32_t* pd = static_cast<const uint32_t*>(pad);
@@ -382,6 +682,93 @@ int myers_reduce_bitplane(int device, const void* planes, const void* pad,
   MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+// Operands as myers_reduce_lanes plus want int32 (n_lanes,), the best each
+// lane marks; hits int32 (n_lanes, n_out), n_out = ceil(n_cols / 32), zeroed
+// by the caller.
+int myers_hits_lanes(int device, const void* peq, int s1, int nw,
+                     const void* targets, int n_cols, const void* lo,
+                     const void* hi, const void* prow, const void* trow,
+                     int n_lanes, int hin0, const void* want, void* hits,
+                     int n_out, void* scratch, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
+                         scratch);
+  set_hits(a, want, hits, n_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* p = static_cast<const uint32_t*>(peq);
+#define LAUNCH(N) hits_lanes_kernel<N><<<blocks_for(n_lanes), kThreads, 0, st>>>(p, s1, nw, a)
+  MYERS_DISPATCH_NW(nw, LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Operands as myers_reduce_bitplane; want and hits as myers_hits_lanes.
+int myers_hits_bitplane(int device, const void* planes, const void* pad,
+                        int nw, int nb, int n_alts, int wildcard,
+                        const void* targets, int n_cols, const void* lo,
+                        const void* hi, const void* prow, const void* trow,
+                        int n_lanes, int hin0, const void* want, void* hits,
+                        int n_out, void* scratch, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (nb < 1 || nb > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
+                         scratch);
+  set_hits(a, want, hits, n_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* pl = static_cast<const uint32_t*>(planes);
+  const uint32_t* pd = static_cast<const uint32_t*>(pad);
+#define LAUNCH(N)                                                       \
+  hits_bitplane_kernel<N><<<blocks_for(n_lanes), kThreads, 0, st>>>( \
+      pl, pd, nw, nb, n_alts, wildcard, a)
+  MYERS_DISPATCH_NW(nw, LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The banded kernels: peq, targets, lo, hi, prow, trow as
+// myers_reduce_lanes (hin is +1); woff int32 (n_chunks,) nondecreasing in
+// [0, nw - n_win], n_chunks * chunk >= n_cols.
+//
+// myers_nw_banded: last int32 (n_lanes,), the score at hi-1 (no lo).
+int myers_nw_banded(int device, const void* peq, int s1, int nw,
+                    const void* targets, int n_cols, const void* woff,
+                    int n_chunks, int chunk, int n_win, const void* hi,
+                    const void* prow, const void* trow, int n_lanes,
+                    void* last, void* scratch, void* stream) {
+  return launch_banded(0, device, peq, s1, nw, targets, n_cols, woff,
+                       n_chunks, chunk, n_win, nullptr, hi, prow, trow,
+                       n_lanes, last, nullptr, nullptr, nullptr, nullptr, 0,
+                       scratch, stream);
+}
+
+// myers_shw_banded: best, pfirst, plast int32 (n_lanes,) over [lo, hi).
+int myers_shw_banded(int device, const void* peq, int s1, int nw,
+                     const void* targets, int n_cols, const void* woff,
+                     int n_chunks, int chunk, int n_win, const void* lo,
+                     const void* hi, const void* prow, const void* trow,
+                     int n_lanes, void* best, void* pfirst, void* plast,
+                     void* scratch, void* stream) {
+  return launch_banded(1, device, peq, s1, nw, targets, n_cols, woff,
+                       n_chunks, chunk, n_win, lo, hi, prow, trow, n_lanes,
+                       best, pfirst, plast, nullptr, nullptr, 0, scratch,
+                       stream);
+}
+
+// myers_shw_banded_hits: want and hits as myers_hits_lanes.
+int myers_shw_banded_hits(int device, const void* peq, int s1, int nw,
+                          const void* targets, int n_cols, const void* woff,
+                          int n_chunks, int chunk, int n_win, const void* lo,
+                          const void* hi, const void* prow, const void* trow,
+                          int n_lanes, const void* want, void* hits,
+                          int n_out, void* scratch, void* stream) {
+  return launch_banded(2, device, peq, s1, nw, targets, n_cols, woff,
+                       n_chunks, chunk, n_win, lo, hi, prow, trow, n_lanes,
+                       nullptr, nullptr, nullptr, want, hits, n_out, scratch,
+                       stream);
 }
 
 // peq uint32 (s1, nw, n_lanes); target int32 (n_cols,); best/pos int32

@@ -1,14 +1,22 @@
 """Myers bit-vector sweeps with in-sweep reduction: CUDA kernels and their
 plain PyTorch versions.
 
-Port of the parts of edlib_tpu/ops/pallas_kernel.py on the read-mapping path.
-Three kernels, in csrc/myers.cu (its header says what bounds them):
+Port of the sweeps of edlib_tpu/ops/pallas_kernel.py.  Eight kernels, in
+csrc/myers.cu (its header says what bounds them):
 
   reduce_lanes     per-lane target rows, Eq from each lane's query profile
-                   (pallas_kernel._reduce_kernel, per-lane form);
+                   (pallas_kernel._reduce_kernel, per-lane form; with one
+                   target row for every lane, its shared form);
   reduce_bitplane  the same with Eq rebuilt from query-id bit planes
                    (the kernel's bit-plane form, alphabets past 32);
-  sweep_shared     every lane against ONE target (_shared_kernel).
+  sweep_shared     every lane against ONE target (_shared_kernel);
+  hits_lanes       packed mask of the columns reaching a given best
+                   (_hits_kernel, per-lane and shared forms);
+  hits_bitplane    the same with bit-plane Eq (_hits_kernel, bit-plane);
+  nw_banded        NW score at hi-1 inside a sliding word window
+                   (_nw_banded_kernel);
+  shw_banded       banded SHW (best, pfirst, plast) (_shw_banded_kernel);
+  shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel).
 
 Each wrapper checks its operands, runs the plain version when they lie on
 the CPU, and otherwise launches its kernel on the current stream, raises on
@@ -20,14 +28,18 @@ Layouts follow the JAX package's flat wrappers, (B, S1, NW) profiles and
 tensors holding the uint32 bit patterns (torch has no uint32 arithmetic on
 the CPU); the kernels read them as uint32.  In the plain versions int32 add
 and << wrap like uint32, and the logical >> 31 is written (x >> 31) & 1.
+A hit mask is int32 (B, ceil(T/32)): bit j of word g marks scan column
+32g + j.
 
 Lane indices (prow, trow) name each lane's profile row and target row, so a
-caller verifying maxc candidate windows per read, or fanning a read over
-target segments, never materialises the repeated profiles or targets.
+caller verifying maxc candidate windows per read, fanning a read over
+target segments, or sweeping every lane against one shared target, never
+materialises the repeated profiles or targets.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from edlib_tpu_torch.encode import WORD_SIZE
@@ -36,7 +48,58 @@ from edlib_tpu_torch.ops import _build
 _BIG = 0x3FFFFFFF          # best of a lane that saw no column (pallas _BIG)
 _I32 = torch.int32
 # Kernel launches per wrapper, counted where each wrapper launches its kernel.
-_LAUNCHES = {"reduce_lanes": 0, "reduce_bitplane": 0, "sweep_shared": 0}
+_LAUNCHES = {"reduce_lanes": 0, "reduce_bitplane": 0, "sweep_shared": 0,
+             "hits_lanes": 0, "hits_bitplane": 0, "nw_banded": 0,
+             "shw_banded": 0, "shw_banded_hits": 0}
+
+# ---------------------------------------------------------------------------
+# Routing constants and the band schedule, as the JAX package computes them.
+# ---------------------------------------------------------------------------
+
+# pallas_kernel.vmem_limit_bytes() off the TPU (and on v4-v6 TPUs): the
+# budget max_sigma1 and bitplane_ok divide.  This is a routing constant that
+# makes both packages send the same bucket to the same kernel; the card's
+# kernels have no such limit.
+_ROUTING_VMEM_BYTES = 96 * 1024 * 1024
+_TILE_LANES = 8 * 128      # the TPU kernels' lane tile, in the same formulas
+_WIN_ROUND = 4             # band window widths round up to this many words
+
+
+def max_sigma1(n_words: int, shared: bool) -> int:
+    """Largest profile row count (sigma+1) the JAX package's per-lane
+    (64) or shared (257) kernels take at this word count
+    (pallas_kernel.max_sigma1 at the 96 MiB routing budget)."""
+    vmem_rows = max(1, (_ROUTING_VMEM_BYTES // 4)
+                    // (max(1, n_words) * _TILE_LANES * 4))
+    return min(257 if shared else 64, vmem_rows)
+
+
+def bitplane_ok(n_words: int, sigma: int, n_alts: int) -> bool:
+    """Whether the JAX package routes this bucket to the bit-plane kernels
+    (pallas_kernel.bitplane_ok at the routing budget)."""
+    rows = n_alts * bitplane_nb(sigma) * n_words
+    return rows * _TILE_LANES * 4 <= _ROUTING_VMEM_BYTES // 4
+
+
+def nw_band_schedule(n_words: int, n_chunks: int, chunk: int,
+                     d_lo: int, d_hi: int):
+    """(per-chunk window offsets int32 (n_chunks,), window width) for live
+    scan diagonals row - col in [d_lo, d_hi] (pallas_kernel.nw_band_schedule).
+
+    The window covers [w_lo, w_hi) of the exact band in every chunk (wider is
+    still exact), rounded up to _WIN_ROUND words, and reaches the bottom word
+    by the chunk holding each feasible lane's final column."""
+    j = np.arange(n_chunks, dtype=np.int64)
+    c_first = j * chunk
+    c_last = c_first + chunk - 1
+    w_hi = np.clip((c_last + d_hi) // 32 + 1, 1, n_words)
+    w_lo = np.clip((c_first + d_lo) // 32, 0, n_words - 1)
+    w_lo = np.minimum(w_lo, w_hi - 1)
+    width = int(np.max(w_hi - w_lo))
+    n_win = min(-(-width // _WIN_ROUND) * _WIN_ROUND, n_words)
+    woff = np.clip(w_lo, 0, n_words - n_win)
+    woff = np.maximum.accumulate(woff)
+    return woff.astype(np.int32), n_win
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +175,10 @@ def bitplane_planes(q_alts: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Plain versions: lanes vectorised, a Python loop over columns.
+# Plain versions: lanes vectorised, a Python loop over columns.  A sweep
+# yields (column, score, live) for every column up to the furthest hi; a
+# visitor reduces what it yields as the kernels' visitors do (live is False
+# where a band window has not reached the bottom word).
 # ---------------------------------------------------------------------------
 
 
@@ -130,22 +196,20 @@ def _advance_word(pv, mv, eq, hneg, hpos):
     return mh | ~(xv | ph), ph & xv, out_neg, out_pos
 
 
-def _sweep_plain(eq_at, n_cols: int, n_words: int, lo, hi, hin0: int):
-    """Advance every lane over columns [0, min(max hi, n_cols)); eq_at(c)
-    returns the column's Eq words, a list of NW int32 (B,) tensors.
-    Returns (best, pfirst, plast, last) with the kernels' semantics."""
-    B = lo.shape[0]
-    dev = lo.device
-    pv = [torch.full((B,), -1, dtype=_I32, device=dev)] * n_words
-    mv = [torch.zeros(B, dtype=_I32, device=dev)] * n_words
-    score = torch.full((B,), n_words * WORD_SIZE, dtype=_I32, device=dev)
-    best = torch.full((B,), _BIG, dtype=_I32, device=dev)
-    pfirst = torch.full((B,), -1, dtype=_I32, device=dev)
-    plast = pfirst.clone()
-    last = best.clone()
-    zero = torch.zeros(B, dtype=_I32, device=dev)
-    hpos0 = torch.full((B,), hin0, dtype=_I32, device=dev)
-    end = min(n_cols, int(hi.max())) if B else 0
+def _columns_end(n_cols: int, hi) -> int:
+    return min(n_cols, int(hi.max())) if hi.shape[0] else 0
+
+
+def _sweep_plain(eq_at, end: int, n_words: int, n_lanes: int, dev,
+                 hin0: int):
+    """Advance every lane over columns [0, end); eq_at(c) returns the
+    column's Eq words, a list of NW int32 (B,) tensors."""
+    pv = [torch.full((n_lanes,), -1, dtype=_I32, device=dev)] * n_words
+    mv = [torch.zeros(n_lanes, dtype=_I32, device=dev)] * n_words
+    score = torch.full((n_lanes,), n_words * WORD_SIZE, dtype=_I32,
+                       device=dev)
+    zero = torch.zeros(n_lanes, dtype=_I32, device=dev)
+    hpos0 = torch.full((n_lanes,), hin0, dtype=_I32, device=dev)
     for c in range(end):
         eqs = eq_at(c)
         hneg, hpos = zero, hpos0
@@ -153,6 +217,45 @@ def _sweep_plain(eq_at, n_cols: int, n_words: int, lo, hi, hin0: int):
             pv[w], mv[w], hneg, hpos = _advance_word(pv[w], mv[w], eqs[w],
                                                      hneg, hpos)
         score = score + hpos - hneg
+        yield c, score, True
+
+
+def _sweep_banded_plain(words_at, end: int, n_words: int, n_lanes: int, dev,
+                        woff, chunk: int, n_win: int):
+    """The banded kernels' sweep: only window words [woff[c // chunk],
+    +n_win) advance, hin = +1 into the window top, the score is the window's
+    bottom row; words_at(c) returns the column's (B, NW) Eq words."""
+    woff = [int(x) for x in woff]
+    pv = [torch.full((n_lanes,), -1, dtype=_I32, device=dev)] * n_words
+    mv = [torch.zeros(n_lanes, dtype=_I32, device=dev)] * n_words
+    off = woff[0] if woff else 0
+    score = torch.full((n_lanes,), (off + n_win) * WORD_SIZE, dtype=_I32,
+                       device=dev)
+    zero = torch.zeros(n_lanes, dtype=_I32, device=dev)
+    one = torch.ones(n_lanes, dtype=_I32, device=dev)
+    for c in range(end):
+        if c and c % chunk == 0:
+            nxt = woff[c // chunk]
+            score = score + (nxt - off) * WORD_SIZE
+            off = nxt
+        words = words_at(c)
+        hneg, hpos = zero, one
+        for w in range(off, off + n_win):
+            pv[w], mv[w], hneg, hpos = _advance_word(pv[w], mv[w],
+                                                     words[:, w], hneg, hpos)
+        score = score + hpos - hneg
+        yield c, score, off == n_words - n_win
+
+
+def _reduction(columns, lo, hi):
+    """(best, pfirst, plast, last) over the live columns in [lo, hi)."""
+    best = torch.full_like(lo, _BIG)
+    pfirst = torch.full_like(lo, -1)
+    plast = pfirst.clone()
+    last = best.clone()
+    for c, score, live in columns:
+        if not live:
+            continue
         in_win = (lo <= c) & (hi > c)
         upd = (score < best) & in_win
         pfirst = torch.where(upd, c, pfirst)
@@ -162,28 +265,39 @@ def _sweep_plain(eq_at, n_cols: int, n_words: int, lo, hi, hin0: int):
     return best, pfirst, plast, last
 
 
-def reduce_lanes_plain(peq, targets, lo, hi, prow, trow, hin0: int):
-    """Plain version of reduce_lanes (same operands and outputs)."""
+def _hit_words(columns, lo, hi, best, n_cols: int):
+    """int32 (B, ceil(n_cols/32)) mask of live columns in [lo, hi) whose
+    score equals best."""
+    out = torch.zeros((lo.shape[0], -(-n_cols // WORD_SIZE)), dtype=_I32,
+                      device=lo.device)
+    for c, score, live in columns:
+        if not live:
+            continue
+        hit = ((score == best) & (lo <= c) & (hi > c)).to(_I32)
+        out[:, c // WORD_SIZE] |= hit << (c % WORD_SIZE)
+    return out
+
+
+def _peq_columns(peq, targets, hi, prow, trow, hin0):
+    """Plain sweep of per-lane profiles over per-lane target rows."""
     n_words = peq.shape[2]
-    n_cols = targets.shape[1]
-    end = min(n_cols, int(hi.max())) if lo.shape[0] else 0
+    end = _columns_end(targets.shape[1], hi)
     prof = peq[prow.long()]                               # (B, S1, NW)
     tg = targets[trow.long(), :end]                       # (B, end)
-    lanes = torch.arange(lo.shape[0], device=lo.device)
+    lanes = torch.arange(hi.shape[0], device=hi.device)
 
     def eq_at(c):
         words = prof[lanes, tg[:, c].long()]              # (B, NW)
         return [words[:, w] for w in range(n_words)]
 
-    return _sweep_plain(eq_at, n_cols, n_words, lo, hi, hin0)
+    return _sweep_plain(eq_at, end, n_words, hi.shape[0], hi.device, hin0)
 
 
-def reduce_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
-                          hin0: int, nb: int, n_alts: int, wildcard: int):
-    """Plain version of reduce_bitplane (same operands and outputs)."""
+def _bitplane_columns(planes, pad, targets, hi, prow, trow, hin0, nb,
+                      n_alts, wildcard):
+    """Plain sweep with Eq rebuilt from query-id bit planes."""
     n_words = pad.shape[1]
-    n_cols = targets.shape[1]
-    end = min(n_cols, int(hi.max())) if lo.shape[0] else 0
+    end = _columns_end(targets.shape[1], hi)
     pl = planes[prow.long()]                              # (B, E*nb*NW)
     pd = pad[prow.long()]                                 # (B, NW)
     tg = targets[trow.long(), :end]
@@ -204,7 +318,31 @@ def reduce_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
             words.append(acc)
         return words
 
-    return _sweep_plain(eq_at, n_cols, n_words, lo, hi, hin0)
+    return _sweep_plain(eq_at, end, n_words, hi.shape[0], hi.device, hin0)
+
+
+def _banded_columns(peq, targets, woff, hi, prow, trow, n_win, chunk):
+    """Plain banded sweep of per-lane profiles over per-lane target rows."""
+    end = _columns_end(targets.shape[1], hi)
+    prof = peq[prow.long()]
+    tg = targets[trow.long(), :end]
+    lanes = torch.arange(hi.shape[0], device=hi.device)
+    return _sweep_banded_plain(
+        lambda c: prof[lanes, tg[:, c].long()], end, peq.shape[2],
+        hi.shape[0], hi.device, woff.tolist(), chunk, n_win)
+
+
+def reduce_lanes_plain(peq, targets, lo, hi, prow, trow, hin0: int):
+    """Plain version of reduce_lanes (same operands and outputs)."""
+    return _reduction(_peq_columns(peq, targets, hi, prow, trow, hin0), lo,
+                      hi)
+
+
+def reduce_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
+                          hin0: int, nb: int, n_alts: int, wildcard: int):
+    """Plain version of reduce_bitplane (same operands and outputs)."""
+    return _reduction(_bitplane_columns(planes, pad, targets, hi, prow, trow,
+                                        hin0, nb, n_alts, wildcard), lo, hi)
 
 
 def sweep_shared_plain(peq_t, target, hin0: int, col_lo: int, col_hi: int):
@@ -219,9 +357,45 @@ def sweep_shared_plain(peq_t, target, hin0: int, col_lo: int, col_hi: int):
         words = peq_t[syms[c]]                            # (NW, B)
         return [words[w] for w in range(n_words)]
 
-    best, pfirst, _, _ = _sweep_plain(eq_at, target.shape[0], n_words, lo,
-                                      hi, hin0)
+    end = _columns_end(target.shape[0], hi)
+    best, pfirst, _, _ = _reduction(
+        _sweep_plain(eq_at, end, n_words, B, dev, hin0), lo, hi)
     return best, pfirst
+
+
+def hits_lanes_plain(peq, targets, lo, hi, prow, trow, best, hin0: int):
+    """Plain version of hits_lanes (same operands and output)."""
+    return _hit_words(_peq_columns(peq, targets, hi, prow, trow, hin0), lo,
+                      hi, best, targets.shape[1])
+
+
+def hits_bitplane_plain(planes, pad, targets, lo, hi, prow, trow, best,
+                        hin0: int, nb: int, n_alts: int, wildcard: int):
+    """Plain version of hits_bitplane (same operands and output)."""
+    return _hit_words(_bitplane_columns(planes, pad, targets, hi, prow, trow,
+                                        hin0, nb, n_alts, wildcard), lo, hi,
+                      best, targets.shape[1])
+
+
+def nw_banded_plain(peq, targets, woff, hi, prow, trow, n_win: int,
+                    chunk: int):
+    """Plain version of nw_banded (same operands and output)."""
+    cols = _banded_columns(peq, targets, woff, hi, prow, trow, n_win, chunk)
+    return _reduction(cols, torch.zeros_like(hi), hi)[3]
+
+
+def shw_banded_plain(peq, targets, woff, lo, hi, prow, trow, n_win: int,
+                     chunk: int):
+    """Plain version of shw_banded (same operands and outputs)."""
+    cols = _banded_columns(peq, targets, woff, hi, prow, trow, n_win, chunk)
+    return _reduction(cols, lo, hi)[:3]
+
+
+def shw_banded_hits_plain(peq, targets, woff, lo, hi, prow, trow, best,
+                          n_win: int, chunk: int):
+    """Plain version of shw_banded_hits (same operands and output)."""
+    cols = _banded_columns(peq, targets, woff, hi, prow, trow, n_win, chunk)
+    return _hit_words(cols, lo, hi, best, targets.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -253,9 +427,9 @@ def _check(name: str, t: torch.Tensor, what: str, ndim: int) -> None:
         raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def _check_lanes(name: str, *vecs) -> int:
-    n = vecs[0].shape[0]
-    for v, what in zip(vecs, ("lo", "hi", "prow", "trow")):
+def _check_lanes(name: str, vecs: dict) -> int:
+    n = next(iter(vecs.values())).shape[0]
+    for what, v in vecs.items():
         _check(name, v, what, 1)
         if v.shape[0] != n:
             raise ValueError(f"{name}: {what} has {v.shape[0]} lanes, "
@@ -263,18 +437,62 @@ def _check_lanes(name: str, *vecs) -> int:
     return n
 
 
-def _lane_outputs(n: int, dev):
-    return [torch.empty(n, dtype=_I32, device=dev) for _ in range(4)]
+def _check_planes(name, planes, pad, nb: int, n_alts: int) -> None:
+    _check(name, planes, "planes", 2)
+    _check(name, pad, "pad", 2)
+    nw = pad.shape[1]
+    if planes.shape[1] != n_alts * nb * nw or planes.shape[0] != pad.shape[0]:
+        raise ValueError(f"{name}: planes {tuple(planes.shape)} do not match "
+                         f"pad {tuple(pad.shape)} with n_alts={n_alts}, "
+                         f"nb={nb}")
+    if not 1 <= nb <= 9:
+        raise ValueError(f"{name}: nb={nb} outside [1, 9]")
 
 
-def _scratch(n_words: int, n_lanes: int, dev) -> torch.Tensor:
-    """State buffer of the generic (more than 8 words) kernel path."""
-    size = 2 * n_words * n_lanes if n_words > 8 else 1
+def _check_band(name, peq, targets, woff, n_win: int, chunk: int) -> None:
+    _check(name, woff, "woff", 1)
+    nw = peq.shape[2]
+    if not 1 <= n_win <= nw or chunk < 1:
+        raise ValueError(f"{name}: n_win={n_win} outside [1, {nw}] or "
+                         f"chunk={chunk} < 1")
+    if woff.shape[0] * chunk < targets.shape[1]:
+        raise ValueError(f"{name}: {woff.shape[0]} window offsets of {chunk} "
+                         f"columns do not cover {targets.shape[1]} columns")
+    if woff.numel() and not bool((woff.min() >= 0) & (woff.max() <= nw - n_win)
+                                 & (woff[1:] >= woff[:-1]).all()):
+        raise ValueError(f"{name}: window offsets must be nondecreasing in "
+                         f"[0, {nw - n_win}]")
+
+
+def _lane_outputs(n: int, dev, count: int = 4):
+    return [torch.empty(n, dtype=_I32, device=dev) for _ in range(count)]
+
+
+def _hit_output(n: int, n_cols: int, dev) -> torch.Tensor:
+    return torch.zeros((n, -(-n_cols // WORD_SIZE)), dtype=_I32, device=dev)
+
+
+def _scratch(n_words: int, n_lanes: int, dev, full: bool = False
+             ) -> torch.Tensor:
+    """State buffer of the kernels' generic paths: more than 8 words, or
+    (full) a band window of a width without a register path, which the
+    banded kernels pick themselves."""
+    size = 2 * n_words * n_lanes if full or n_words > 8 else 1
     return torch.empty(size, dtype=_I32, device=dev)
 
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    lib = _build.load()
+    _build.check(lib, getattr(lib, fn)(*args), name)
+    _LAUNCHES[name] += 1
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
 
 
 def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int):
@@ -289,7 +507,7 @@ def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int):
     name = "reduce_lanes"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
-    n = _check_lanes(name, lo, hi, prow, trow)
+    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
     if not _on_cuda(name, peq, targets, lo, hi, prow, trow):
         return reduce_lanes_plain(peq, targets, lo, hi, prow, trow, hin0)
     s1, nw = peq.shape[1], peq.shape[2]
@@ -297,15 +515,10 @@ def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int):
     out = _lane_outputs(n, dev)
     if n == 0:
         return tuple(out)
-    scratch = _scratch(nw, n, dev)
-    lib = _build.load()
-    err = lib.myers_reduce_lanes(
-        dev.index, peq.data_ptr(), s1, nw, targets.data_ptr(),
-        targets.shape[1], lo.data_ptr(), hi.data_ptr(), prow.data_ptr(),
-        trow.data_ptr(), n, int(hin0), *(o.data_ptr() for o in out),
-        scratch.data_ptr(), _stream(dev))
-    _build.check(lib, err, name)
-    _LAUNCHES["reduce_lanes"] += 1
+    _launch(name, "myers_reduce_lanes", dev.index, peq.data_ptr(), s1, nw,
+            targets.data_ptr(), targets.shape[1],
+            *_ptrs(lo, hi, prow, trow), n, int(hin0), *_ptrs(*out),
+            _scratch(nw, n, dev).data_ptr(), _stream(dev))
     return tuple(out)
 
 
@@ -317,33 +530,21 @@ def reduce_bitplane(planes, pad, targets, lo, hi, prow, trow, hin0: int,
     symbol matching every row.  Other operands and outputs as reduce_lanes.
     """
     name = "reduce_bitplane"
-    _check(name, planes, "planes", 2)
-    _check(name, pad, "pad", 2)
+    _check_planes(name, planes, pad, nb, n_alts)
     _check(name, targets, "targets", 2)
-    n = _check_lanes(name, lo, hi, prow, trow)
-    nw = pad.shape[1]
-    if planes.shape[1] != n_alts * nb * nw or planes.shape[0] != pad.shape[0]:
-        raise ValueError(f"{name}: planes {tuple(planes.shape)} do not match "
-                         f"pad {tuple(pad.shape)} with n_alts={n_alts}, "
-                         f"nb={nb}")
-    if not 1 <= nb <= 9:
-        raise ValueError(f"{name}: nb={nb} outside [1, 9]")
+    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
     if not _on_cuda(name, planes, pad, targets, lo, hi, prow, trow):
         return reduce_bitplane_plain(planes, pad, targets, lo, hi, prow,
                                      trow, hin0, nb, n_alts, wildcard)
+    nw = pad.shape[1]
     dev = planes.device
     out = _lane_outputs(n, dev)
     if n == 0:
         return tuple(out)
-    scratch = _scratch(nw, n, dev)
-    lib = _build.load()
-    err = lib.myers_reduce_bitplane(
-        dev.index, planes.data_ptr(), pad.data_ptr(), nw, nb, n_alts,
-        wildcard, targets.data_ptr(), targets.shape[1], lo.data_ptr(),
-        hi.data_ptr(), prow.data_ptr(), trow.data_ptr(), n, int(hin0),
-        *(o.data_ptr() for o in out), scratch.data_ptr(), _stream(dev))
-    _build.check(lib, err, name)
-    _LAUNCHES["reduce_bitplane"] += 1
+    _launch(name, "myers_reduce_bitplane", dev.index, planes.data_ptr(),
+            pad.data_ptr(), nw, nb, n_alts, wildcard, targets.data_ptr(),
+            targets.shape[1], *_ptrs(lo, hi, prow, trow), n, int(hin0),
+            *_ptrs(*out), _scratch(nw, n, dev).data_ptr(), _stream(dev))
     return tuple(out)
 
 
@@ -361,21 +562,159 @@ def sweep_shared(peq_t, target, hin0: int, col_lo: int, col_hi: int):
         return sweep_shared_plain(peq_t, target, hin0, col_lo, col_hi)
     nw, n = peq_t.shape[1], peq_t.shape[2]
     dev = peq_t.device
-    best, pos = _lane_outputs(n, dev)[:2]
+    best, pos = _lane_outputs(n, dev, 2)
     if n == 0:
         return best, pos
-    scratch = _scratch(nw, n, dev)
-    lib = _build.load()
-    err = lib.myers_sweep_shared(
-        dev.index, peq_t.data_ptr(), nw, n, target.data_ptr(),
-        target.shape[0], int(hin0), int(col_lo), int(col_hi),
-        best.data_ptr(), pos.data_ptr(), scratch.data_ptr(), _stream(dev))
-    _build.check(lib, err, name)
-    _LAUNCHES["sweep_shared"] += 1
+    _launch(name, "myers_sweep_shared", dev.index, peq_t.data_ptr(), nw, n,
+            target.data_ptr(), target.shape[0], int(hin0), int(col_lo),
+            int(col_hi), best.data_ptr(), pos.data_ptr(),
+            _scratch(nw, n, dev).data_ptr(), _stream(dev))
     return best, pos
 
 
-KERNELS = (reduce_lanes, reduce_bitplane, sweep_shared)
+def hits_lanes(peq, targets, lo, hi, prow, trow, best, hin0: int):
+    """Packed hit mask of each lane's columns that reach `best`.
+
+    Operands as reduce_lanes plus best int32 (B,); returns int32
+    (B, ceil(T/32)), bit j of word g set iff scan column 32g+j lies in
+    [lo, hi) and its score equals best (a lane with best = -(1<<30) has
+    none).  With one target row and trow = 0 it is the shared form."""
+    name = "hits_lanes"
+    _check(name, peq, "peq", 3)
+    _check(name, targets, "targets", 2)
+    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow,
+                                best=best))
+    if not _on_cuda(name, peq, targets, lo, hi, prow, trow, best):
+        return hits_lanes_plain(peq, targets, lo, hi, prow, trow, best, hin0)
+    s1, nw = peq.shape[1], peq.shape[2]
+    dev = peq.device
+    hits = _hit_output(n, targets.shape[1], dev)
+    if n == 0:
+        return hits
+    _launch(name, "myers_hits_lanes", dev.index, peq.data_ptr(), s1, nw,
+            targets.data_ptr(), targets.shape[1],
+            *_ptrs(lo, hi, prow, trow), n, int(hin0), best.data_ptr(),
+            hits.data_ptr(), hits.shape[1], _scratch(nw, n, dev).data_ptr(),
+            _stream(dev))
+    return hits
+
+
+def hits_bitplane(planes, pad, targets, lo, hi, prow, trow, best, hin0: int,
+                  nb: int, n_alts: int, wildcard: int):
+    """hits_lanes with bit-plane Eq; operands as reduce_bitplane plus
+    best, output as hits_lanes."""
+    name = "hits_bitplane"
+    _check_planes(name, planes, pad, nb, n_alts)
+    _check(name, targets, "targets", 2)
+    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow,
+                                best=best))
+    if not _on_cuda(name, planes, pad, targets, lo, hi, prow, trow, best):
+        return hits_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
+                                   best, hin0, nb, n_alts, wildcard)
+    nw = pad.shape[1]
+    dev = planes.device
+    hits = _hit_output(n, targets.shape[1], dev)
+    if n == 0:
+        return hits
+    _launch(name, "myers_hits_bitplane", dev.index, planes.data_ptr(),
+            pad.data_ptr(), nw, nb, n_alts, wildcard, targets.data_ptr(),
+            targets.shape[1], *_ptrs(lo, hi, prow, trow), n, int(hin0),
+            best.data_ptr(), hits.data_ptr(), hits.shape[1],
+            _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return hits
+
+
+def _banded_common(name, peq, targets, woff, n_win, chunk, lanes: dict):
+    _check(name, peq, "peq", 3)
+    _check(name, targets, "targets", 2)
+    _check_band(name, peq, targets, woff, n_win, chunk)
+    n = _check_lanes(name, lanes)
+    on_cuda = _on_cuda(name, peq, targets, woff, *lanes.values())
+    return n, on_cuda
+
+
+def _band_head(peq, targets, woff, n_win: int, chunk: int, n: int):
+    """The banded entry points' leading arguments, after the device."""
+    nw = peq.shape[2]
+    scratch = _scratch(nw, n, peq.device, full=True)
+    head = (peq.data_ptr(), peq.shape[1], nw, targets.data_ptr(),
+            targets.shape[1], woff.data_ptr(), woff.shape[0], int(chunk),
+            int(n_win))
+    return head, scratch
+
+
+def nw_banded(peq, targets, woff, hi, prow, trow, n_win: int, chunk: int):
+    """Banded NW: each lane's score at scan column hi-1, advancing only the
+    window words [woff[c // chunk], +n_win) at column c.
+
+    peq, targets, hi, prow, trow as reduce_lanes; woff int32 (n_chunks,)
+    nondecreasing in [0, NW - n_win] with n_chunks * chunk >= T.  Returns
+    int32 (B,): exact where the distance is within the band, otherwise an
+    overestimate (never below the distance); _BIG where the window had not
+    reached the bottom word at hi-1."""
+    name = "nw_banded"
+    n, on_cuda = _banded_common(name, peq, targets, woff, n_win, chunk,
+                                dict(hi=hi, prow=prow, trow=trow))
+    if not on_cuda:
+        return nw_banded_plain(peq, targets, woff, hi, prow, trow, n_win,
+                               chunk)
+    dev = peq.device
+    (last,) = _lane_outputs(n, dev, 1)
+    if n == 0:
+        return last
+    head, scratch = _band_head(peq, targets, woff, n_win, chunk, n)
+    _launch(name, "myers_nw_banded", dev.index, *head,
+            *_ptrs(hi, prow, trow), n, last.data_ptr(), scratch.data_ptr(),
+            _stream(dev))
+    return last
+
+
+def shw_banded(peq, targets, woff, lo, hi, prow, trow, n_win: int,
+               chunk: int):
+    """Banded SHW reduce: (best, pfirst, plast) int32 (B,) over columns in
+    [lo, hi) where the window has reached the bottom word; operands as
+    nw_banded plus lo.  Exact for lanes whose best is within the band."""
+    name = "shw_banded"
+    n, on_cuda = _banded_common(name, peq, targets, woff, n_win, chunk,
+                                dict(lo=lo, hi=hi, prow=prow, trow=trow))
+    if not on_cuda:
+        return shw_banded_plain(peq, targets, woff, lo, hi, prow, trow,
+                                n_win, chunk)
+    dev = peq.device
+    out = _lane_outputs(n, dev, 3)
+    if n == 0:
+        return tuple(out)
+    head, scratch = _band_head(peq, targets, woff, n_win, chunk, n)
+    _launch(name, "myers_shw_banded", dev.index, *head,
+            *_ptrs(lo, hi, prow, trow), n, *_ptrs(*out), scratch.data_ptr(),
+            _stream(dev))
+    return tuple(out)
+
+
+def shw_banded_hits(peq, targets, woff, lo, hi, prow, trow, best,
+                    n_win: int, chunk: int):
+    """Banded SHW hit mask: as hits_lanes over the columns where the window
+    has reached the bottom word; operands as shw_banded plus best."""
+    name = "shw_banded_hits"
+    n, on_cuda = _banded_common(name, peq, targets, woff, n_win, chunk,
+                                dict(lo=lo, hi=hi, prow=prow, trow=trow,
+                                     best=best))
+    if not on_cuda:
+        return shw_banded_hits_plain(peq, targets, woff, lo, hi, prow, trow,
+                                     best, n_win, chunk)
+    dev = peq.device
+    hits = _hit_output(n, targets.shape[1], dev)
+    if n == 0:
+        return hits
+    head, scratch = _band_head(peq, targets, woff, n_win, chunk, n)
+    _launch(name, "myers_shw_banded_hits", dev.index, *head,
+            *_ptrs(lo, hi, prow, trow), n, best.data_ptr(), hits.data_ptr(),
+            hits.shape[1], scratch.data_ptr(), _stream(dev))
+    return hits
+
+
+KERNELS = (reduce_lanes, reduce_bitplane, sweep_shared, hits_lanes,
+           hits_bitplane, nw_banded, shw_banded, shw_banded_hits)
 
 
 def launch_counts() -> dict:
@@ -390,7 +729,8 @@ def reset_launch_counts() -> None:
 
 # ---------------------------------------------------------------------------
 # The JAX package's flat signatures (one profile row and one target row per
-# lane), for callers and tests that hold per-lane operands.
+# lane, or one shared target), for callers and tests that hold per-lane
+# operands.
 # ---------------------------------------------------------------------------
 
 
@@ -409,24 +749,63 @@ def _pad_cols(targets: torch.Tensor, fill: int, chunk: int):
     return torch.cat([targets, pad], 1)
 
 
-def reduce_flat_device(peq, targets, lo, hi, hin0: int, chunk: int = 256):
+def reduce_flat_device(peq, targets, lo, hi, hin0: int, chunk: int = 256,
+                       want_hits: bool = False):
     """pallas_kernel.reduce_flat_device: peq (B, S1, NW), targets (B, T),
-    lo/hi (B,) -> (best, pfirst, plast, last) (B,) int32."""
+    lo/hi (B,) -> (best, pfirst, plast, last) (B,) int32, plus the hit
+    words int32 (B, ceil(T/32)) at best when want_hits."""
     rows = _identity_rows(lo.shape[0], lo.device)
-    return reduce_lanes(peq, _pad_cols(targets, peq.shape[1] - 1, chunk), lo,
-                        hi, rows, rows, hin0)
+    tg = _pad_cols(targets, peq.shape[1] - 1, chunk)
+    out = reduce_lanes(peq, tg, lo, hi, rows, rows, hin0)
+    if not want_hits:
+        return out
+    hits = hits_lanes(peq, tg, lo, hi, rows, rows, out[0], hin0)
+    return out + (hits[:, :-(-targets.shape[1] // WORD_SIZE)],)
 
 
 def reduce_flat_device_bitplane(q_alts, pad_words, targets, lo, hi,
-                                hin0: int, sigma: int, chunk: int = 256):
+                                hin0: int, sigma: int, chunk: int = 256,
+                                want_hits: bool = False):
     """pallas_kernel.reduce_flat_device_bitplane: q_alts int32 (B, E, R)
     alternative ids per query row (sentinel where none), pad_words (B, NW),
-    targets (B, T) in [0, sigma] with sigma the wildcard."""
+    targets (B, T) in [0, sigma] with sigma the wildcard.  Returns as
+    reduce_flat_device."""
     nb = bitplane_nb(sigma)
     rows = _identity_rows(lo.shape[0], lo.device)
-    return reduce_bitplane(bitplane_planes(q_alts, nb), pad_words,
-                           _pad_cols(targets, sigma, chunk), lo, hi, rows, rows,
-                           hin0, nb, q_alts.shape[1], sigma)
+    planes = bitplane_planes(q_alts, nb)
+    tg = _pad_cols(targets, sigma, chunk)
+    args = (planes, pad_words, tg, lo, hi, rows, rows)
+    out = reduce_bitplane(*args, hin0, nb, q_alts.shape[1], sigma)
+    if not want_hits:
+        return out
+    hits = hits_bitplane(*args, out[0], hin0, nb, q_alts.shape[1], sigma)
+    return out + (hits[:, :-(-targets.shape[1] // WORD_SIZE)],)
+
+
+def hits_flat_device_shared(peq, target_scan, lo, hi, best, hin0: int,
+                            fill_sym: int, chunk: int = 256):
+    """pallas_kernel.hits_flat_device_shared: every lane against the one
+    target_scan (L,), padded with fill_sym to whole chunks; returns the hit
+    words int32 (B, ceil(L/chunk) * chunk / 32)."""
+    L = target_scan.shape[0]
+    tg = target_scan.new_full((-(-L // chunk) * chunk,), fill_sym)
+    tg[:L] = target_scan
+    B = lo.shape[0]
+    return hits_lanes(peq, tg[None], lo, hi, _identity_rows(B, lo.device),
+                      torch.zeros(B, dtype=_I32, device=lo.device), best,
+                      hin0)
+
+
+def nw_banded_flat_device(peq, targets, hi, d_lo: int, d_hi: int,
+                          chunk: int = 256):
+    """pallas_kernel.nw_banded_flat_device: banded NW scores (B,) int32 for
+    live diagonals [d_lo, d_hi], with the JAX package's band schedule."""
+    n_chunks = -(-targets.shape[1] // chunk)
+    woff, n_win = nw_band_schedule(peq.shape[2], n_chunks, chunk, d_lo, d_hi)
+    rows = _identity_rows(hi.shape[0], hi.device)
+    return nw_banded(peq, _pad_cols(targets, peq.shape[1] - 1, chunk),
+                     torch.from_numpy(woff).to(hi.device), hi, rows, rows,
+                     n_win, chunk)
 
 
 def sweep_best_shared(peq, target, hin0: int, col_lo: int, col_hi: int):

@@ -221,6 +221,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(TypeError, match="int32"):
         ck.sweep_shared(torch.zeros(5, 1, 4, dtype=torch.int64),
                         torch.zeros(10, dtype=torch.int32), 0, 0, 10)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ck.hits_lanes(torch.zeros(2, 5, 1, **meta),
+                      torch.zeros(2, 10, **meta), *lanes,
+                      torch.zeros(4, **meta), 0)
+    with pytest.raises(ValueError, match="best has 5 lanes"):
+        ck.hits_lanes(torch.zeros(2, 5, 1, dtype=torch.int32),
+                      torch.zeros(2, 10, dtype=torch.int32),
+                      *[torch.zeros(4, dtype=torch.int32)] * 4,
+                      torch.zeros(5, dtype=torch.int32), 0)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
