@@ -6,7 +6,9 @@ Phases, each of which exits non-zero on any failure:
 1. Build the CUDA kernels from edlib_tpu_torch/ops/csrc with nvcc (sm_90a)
    and print the card's name and power limit.
 2. Hold every kernel against its plain PyTorch version on the card, at small
-   shapes, for exact equality (every output is an integer).
+   shapes, for exact equality (every output is an integer); the capture
+   kernel at NW 1, 4, 8, 16 and 64 (register and read-back forms), both
+   hin0, with and without Ph/Mh, over a ragged last chunk.
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -31,8 +33,8 @@ Phases, each of which exits non-zero on any failure:
 7-10. align_batch at full width, one phase per path, each with its launch
    counts zeroed just before and read just after the call, a warm repeat
    that must agree, a subsample of 128 pairs equal to device="cpu" (the
-   plain versions), and 4 sampled pairs equal to a numpy DP (distance,
-   every end location, start locations):
+   plain versions; phases 7 and 11 share one), and 4 sampled pairs equal
+   to a numpy DP (distance, every end location, start locations):
    7. HW locations, shared target: 10,240 reads x 120 bp, windows of one
       random 100,000-bp target with 6% substitutions (reduce_lanes on the
       shared row and the per-lane start re-runs, hits_lanes);
@@ -42,8 +44,20 @@ Phases, each of which exits non-zero on any failure:
       300-bp random tail (shw_banded, shw_banded_hits);
    10. HW locations, sigma=100, per-lane: 8,192 reads x 120 bp against
       their own 1,000-bp windows (reduce_bitplane, hits_bitplane).
-11. Each new kernel timed and held against its plain version on its phase's
-   operands, over every column.
+11-12. align_batch with task="path" at full width, checked as 7-10 (the
+   numpy DP also walks the window with edlib's move preference and gives
+   the CIGAR), plus: every CIGAR valid (it consumes the whole query and the
+   window [start, end], '=' on equal and 'X' on unequal symbols, and its I,
+   D and X count the distance), and every window on the capture route:
+   11. HW path on phase 7's batch (capture; reduce_lanes and hits_lanes for
+      the locations), 10,240 windows in one (4-word, 128-column) bucket;
+   12. NW path, 8,192 pairs of a random 500-bp query and a copy with 3%
+      edits: 16-word windows of 512 columns (1,024 for copies past 512 bp;
+      nw_banded for the distances, capture).
+   Each path phase also profiles one batched-windows call alone: the
+   capture kernel's device time, the decode and walk's, and peak memory.
+13. Each kernel of phases 7-12 timed and held against its plain version on
+   its phase's operands, over every column.
 
 Output: the kernels' JSON line, the end-to-end JSON line, the card line, and
 last {"ok": true, "device": {...}}.  Data comes from --seed.
@@ -55,6 +69,7 @@ import argparse
 import functools
 import inspect
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -94,6 +109,9 @@ HW_READS, HW_QLEN, HW_TLEN, HW_RATE = 10_240, 120, 100_000, 0.06
 PAIRS, PAIR_LEN, PAIR_EDITS, SHW_TAIL = 8_192, 1_000, 0.03, 300
 BP_READS, BP_QLEN, BP_WIN, BP_SIGMA = 8_192, 120, 1_000, 100
 SUBSAMPLE, DP_SAMPLES = 128, 4
+# align_batch task="path" phases: phase 7's HW batch, and NW pairs of 500 bp
+# (qlen * wlen <= 2^18, so every window takes the capture kernel).
+PATH_PAIRS, PATH_LEN = 8_192, 500
 KERNEL_SOURCE = "edlib_tpu_torch/ops/csrc/myers.cu"
 REPLACES = {
     "reduce_lanes": "edlib_tpu/ops/pallas_kernel.py:605",
@@ -104,6 +122,7 @@ REPLACES = {
     "nw_banded": "edlib_tpu/ops/pallas_kernel.py:1066",
     "shw_banded": "edlib_tpu/ops/pallas_kernel.py:1215",
     "shw_banded_hits": "edlib_tpu/ops/pallas_kernel.py:1348",
+    "capture": "edlib_tpu/ops/pallas_kernel.py:2635",
 }
 
 
@@ -221,6 +240,81 @@ def dp_align(q, t, mode: str, task: str) -> dict:
             rr = dp_last_row(q[::-1], t[:e + 1][::-1], False)[1:]
             starts.append(e - int(np.nonzero(rr == rr.min())[0][-1]))
     return {"editDistance": best, "locations": list(zip(starts, ends))}
+
+
+def dp_path(q, t, mode: str) -> dict:
+    """dp_align's editDistance and locations (task "locations"), and the
+    extended CIGAR of the first location pair: the full NW matrix of the
+    query against that window, walked back from its last cell with edlib's
+    move preference (up = I, then left = D, then diagonal: '=' where the
+    value is unchanged, else 'X'; edlib.cpp:1020-1130)."""
+    want = dp_align(q, t, mode, "locations")
+    start, end = want["locations"][0]
+    w = t[start:end + 1]
+    Q, W = len(q), len(w)
+    ar = np.arange(W + 1, dtype=np.int32)
+    D = np.empty((Q + 1, W + 1), np.int32)
+    D[0] = ar
+    for i in range(1, Q + 1):
+        e = np.empty(W + 1, np.int32)
+        e[0] = i
+        np.minimum(D[i - 1, :-1] + (w != q[i - 1]), D[i - 1, 1:] + 1,
+                   out=e[1:])
+        D[i] = np.minimum.accumulate(e - ar) + ar
+    ops = []
+    i, j = Q, W
+    while i > 0 and j > 0:
+        v = D[i, j]
+        if D[i - 1, j] + 1 == v:
+            ops.append("I")
+            i -= 1
+        elif D[i, j - 1] + 1 == v:
+            ops.append("D")
+            j -= 1
+        else:
+            ops.append("=" if D[i - 1, j - 1] == v else "X")
+            i -= 1
+            j -= 1
+    ops += ["D"] * j if i == 0 else ["I"] * i
+    ops.reverse()
+    runs = []
+    for op in ops:
+        if runs and runs[-1][1] == op:
+            runs[-1][0] += 1
+        else:
+            runs.append([1, op])
+    want["cigar"] = "".join(f"{n}{op}" for n, op in runs)
+    return want
+
+
+CIGAR_RE = re.compile(r"(\d+)([=XID])")
+
+
+def check_cigars(label, out, q_ids, t_ids, shared: bool) -> None:
+    """Every result's CIGAR is a valid alignment of its query and first
+    window: it consumes the whole query and target[start:end+1], '=' joins
+    equal and 'X' unequal symbols, and its I, D and X count the distance."""
+    for i, r in enumerate(out):
+        cig = r["cigar"] or ""
+        parts = CIGAR_RE.findall(cig)
+        if not parts or "".join(n + op for n, op in parts) != cig:
+            fail(f"{label}: pair {i} has no valid CIGAR: {cig!r}")
+        ops = np.frombuffer("".join(op * int(n) for n, op in parts).encode(),
+                            np.uint8)
+        q = q_ids[i]
+        start, end = r["locations"][0]
+        w = (t_ids if shared else t_ids[i])[start:end + 1]
+        in_q = ops != ord("D")
+        in_t = ops != ord("I")
+        diag = in_q & in_t
+        equal = (q[np.cumsum(in_q)[diag] - 1]
+                 == w[np.cumsum(in_t)[diag] - 1]) if diag.any() else diag[:0]
+        if (int(in_q.sum()) != len(q) or int(in_t.sum()) != len(w)
+                or not np.array_equal(equal, ops[diag] == ord("="))
+                or int((ops != ord("=")).sum()) != r["editDistance"]):
+            fail(f"{label}: pair {i}'s CIGAR {cig} is not an alignment of "
+                 f"distance {r['editDistance']} of its query and window "
+                 f"[{start}, {end}]")
 
 
 def edit_copy(rng, q, rate, sigma):
@@ -345,6 +439,18 @@ def check_kernels(rng, dev, ck):
                                         n_win, chunk)],
                     [ck.shw_banded_hits_plain(*band, lo, hi, prow, trow,
                                               best, n_win, chunk)])
+    # The capture kernel in its register (NW <= 8) and read-back forms, 200
+    # columns padded with the wildcard to 256 (a ragged last chunk).
+    for nw in (1, 4, 8, 16, 64):
+        peq, targets = lane_operands(rng, dev, n_lanes=300, n_rows=300,
+                                     T=200, s1=5, nw=nw)[:2]
+        tg = ck._pad_cols(targets, 4, 128)
+        for hin0 in (0, 1):
+            for want_h in (False, True):
+                check_equal(f"capture nw={nw} hin0={hin0} want_h={want_h}",
+                            ck.capture_flat_device(peq, targets, hin0, 128,
+                                                   want_h),
+                            ck.capture_plain(peq, tg, hin0, want_h))
 
 
 def hit_targets(rng, reduced):
@@ -406,9 +512,11 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_call(fn, top: int = 8) -> dict:
+def profile_call(fn, top: int = 8, groups=None) -> dict:
     """Device time of one call by kernel (torch.profiler over CUPTI), the
-    call's wall time, and the device's idle share of that wall time."""
+    call's wall time, and the device's idle share of that wall time; with
+    groups ({label: substring}) also the device time of the kernels whose
+    name holds each substring."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -429,10 +537,13 @@ def profile_call(fn, top: int = 8) -> dict:
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall,
-            "top": [{"name": k[:80], "device_ms": ms, "count": c}
-                    for k, ms, c in rows[:top]]}
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "top": [{"name": k[:80], "device_ms": ms, "count": c}
+                   for k, ms, c in rows[:top]]}
+    for label, sub in (groups or {}).items():
+        out[label + "_device_ms"] = sum(ms for k, ms, _ in rows if sub in k)
+    return out
 
 
 def lane_call_cost(words_per_row, targets, hi, prow, trow, n_vecs, ops_col,
@@ -463,6 +574,14 @@ def call_plan(ck, name, args):
     OPS_PER_COLUMN for the score and the reduction or hit mask.  A per-lane
     call's plain version runs over all of its columns, the shared sweep's
     over its first SHARED_PLAIN_COLS."""
+    if name == "capture":
+        # Profiles and targets read once, every output word written once.
+        peq, targets, _, want_h = args
+        B, _, nw = peq.shape
+        T = targets.shape[1]
+        out_bytes = (4 if want_h else 2) * B * T * nw * 4
+        return ((peq.numel() + targets.numel()) * 4 + out_bytes,
+                B * T * nw * OPS_PER_WORD, B, T, nw, args, T)
     if name == "sweep_shared":
         peq_t, target, hin0, col_lo, col_hi = args
         nw, n = peq_t.shape[1], peq_t.shape[2]
@@ -565,7 +684,9 @@ def drive(ck, rec, label, call, required):
     before the call and read just after, every kernel call's operands
     recorded, then a warm repeat that must return the same."""
     import torch
+    from edlib_tpu_torch import batch as tb
     ck.reset_launch_counts()
+    tb.reset_path_route_counts()
     rec.on = True
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -574,8 +695,10 @@ def drive(ck, rec, label, call, required):
     cold = time.perf_counter() - t0
     rec.on = False
     launches = ck.launch_counts()
+    routes = tb.path_route_counts()
     calls = rec.take()
-    log(f"{label}: {cold:.2f} s cold, launches {launches}")
+    log(f"{label}: {cold:.2f} s cold, launches {launches}, PATH windows "
+        f"{routes}")
     for name in required:
         if launches[name] == 0:
             fail(f"{label} never launched {name}")
@@ -585,14 +708,18 @@ def drive(ck, rec, label, call, required):
     warm = time.perf_counter() - t0
     if again != out:
         fail(f"{label}: a second call on the same batch disagrees")
-    return out, launches, calls, cold, warm
+    return out, launches, calls, cold, warm, routes
 
 
 def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
-                mode, task, rng):
+                mode, task, rng, cpu_refs, cpu_key=None):
     """align_batch's results: one per pair, distances in range, a
     subsample of SUBSAMPLE pairs equal to device="cpu" (a shared target
-    stays shared), DP_SAMPLES of them equal to the numpy DP."""
+    stays shared), DP_SAMPLES of them equal to the numpy DP.  Phases that
+    name one cpu_key run the same batch: the first runs the device="cpu"
+    reference once with task "path" (its editDistance, alphabetLength and
+    locations are the other tasks' answers) on one subsample, kept in
+    cpu_refs, and every such phase compares against it."""
     shared = isinstance(targets, bytes)
     if len(out) != len(queries):
         fail(f"{label}: {len(out)} results for {len(queries)} pairs")
@@ -600,18 +727,27 @@ def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
         if not (0 <= r["editDistance"] <= len(queries[i]) + (
                 0 if shared else len(targets[i]))) or not r["locations"]:
             fail(f"{label}: pair {i} has no valid result: {r}")
-    idx = np.sort(rng.choice(len(queries), SUBSAMPLE, replace=False))
     t0 = time.perf_counter()
-    ref = align_batch([queries[i] for i in idx],
-                      targets if shared else [targets[i] for i in idx],
-                      mode=mode, task=task, device="cpu")
+    if cpu_key in cpu_refs:
+        idx, ref = cpu_refs[cpu_key]
+    else:
+        idx = np.sort(rng.choice(len(queries), SUBSAMPLE, replace=False))
+        ref = align_batch([queries[i] for i in idx],
+                          targets if shared else [targets[i] for i in idx],
+                          mode=mode, task="path" if cpu_key else task,
+                          device="cpu")
+        if cpu_key:
+            cpu_refs[cpu_key] = idx, ref
     cpu_s = time.perf_counter() - t0
     for j, i in enumerate(idx):
-        if out[i] != ref[j]:
+        want = ref[j] if task == "path" else dict(ref[j], cigar=None)
+        if out[i] != want:
             fail(f"{label}: pair {i} differs from device='cpu': {out[i]} vs "
-                 f"{ref[j]}")
+                 f"{want}")
+    dp = dp_path if task == "path" else functools.partial(dp_align,
+                                                           task=task)
     for i in idx[:DP_SAMPLES]:
-        want = dp_align(q_ids[i], t_ids if shared else t_ids[i], mode, task)
+        want = dp(q_ids[i], t_ids if shared else t_ids[i], mode)
         got = {key: out[i][key] for key in want}
         if got != want:
             fail(f"{label}: pair {i} differs from the numpy DP: {got} vs "
@@ -641,6 +777,7 @@ def main(argv=None) -> int:
         from edlib_tpu_torch import mapping as mp
         from edlib_tpu_torch.ops import _build
         from edlib_tpu_torch.ops import cuda_kernel as ck
+        from edlib_tpu_torch.path import batched as bpath
         from edlib_tpu_torch.utils import hw
     except ImportError as e:
         print(f"chip_smoke: edlib_tpu_torch is not importable here ({e})",
@@ -796,21 +933,59 @@ def main(argv=None) -> int:
         fail("segmented batch differs from the plain versions")
     log("SHW and segmented batches equal the plain versions")
 
-    # 7-10. align_batch, one phase per path.
+    # 7-12. align_batch, one phase per path.
     align_batch = edlib_tpu_torch.align_batch
     phases = {}
 
+    cpu_refs = {}
+
     def run_phase(label, queries, targets, q_ids, t_ids, mode, task,
-                  required):
+                  required, cpu_key=None):
         call = lambda: align_batch(queries, targets, mode=mode, task=task)
-        out, counts, calls, cold, warm = drive(ck, rec, label, call,
-                                               required)
+        # The batched-windows call of a PATH phase's first run, kept to
+        # profile that stage alone.
+        windows = []
+        batched = bpath.batched_windows_path
+
+        def keep(*a):
+            if not windows:
+                windows.append(a)
+            return batched(*a)
+
+        bpath.batched_windows_path = keep
+        try:
+            out, counts, calls, cold, warm, routes = drive(
+                ck, rec, label, call, required)
+        finally:
+            bpath.batched_windows_path = batched
         cpu_s = check_align(label, align_batch, out, queries, targets,
-                            q_ids, t_ids, mode, task, rng)
+                            q_ids, t_ids, mode, task, rng, cpu_refs, cpu_key)
         prof_ = profile_call(call)
         phases[label] = dict(pairs=len(queries), mode=mode, task=task,
                              cold_s=cold, warm_s=warm, cpu_subsample_s=cpu_s,
                              warm_profile=prof_)
+        if task == "path":
+            if routes != {"capture": len(queries), "host": 0}:
+                fail(f"{label}: PATH windows took routes {routes}, not "
+                     f"{len(queries)} on the capture route")
+            check_cigars(label, out, q_ids, t_ids,
+                         isinstance(targets, bytes))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            stage = profile_call(lambda: batched(*windows[0]), groups={
+                "capture": "capture_kernel", "copies": "emcpy"})
+            stage["decode_walk_device_ms"] = (
+                stage["device_busy_ms"] - stage["capture_device_ms"]
+                - stage["copies_device_ms"])
+            stage["peak_mib"] = (torch.cuda.max_memory_allocated(dev)
+                                 - base) / 2**20
+            phases[label]["path_stage"] = stage
+            log(f"{label}: {len(queries)} CIGARs valid; windows stage "
+                f"{stage['wall_ms']:.1f} ms wall, capture "
+                f"{stage['capture_device_ms']:.3f} ms, decode+walk "
+                f"{stage['decode_walk_device_ms']:.3f} ms on the device, "
+                f"peak {stage['peak_mib']:.0f} MiB")
         return counts, calls
 
     # 7. HW locations against one shared 100,000-bp target.
@@ -821,7 +996,8 @@ def main(argv=None) -> int:
     hw_ids[muts] = (hw_ids[muts] + rng.randint(1, 4, int(muts.sum()))) % 4
     hw_counts, hw_calls = run_phase(
         "hw_shared", to_bytes(hw_ids, acgt), acgt[t_hw].tobytes(), hw_ids,
-        t_hw, "HW", "locations", ("reduce_lanes", "hits_lanes"))
+        t_hw, "HW", "locations", ("reduce_lanes", "hits_lanes"),
+        cpu_key="hw")
     rows = [c[1].shape[0] for c in hw_calls["reduce_lanes"]]
     if 1 not in rows or max(rows) == 1:
         fail(f"hw_shared: reduce_lanes ran target rows {rows}, not the "
@@ -852,7 +1028,20 @@ def main(argv=None) -> int:
         "hw_sigma100", to_bytes(bp_ids, letters), to_bytes(win, letters),
         bp_ids, win, "HW", "locations", ("reduce_bitplane", "hits_bitplane"))
 
-    # 6 and 11. Timings on each path's own operands.
+    # 11. HW path on phase 7's batch (and its device="cpu" subsample).
+    hwp_counts, hwp_calls = run_phase(
+        "hw_path", to_bytes(hw_ids, acgt), acgt[t_hw].tobytes(), hw_ids,
+        t_hw, "HW", "path", ("capture", "reduce_lanes", "hits_lanes"),
+        cpu_key="hw")
+
+    # 12. NW path, 500-bp pairs: 16-word windows.
+    nq = rng.randint(0, 4, (PATH_PAIRS, PATH_LEN)).astype(np.int32)
+    nt = [edit_copy(rng, q, PAIR_EDITS, 4) for q in nq]
+    nwp_counts, nwp_calls = run_phase(
+        "nw_path", to_bytes(nq, acgt), [acgt[t].tobytes() for t in nt], nq,
+        nt, "NW", "path", ("capture", "nw_banded"))
+
+    # 6 and 13. Timings on each path's own operands.
     kernels = []
     for name, calls, counts, path in (
             ("reduce_lanes", main_calls["reduce_lanes"], launches,
@@ -867,17 +1056,19 @@ def main(argv=None) -> int:
             ("nw_banded", nw_calls["nw_banded"], nw_counts, "nw_banded"),
             ("shw_banded", shw_calls["shw_banded"], shw_counts, "shw_banded"),
             ("shw_banded_hits", shw_calls["shw_banded_hits"], shw_counts,
-             "shw_banded")):
+             "shw_banded"),
+            ("capture", hwp_calls["capture"], hwp_counts, "hw_path")):
         m = measure(ck, name, calls)
         kernels.append(kernel_entry(name, m, counts[name], path, card))
         log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
             f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
-    # The map_reads kernels on the align_batch paths, beside their entries.
+    # Kernels that also run on a second path, beside their entries.
     for name, calls, counts, path in (
             ("reduce_lanes", hw_calls["reduce_lanes"], hw_counts,
              "hw_shared"),
             ("reduce_bitplane", bp_calls["reduce_bitplane"], bp_counts,
-             "hw_sigma100")):
+             "hw_sigma100"),
+            ("capture", nwp_calls["capture"], nwp_counts, "nw_path")):
         m = measure(ck, name, calls)
         entry = next(k for k in kernels if k["name"] == name)
         sub = kernel_entry(name, m, counts[name], path, card)

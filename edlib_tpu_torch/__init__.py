@@ -7,7 +7,10 @@ namesakes:
   many reads against one target, HW and SHW;
 * ``align_batch(queries, targets, mode="NW", task="distance", k=-1,
   additionalEqualities=None, device=None)`` and ``align(query, target,
-  ...)``: edlib's alignment, NW/SHW/HW, tasks "distance" and "locations".
+  ...)``: edlib's alignment, NW/SHW/HW, tasks "distance", "locations" and
+  "path" (the CIGAR);
+* ``getNiceAlignment(result, query, target)``, ``alignment_to_cigar`` and
+  ``cigar_to_alignment``: the CIGAR helpers of the reference binding.
 
 They run on the card (hand-written CUDA kernels in ``ops/csrc``, built with
 nvcc at first use) unless the caller passes ``device="cpu"``, which runs the
@@ -16,10 +19,17 @@ standard library only.
 """
 
 from edlib_tpu_torch.align import align, align_batch
+from edlib_tpu_torch.cigar import alignment_to_cigar, cigar_to_alignment
 from edlib_tpu_torch.mapping import map_reads
-from edlib_tpu_torch.types import AlignMode, AlignTask
+from edlib_tpu_torch.nice import getNiceAlignment
+from edlib_tpu_torch.types import (EDOP_DELETE, EDOP_INSERT, EDOP_MATCH,
+                                   EDOP_MISMATCH, AlignMode, AlignTask,
+                                   CigarFormat)
 from edlib_tpu_torch.utils.hw import (card_name_and_power, nvcc_path,
                                       resolve_device)
 
-__all__ = ["align", "align_batch", "map_reads", "AlignMode", "AlignTask",
-           "resolve_device", "card_name_and_power", "nvcc_path"]
+__all__ = ["align", "align_batch", "map_reads", "getNiceAlignment",
+           "alignment_to_cigar", "cigar_to_alignment", "AlignMode",
+           "AlignTask", "CigarFormat", "EDOP_MATCH", "EDOP_INSERT",
+           "EDOP_DELETE", "EDOP_MISMATCH", "resolve_device",
+           "card_name_and_power", "nvcc_path"]

@@ -3,10 +3,10 @@
 Signature and result-dict parity with the reference Python binding
 (edlib.pyx:56-155): {editDistance, alphabetLength, locations: [(start|None,
 end)], cigar}.  Both entry points run the batched device path
-(batch.align_batch_device); align is a batch of one.  This slice computes
-tasks "distance" and "locations"; "path" (and so every cigar) and the
-``mesh=`` sharding of edlib_tpu.align_batch are not ported yet and raise
-NotImplementedError.
+(batch.align_batch_device); align is a batch of one.  Tasks "distance",
+"locations" and "path" (the extended CIGAR of the first location pair) in
+every mode; the ``mesh=`` sharding of edlib_tpu.align_batch is not ported
+yet and raises NotImplementedError.
 
 One reference quirk is emulated exactly: edlib can report end location -1
 (query aligned entirely before the target, edlib.cpp:237-249).  With 64-bit
@@ -57,7 +57,9 @@ def align_batch(queries, targets, mode="NW", task="distance", k=-1,
 
     queries/targets: sequences of str/bytes; pair i aligns queries[i] vs
     targets[i] (a single target is broadcast to all queries, and the
-    sweeps then read that one target).  device: None (the card; raises
+    sweeps then read that one target).  task="path" reconstructs each
+    window on the card (the column-capture kernel) or, past the device
+    route's size bounds, on the host.  device: None (the card; raises
     RuntimeError without one) or a torch device; "cpu" runs the kernels'
     plain PyTorch versions."""
     if mesh is not None:

@@ -23,6 +23,13 @@ Routes, as the JAX package takes them with a device:
   NotImplementedError: those are not ported yet.
 * HW start locations: every (pair, end location) reversed-SHW re-run goes
   into one more bucketed reduce.
+* PATH: the window of the first location pair of every pair within k is
+  reconstructed.  Windows the JAX package sends to its device route (at
+  most max_cells() DP cells, int16-sized, sigma+1 within the per-lane
+  kernels' cap) take the column-capture kernel and the batched decode and
+  walk (path/batched.py), in a batch of any size; every other window takes
+  the host walker or Hirschberg (path/hirschberg.py).  The choice is made
+  by shape before any launch; path_route_counts() counts both.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from edlib_tpu_torch import encode
 from edlib_tpu_torch.align import _neg1_candidate_exists, align
 from edlib_tpu_torch.ops import cuda_kernel as ck
 from edlib_tpu_torch.ops.sweeper import Sweeper, decode_hit_words
+from edlib_tpu_torch.path import batched as batched_path
+from edlib_tpu_torch.path.hirschberg import obtain_alignment
 from edlib_tpu_torch.types import (
     STATUS_OK,
     AlignMode,
@@ -49,6 +58,20 @@ from edlib_tpu_torch.types import (
 _INF = float("inf")
 _CHUNK = 256               # the JAX package's scan grain (band schedule)
 _BIG_SENTINEL = 0x3FFFFFFF
+# PATH windows per route since the last reset: the capture kernel and the
+# batched decode and walk on the card, or the host walker / Hirschberg.
+_PATH_ROUTES = {"capture": 0, "host": 0}
+
+
+def path_route_counts() -> dict:
+    """{"capture": windows, "host": windows} reconstructed since the last
+    reset_path_route_counts()."""
+    return dict(_PATH_ROUTES)
+
+
+def reset_path_route_counts() -> None:
+    for name in _PATH_ROUTES:
+        _PATH_ROUTES[name] = 0
 
 
 def _pow2_at_least(x: int, floor: int = 1) -> int:
@@ -458,15 +481,10 @@ def _run_bucketed_nw_banded(pairs: List[Tuple[np.ndarray, np.ndarray]],
 
 def align_batch_device(queries, targets, mode="NW", task="distance", k=-1,
                        additionalEqualities=None, device=None) -> List[dict]:
-    """edlib_tpu.batch.align_batch_device for tasks distance and locations
-    on `device` (a torch.device: the card, or the CPU for the plain
-    versions).  task="path" raises NotImplementedError."""
+    """edlib_tpu.batch.align_batch_device on `device` (a torch.device: the
+    card, or the CPU for the plain versions)."""
     mode = AlignMode.parse(mode)
     task = AlignTask.parse(task)
-    if task == AlignTask.PATH:
-        raise NotImplementedError(
-            "edlib_tpu_torch: task='path' is not ported yet "
-            "(ROADMAP Queue A 11)")
     if k is None:
         k = -1
 
@@ -592,10 +610,59 @@ def align_batch_device(queries, targets, mode="NW", task="distance", k=-1,
                 res.end_locations = np.array(positions, np.int64)
                 res.num_locations = len(positions)
 
-    if task == AlignTask.LOC:
+    if task in (AlignTask.LOC, AlignTask.PATH):
         _fill_start_locations(results, id_pairs, main_idx, mode, sigma, eq,
                               device)
+    if task == AlignTask.PATH:
+        _fill_paths(results, id_pairs, main_idx, sigma, eq, device)
     return [r.to_dict() for r in results]
+
+
+def _capture_eligible(qlen: int, wlen: int, sigma: int) -> bool:
+    """The JAX package's device-route test for a PATH window
+    (edlib_tpu/batch.py:952-969): at most max_cells() DP cells, query rows
+    and window columns within int16, sigma+1 within the per-lane kernels'
+    alphabet cap."""
+    if wlen < 1 or qlen < 1 or qlen * wlen > batched_path.max_cells():
+        return False
+    nw_b = _pow2_at_least(encode.num_words(qlen))
+    if nw_b * 32 > 32767 or wlen > 32767:
+        return False
+    return sigma + 1 <= ck.max_sigma1(nw_b, False)
+
+
+def _fill_paths(results, id_pairs, main_idx, sigma, eq, dev):
+    """The alignment of the first location pair of every result within k:
+    eligible windows on the card in one batch, the rest on the host."""
+    dev_idx, host_idx = [], []
+    for i in main_idx:
+        res = results[i]
+        if res.edit_distance < 0:
+            continue
+        wlen = int(res.end_locations[0]) - int(res.start_locations[0]) + 1
+        (dev_idx if _capture_eligible(len(id_pairs[i][0]), wlen, sigma)
+         else host_idx).append(i)
+
+    def window(i):
+        res = results[i]
+        q_ids, t_ids = id_pairs[i]
+        return q_ids, t_ids[int(res.start_locations[0]):
+                            int(res.end_locations[0]) + 1]
+
+    if dev_idx:
+        ops_list = batched_path.batched_windows_path(
+            [window(i) for i in dev_idx],
+            [int(results[i].edit_distance) for i in dev_idx], sigma, eq, dev)
+        for i, ops in zip(dev_idx, ops_list):
+            results[i].alignment = ops
+    for i in host_idx:
+        q_ids, w_ids = window(i)
+        results[i].alignment = obtain_alignment(q_ids, w_ids, eq,
+                                                int(results[i].edit_distance))
+    for i in dev_idx + host_idx:
+        results[i].alignment_length = len(results[i].alignment)
+    _PATH_ROUTES["capture"] += len(dev_idx)
+    _PATH_ROUTES["host"] += len(host_idx)
 
 
 def _fill_start_locations(results, id_pairs, main_idx, mode, sigma, eq,

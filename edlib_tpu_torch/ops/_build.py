@@ -45,6 +45,7 @@ SIGNATURES = {
                          _P, _I, _P, _P, _P, _P, _P],
     "myers_shw_banded_hits": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
                               _P, _P, _P, _I, _P, _P, _I, _P, _P],
+    "myers_capture": [_I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """Myers bit-vector sweeps with in-sweep reduction: CUDA kernels and their
 plain PyTorch versions.
 
-Port of the sweeps of edlib_tpu/ops/pallas_kernel.py.  Eight kernels, in
+Port of the sweeps of edlib_tpu/ops/pallas_kernel.py.  Nine kernels, in
 csrc/myers.cu (its header says what bounds them):
 
   reduce_lanes     per-lane target rows, Eq from each lane's query profile
@@ -16,7 +16,9 @@ csrc/myers.cu (its header says what bounds them):
   nw_banded        NW score at hi-1 inside a sliding word window
                    (_nw_banded_kernel);
   shw_banded       banded SHW (best, pfirst, plast) (_shw_banded_kernel);
-  shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel).
+  shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel);
+  capture          every column's (Pv, Mv[, Ph, Mh]) words, stored
+                   (_capture_kernel), for the batched PATH decode.
 
 Each wrapper checks its operands, runs the plain version when they lie on
 the CPU, and otherwise launches its kernel on the current stream, raises on
@@ -50,7 +52,7 @@ _I32 = torch.int32
 # Kernel launches per wrapper, counted where each wrapper launches its kernel.
 _LAUNCHES = {"reduce_lanes": 0, "reduce_bitplane": 0, "sweep_shared": 0,
              "hits_lanes": 0, "hits_bitplane": 0, "nw_banded": 0,
-             "shw_banded": 0, "shw_banded_hits": 0}
+             "shw_banded": 0, "shw_banded_hits": 0, "capture": 0}
 
 # ---------------------------------------------------------------------------
 # Routing constants and the band schedule, as the JAX package computes them.
@@ -142,6 +144,25 @@ def build_peq_device(q_ids: torch.Tensor, qlens: torch.Tensor, sigma: int,
     return peq
 
 
+def build_peq_eq_device(q_ids: torch.Tensor, qlens: torch.Tensor,
+                        eq_s1: torch.Tensor, n_words: int) -> torch.Tensor:
+    """Query profiles under an equality matrix, (B, S1, n_words) int32.
+
+    q_ids: (B, >= n_words*32) symbol ids (entries past qlens are ignored);
+    eq_s1: bool (S1, S1), the equality matrix with the wildcard row and
+    column S1-1 all True.  Bit i of word w of row s is eq_s1[s, q[32w+i]],
+    and every bit of a row past qlen is set (path/batched.py's profile,
+    the Peq build of the JAX package's _capture_walk)."""
+    B = q_ids.shape[0]
+    s1 = eq_s1.shape[0]
+    R = n_words * WORD_SIZE
+    rows = torch.arange(R, device=q_ids.device)
+    q = q_ids[:, :R].to(torch.int64).clamp(0, s1 - 1)
+    pad = rows[None, :] >= qlens.to(torch.int64)[:, None]       # (B, R)
+    match = eq_s1[:, q].permute(1, 0, 2) | pad[:, None, :]      # (B, S1, R)
+    return _pack_bits(match).reshape(B, s1, n_words)
+
+
 def bitplane_nb(sigma: int) -> int:
     """Bit planes per alternative: enough for symbols [0, sigma] plus a
     sentinel id (1<<nb)-1 > sigma that matches no target symbol."""
@@ -182,18 +203,25 @@ def bitplane_planes(q_alts: torch.Tensor, nb: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _advance_word(pv, mv, eq, hneg, hpos):
-    """Myers block update on int32 bit words (pallas_kernel._advance_word)."""
+def _advance_word_h(pv, mv, eq, hneg, hpos):
+    """Myers block update on int32 bit words (pallas_kernel._advance_word_h):
+    (Pv', Mv', hout_neg, hout_pos, Ph, Mh) with Ph/Mh the unshifted
+    horizontal delta words."""
     xv = eq | mv
     eq = eq | hneg
     xh = (((eq & pv) + pv) ^ pv) | eq
     ph = mv | ~(xh | pv)
     mh = pv & xh
-    out_pos = (ph >> 31) & 1
-    out_neg = (mh >> 31) & 1
-    ph = (ph << 1) | hpos
-    mh = (mh << 1) | hneg
-    return mh | ~(xv | ph), ph & xv, out_neg, out_pos
+    phs = (ph << 1) | hpos
+    mhs = (mh << 1) | hneg
+    return (mhs | ~(xv | phs), phs & xv, (mh >> 31) & 1, (ph >> 31) & 1,
+            ph, mh)
+
+
+def _advance_word(pv, mv, eq, hneg, hpos):
+    """Myers block update on int32 bit words (pallas_kernel._advance_word):
+    (Pv', Mv', hout_neg, hout_pos)."""
+    return _advance_word_h(pv, mv, eq, hneg, hpos)[:4]
 
 
 def _columns_end(n_cols: int, hi) -> int:
@@ -330,6 +358,31 @@ def _banded_columns(peq, targets, woff, hi, prow, trow, n_win, chunk):
     return _sweep_banded_plain(
         lambda c: prof[lanes, tg[:, c].long()], end, peq.shape[2],
         hi.shape[0], hi.device, woff.tolist(), chunk, n_win)
+
+
+def capture_plain(peq, targets, hin0: int, want_h: bool = False):
+    """Plain version of capture (same operands and outputs)."""
+    B, _, n_words = peq.shape
+    T = targets.shape[1]
+    dev = peq.device
+    lanes = torch.arange(B, device=dev)
+    n_out = 4 if want_h else 2
+    outs = [torch.empty((T, n_words, B), dtype=_I32, device=dev)
+            for _ in range(n_out)]
+    pv = [torch.full((B,), -1, dtype=_I32, device=dev)] * n_words
+    mv = [torch.zeros(B, dtype=_I32, device=dev)] * n_words
+    zero = torch.zeros(B, dtype=_I32, device=dev)
+    hpos0 = torch.full((B,), hin0, dtype=_I32, device=dev)
+    for c in range(T):
+        words = peq[lanes, targets[:, c].long()]                # (B, NW)
+        hneg, hpos = zero, hpos0
+        ph, mh = [None] * n_words, [None] * n_words
+        for w in range(n_words):
+            pv[w], mv[w], hneg, hpos, ph[w], mh[w] = _advance_word_h(
+                pv[w], mv[w], words[:, w], hneg, hpos)
+        for out, val in zip(outs, (pv, mv, ph, mh)):
+            out[c] = torch.stack(val)
+    return tuple(o.permute(2, 0, 1) for o in outs)
 
 
 def reduce_lanes_plain(peq, targets, lo, hi, prow, trow, hin0: int):
@@ -713,8 +766,38 @@ def shw_banded_hits(peq, targets, woff, lo, hi, prow, trow, best,
     return hits
 
 
+def capture(peq, targets, hin0: int, want_h: bool = False):
+    """Every column's Myers state per lane (the column-capture kernel).
+
+    peq: int32 (B, S1, NW) profile bit words; targets: int32 (B, T) symbols
+    in [0, S1), one row per lane (pad columns hold the wildcard S1-1).
+    Returns (pv, mv), with want_h also (ph, mh), each int32 (B, T, NW): word
+    w of lane b after column c, Ph/Mh the unshifted horizontal deltas
+    (bit i set where cell(32w+i, c) - cell(32w+i, c-1) is +1 / -1).  The
+    tensors are views of (T, NW, B) storage, lane-minor: x.permute(1, 2, 0)
+    is contiguous.  hin0: 0 for HW, 1 for SHW/NW."""
+    name = "capture"
+    _check(name, peq, "peq", 3)
+    _check(name, targets, "targets", 2)
+    if targets.shape[0] != peq.shape[0]:
+        raise ValueError(f"{name}: targets has {targets.shape[0]} lanes, "
+                         f"peq {peq.shape[0]}")
+    if not _on_cuda(name, peq, targets):
+        return capture_plain(peq, targets, hin0, want_h)
+    B, s1, nw = peq.shape
+    T = targets.shape[1]
+    dev = peq.device
+    outs = [torch.empty((T, nw, B), dtype=_I32, device=dev)
+            for _ in range(4 if want_h else 2)]
+    if B and T:
+        ptrs = _ptrs(*outs) + ([None, None] if not want_h else [])
+        _launch(name, "myers_capture", dev.index, peq.data_ptr(), s1, nw,
+                targets.data_ptr(), T, B, int(hin0), *ptrs, _stream(dev))
+    return tuple(o.permute(2, 0, 1) for o in outs)
+
+
 KERNELS = (reduce_lanes, reduce_bitplane, sweep_shared, hits_lanes,
-           hits_bitplane, nw_banded, shw_banded, shw_banded_hits)
+           hits_bitplane, nw_banded, shw_banded, shw_banded_hits, capture)
 
 
 def launch_counts() -> dict:
@@ -814,3 +897,13 @@ def sweep_best_shared(peq, target, hin0: int, col_lo: int, col_hi: int):
     column (-1 when no column of the window was seen)."""
     return sweep_shared(peq.permute(1, 2, 0).contiguous(), target, hin0,
                         col_lo, col_hi)
+
+
+def capture_flat_device(peq, targets, hin0: int, chunk: int = 128,
+                        want_h: bool = False):
+    """pallas_kernel.capture_flat_device: peq (B, S1, NW), targets (B, T)
+    per-lane windows, padded here with the wildcard S1-1 to Tp = T rounded
+    up to chunk.  Returns (pv, mv), with want_h also (ph, mh), each int32
+    (B, Tp, NW) holding the JAX wrapper's uint32 words."""
+    return capture(peq, _pad_cols(targets, peq.shape[1] - 1, chunk), hin0,
+                   want_h)

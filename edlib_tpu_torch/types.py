@@ -12,6 +12,13 @@ import numpy as np
 STATUS_OK = 0
 
 
+# Edit operations (edlib.h:84-87).
+EDOP_MATCH = 0     # match
+EDOP_INSERT = 1    # insertion to target == deletion from query
+EDOP_DELETE = 2    # deletion from target == insertion to query
+EDOP_MISMATCH = 3  # mismatch
+
+
 class AlignMode(enum.IntEnum):
     """How gaps before/after the query are treated.
 
@@ -76,10 +83,10 @@ class AlignResult:
         (None if distance > k).  May contain -1 (query entirely before
         target; see edlib.cpp:237-249).
     start_locations: positions where the optimal alignments start; computed
-        only for task LOC.
+        only for task LOC/PATH.
+    alignment: np.uint8 array of EDOP_* codes, for the FIRST location pair
+        only (edlib.cpp:274-289); None unless task == PATH.
     alphabet_length: number of distinct symbols in query+target.
-    The port has no PATH task yet, so the result carries no alignment and
-    its dict's cigar is None.
     """
 
     status: int = STATUS_OK
@@ -87,10 +94,14 @@ class AlignResult:
     end_locations: Optional[np.ndarray] = None
     start_locations: Optional[np.ndarray] = None
     num_locations: int = 0
+    alignment: Optional[np.ndarray] = None
+    alignment_length: int = 0
     alphabet_length: int = 0
 
     def to_dict(self) -> dict:
         """Python-binding-shaped dict (edlib.pyx:136-155)."""
+        from edlib_tpu_torch.cigar import alignment_to_cigar
+
         locations = []
         for i in range(self.num_locations):
             start = (int(self.start_locations[i])
@@ -98,9 +109,12 @@ class AlignResult:
             end = (int(self.end_locations[i])
                    if self.end_locations is not None else None)
             locations.append((start, end))
+        cigar = None
+        if self.alignment is not None:
+            cigar = alignment_to_cigar(self.alignment, CigarFormat.EXTENDED)
         return {
             "editDistance": int(self.edit_distance),
             "alphabetLength": int(self.alphabet_length),
             "locations": locations,
-            "cigar": None,
+            "cigar": cigar,
         }
