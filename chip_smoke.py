@@ -57,7 +57,27 @@ Phases, each of which exits non-zero on any failure:
    Each path phase also profiles one batched-windows call alone: the
    capture kernel's device time, the decode and walk's, and peak memory.
 13. Each kernel of phases 7-12 timed and held against its plain version on
-   its phase's operands, over every column.
+   its phase's operands, over at most SHARED_PLAIN_COLS columns; each
+   wavefront kernel of phases 14-17 timed over every call of its path and
+   held against its plain version over WF_PLAIN_STEPS steps of the first,
+   middle and last calls.
+14-17. Long single pairs through nw_distance_long, shw_best_long,
+   semiglobal_locations_long and align, each with its launch counts and a
+   warm repeat that must agree:
+   14. NW: a random 1,000,000-bp target and its copy with 3% edits;
+      nw_distance_long and align (distance, locations) on the banded
+      wavefront (nw_banded must not run), equal to the unbanded wavefront,
+      k = d gives d and k = d-1 gives -1; on a 30,000-bp pair the banded
+      wavefront equals (and is timed against) the one-lane align_batch.
+   15. SHW: the same query against its target plus a 200,000-bp random
+      tail; shw_best_long is the head of semiglobal_locations_long's list,
+      which equals the filtered unbanded stream.
+   16. HW: a 10,000-bp read with 5% edits planted twice in the target;
+      semiglobal_locations_long equals align(task="locations")'s ends.
+   17. NW path: align(task="path") on a 200,000-bp pair with 3% edits (the
+      banded distance, the root's half-sweeps on the card), a valid CIGAR
+      of that cost; on a 30,000-bp pair with the device gate lowered the
+      ops equal the host half-sweeps'.
 
 Output: the kernels' JSON line, the end-to-end JSON line, the card line, and
 last {"ok": true, "device": {...}}.  Data comes from --seed.
@@ -94,9 +114,11 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 OPS_PER_WORD = 13
 OPS_PER_COLUMN = 6
 OPS_PER_COLUMN_SHARED = 4
-# The shared sweep's plain version runs over the first 3 staging chunks of
-# csrc/myers.cu (kChunk = 2048) and a ragged tail; its full-width output is
-# held against an O(Q*T) DP on the card (dp_best_hw_card) instead.
+# A sweep's plain version runs over at most the first 3 staging chunks of
+# csrc/myers.cu (kChunk = 2048) and a ragged tail; the shared sweep's
+# full-width output is held against an O(Q*T) DP on the card
+# (dp_best_hw_card), the per-lane sweeps' by each phase's device="cpu"
+# subsample and DP checks.
 SHARED_PLAIN_COLS = 3 * 2048 + 37
 # Main-path sizes (bench.py's read-mapping shape).
 READS, QLEN, N_RANDOM = 8192, 120, 96
@@ -112,7 +134,25 @@ SUBSAMPLE, DP_SAMPLES = 128, 4
 # align_batch task="path" phases: phase 7's HW batch, and NW pairs of 500 bp
 # (qlen * wlen <= 2^18, so every window takes the capture kernel).
 PATH_PAIRS, PATH_LEN = 8_192, 500
-KERNEL_SOURCE = "edlib_tpu_torch/ops/csrc/myers.cu"
+# Long single pairs (phases 14-17): a random sigma=4 target of 1 Mbp and its
+# copy with 3% edits (the JAX package's 1 Mbp chromosome-vs-mutant drive),
+# the same query against the target plus a random SHW tail, a 10 kbp read
+# planted twice for HW, and NW PATH pairs.  BREAK_LEN pairs time the
+# banded wavefront against the one-lane align_batch route (nw_banded): past
+# 65,536 bp (2,048 words) that route needs the eq-stream kernels, which are
+# not ported (the profile fits neither the per-lane nor the bit-plane
+# kernels' routing budget there).
+LONG_LEN, LONG_EDITS, BREAK_LEN, LONG_SHW_TAIL = 1_000_000, 0.03, 30_000, \
+    200_000
+LONG_READ, LONG_READ_EDITS = 10_000, 0.05
+LONG_PATH_LEN, LONG_PATH_EQ_LEN, PATH_EQ_GATE = 200_000, 30_000, 10**8
+# The wavefront kernels' plain versions run one torch step per wavefront
+# step: a full-width call is held over WF_PLAIN_STEPS steps of its first,
+# middle and last segments.
+WF_PLAIN_STEPS = 2048
+KERNEL_SOURCE = {"wavefront": "edlib_tpu_torch/ops/csrc/wavefront.cu",
+                 "wavefront_banded": "edlib_tpu_torch/ops/csrc/wavefront.cu"}
+KERNEL_SOURCE_DEFAULT = "edlib_tpu_torch/ops/csrc/myers.cu"
 REPLACES = {
     "reduce_lanes": "edlib_tpu/ops/pallas_kernel.py:605",
     "sweep_shared": "edlib_tpu/ops/pallas_kernel.py:342",
@@ -123,6 +163,8 @@ REPLACES = {
     "shw_banded": "edlib_tpu/ops/pallas_kernel.py:1215",
     "shw_banded_hits": "edlib_tpu/ops/pallas_kernel.py:1348",
     "capture": "edlib_tpu/ops/pallas_kernel.py:2635",
+    "wavefront": "edlib_tpu/ops/wavefront.py:205",
+    "wavefront_banded": "edlib_tpu/ops/wavefront.py:573",
 }
 
 
@@ -467,6 +509,132 @@ def hit_targets(rng, reduced):
     return best.contiguous()
 
 
+def check_wavefront_kernels(rng, dev, ck):
+    """Both wavefront kernels == their plain versions at small shapes, two
+    chained segments (the second ragged), in each launch form: one block of
+    one slot a thread (<= 1,024 slots), one block of up to 8 (<= 4,096), and
+    the cooperative grid; hin0 0 and 1, the stream on and off, a column
+    range, a pinned window (word0 > 0), and banded windows that slide, up
+    to their cap in one case."""
+    import torch
+    from edlib_tpu_torch.ops.wavefront import initial_state
+
+    def operands(n_words, t_scan):
+        t = torch.from_numpy(rng.randint(0, 5, t_scan).astype(np.int32))
+        words = rng.randint(0, 1 << 32, (5, n_words), dtype=np.uint64)
+        peq = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+        return t.to(dev), peq.to(dev)
+
+    for ns, n_words, word0 in ((1024, 100, 0), (1024, 900, 40),
+                               (2048, 2000, 0), (6144, 6000, 0)):
+        t_scan = 3000
+        t, peq = operands(n_words, t_scan)
+        for hin0, emit, cols in ((0, True, (0, 0)), (1, False, (3, 2990)),
+                                 (1, True, (100, 200))):
+            got = want = initial_state(ns, dev)
+            d0 = word0 + n_words // 2
+            for d, n in ((d0, 150), (d0 + 150, 97)):
+                args = (d, n, n_words, t_scan, hin0, *cols, word0, emit)
+                got, gs = ck.wavefront(t, peq, got, *args)
+                want, ws = ck.wavefront_plain(t, peq, want, *args)
+                check_equal(f"wavefront ns={ns} words={n_words} "
+                            f"word0={word0} hin0={hin0} emit={emit} "
+                            f"cols={cols} from step {d}",
+                            [got] + ([gs] if emit else []),
+                            [want] + ([ws] if emit else []))
+    for ns, n_words, lo, cols in ((128, 160, -10, (0, 0)),
+                                  (128, 140, -10, (5, 2000)),
+                                  (1024, 1200, -300, (0, 0)),
+                                  (2048, 2500, -500, (40, 2900)),
+                                  (8192, 9000, -20, (0, 0))):
+        t_scan = 3000
+        t, peq = operands(n_words, t_scan)
+        got = want = initial_state(ns, dev)
+        d0 = max(0, 31 - lo)
+        for d, n in ((d0, 200), (d0 + 200, 333)):
+            args = (d, n, n_words, t_scan, lo, *cols)
+            got = ck.wavefront_banded(t, peq, got, *args)
+            want = ck.wavefront_banded_plain(t, peq, want, *args)
+            check_equal(f"wavefront_banded ns={ns} words={n_words} lo={lo} "
+                        f"cols={cols} from step {d}", [got], [want])
+
+
+def wavefront_work(ck, name, args):
+    """(bytes, ops) one wavefront call needs: 13 operations (OPS_PER_WORD)
+    per advanced word-step, the word-steps counted from the call's own
+    window and columns; the state read and written once, the stream
+    written, the profile words of the window and the symbols of the columns
+    it reaches read once."""
+    t, peq, state, d0, n, n_words, t_scan = args[:7]
+    ns = state.shape[1]
+    if name == "wavefront":
+        word0, emit = args[10], args[11]
+        w = np.arange(word0, min(word0 + ns, n_words), dtype=np.int64)
+        steps = np.minimum(d0 + n, w + t_scan) - np.maximum(d0, w)
+        out_bytes = n * 4 if emit else 0
+    else:
+        lo, emit = args[7], False
+        d = np.arange(d0, d0 + n, dtype=np.int64)
+        b = np.minimum(np.maximum((d + lo - 31) // 33, 0),
+                       max(0, n_words - ns))
+        steps = (np.minimum(np.minimum(b + ns, n_words), d + 1)
+                 - np.maximum(b, d - t_scan + 1))
+        out_bytes = 0
+    word_steps = int(np.clip(steps, 0, None).sum())
+    nbytes = (2 * ck.WF_PLANES * ns * 4 + out_bytes
+              + peq.shape[0] * min(ns, n_words) * 4 + min(n + ns, t_scan) * 4)
+    return nbytes, word_steps * OPS_PER_WORD
+
+
+def measure_wavefront(ck, name, calls):
+    """The wavefront kernel's time over every recorded call of a path (CUDA
+    events around the whole sequence, after one warm pass), the bound summed
+    over the calls, and the kernel held against its plain version over
+    WF_PLAIN_STEPS steps of the first, middle and last calls' operands."""
+    import torch
+    kernel = getattr(ck, name)
+    plain = getattr(ck, name + "_plain")
+
+    def run_all():
+        for a in calls:
+            kernel(*a)
+
+    ms = time_ms(run_all, 1)
+    nbytes = ops = 0
+    b_ms = 0.0
+    for a in calls:
+        nb, op = wavefront_work(ck, name, a)
+        nbytes, ops = nbytes + nb, ops + op
+        b_ms += bound(nb, op)[0]
+    err, plain_ms, plain_steps = 0.0, 0.0, 0
+    for i in sorted({0, len(calls) // 2, len(calls) - 1}):
+        a = list(calls[i])
+        a[4] = min(a[4], WF_PLAIN_STEPS)
+        got = kernel(*a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(*a)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        plain_steps += a[4]
+        if isinstance(got, torch.Tensor):
+            got, want = (got, None), (want, None)
+        err = max(err, check_equal(
+            f"{name} on main-path operands (call {i}, step {a[3]})",
+            [x for x in got if x is not None],
+            [x for x in want if x is not None]))
+    steps = sum(a[4] for a in calls)
+    ns = calls[0][2].shape[1]
+    log(f"{name}: {len(calls)} calls, {steps} steps over {ns} slots, kernel "
+        f"{ms:.3f} ms (bound {b_ms:.3f} ms), plain {plain_ms:.1f} ms over "
+        f"{plain_steps} steps, equal")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, nbytes=nbytes,
+                ops=ops, max_abs_err=err, bound_by=bound(nbytes, ops)[1],
+                calls=[dict(segments=len(calls), slots=ns, cols=steps, ms=ms,
+                            plain_ms=plain_ms, plain_cols=plain_steps,
+                            bound_ms=b_ms)])
+
+
 # --------------------------------------------------------------------------
 # Recording the main path's launches, and timing them
 # --------------------------------------------------------------------------
@@ -571,9 +739,9 @@ def call_plan(ck, name, args):
     (OPS_PER_WORD), plus for the bit-plane Eq one 3-input op per plane and
     alternative and the OR into the word, and per column two per plane for
     the symbol's bit masks and two for the wildcard test; plus
-    OPS_PER_COLUMN for the score and the reduction or hit mask.  A per-lane
-    call's plain version runs over all of its columns, the shared sweep's
-    over its first SHARED_PLAIN_COLS."""
+    OPS_PER_COLUMN for the score and the reduction or hit mask.  A call's
+    plain version runs over at most its first SHARED_PLAIN_COLS columns
+    (the kernel is held on the same prefix)."""
     if name == "capture":
         # Profiles and targets read once, every output word written once.
         peq, targets, _, want_h = args
@@ -605,6 +773,14 @@ def call_plan(ck, name, args):
         nw = a["n_win"] if "n_win" in a else a["peq"].shape[2]
         words = a["peq"].shape[1] * a["peq"].shape[2]
         ops_col = nw * OPS_PER_WORD + OPS_PER_COLUMN
+    checked, plain_cols = args, end
+    if end > SHARED_PLAIN_COLS:
+        # The plain version over a prefix: 3 staging chunks and a ragged
+        # tail of every target row (the kernel reruns on the same prefix).
+        plain_cols = SHARED_PLAIN_COLS
+        checked = tuple(
+            v[:, :plain_cols].contiguous() if k == "targets" else v
+            for k, v in a.items())
     if "best" in a:
         out_bytes = n * -(-targets.shape[1] // 32) * 4
     else:
@@ -613,7 +789,7 @@ def call_plan(ck, name, args):
     n_vecs = sum(k in a for k in ("lo", "hi", "prow", "trow", "best"))
     nbytes, ops = lane_call_cost(words, targets, hi, a["prow"], a["trow"],
                                  n_vecs, ops_col, out_bytes)
-    return nbytes, ops, n, end, nw, args, end
+    return nbytes, ops, n, end, nw, checked, plain_cols
 
 
 def bound(nbytes, ops):
@@ -669,7 +845,8 @@ def measure(ck, name, calls):
 def kernel_entry(name, m, launches, path, card):
     """One kernel's record in the kernels line."""
     return {
-        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "name": name, "route": "cuda",
+        "source": KERNEL_SOURCE.get(name, KERNEL_SOURCE_DEFAULT),
         "replaces": REPLACES[name], "launches": launches,
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"],
@@ -757,6 +934,188 @@ def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
     return cpu_s
 
 
+def timed(fn):
+    """(result, seconds) of one call that ends in a card synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def recorded(ck, rec, fn):
+    """(result, seconds, recorded calls, launch counts) of one call outside
+    the main paths (a cross-check), its launches counted on their own."""
+    ck.reset_launch_counts()
+    rec.on = True
+    out, secs = timed(fn)
+    rec.on = False
+    return out, secs, rec.take(), ck.launch_counts()
+
+
+def long_pair_phases(rng, dev, ck, rec, et, acgt):
+    """Phases 14-17: one long pair at a time through nw_distance_long,
+    shw_best_long, semiglobal_locations_long and align (NW huge route and
+    the device Hirschberg), each held against the unbanded wavefront, the
+    batched routes or the host engine.  Returns (the e2e summary, {label:
+    (recorded calls, launch counts)} for the kernel timings)."""
+    import torch
+    from edlib_tpu_torch.align import _filter_locations
+    from edlib_tpu_torch.encode import transform_sequences
+    from edlib_tpu_torch.ops.wavefront import Wavefront
+    from edlib_tpu_torch.path import hirschberg as thb
+    summary, calls = {}, {}
+
+    def phase(label, call, required, forbidden=()):
+        out, counts, rec_calls, cold, warm, _ = drive(ck, rec, label, call,
+                                                      required)
+        for name in forbidden:
+            if counts[name]:
+                fail(f"{label} launched {name} {counts[name]} times")
+        calls[label] = rec_calls, counts
+        summary[label] = dict(cold_s=cold, warm_s=warm, launches={
+            k: v for k, v in counts.items() if v})
+        return out
+
+    # 14. Long NW: 1 Mbp against its copy with 3% edits.
+    t_ids = rng.randint(0, 4, LONG_LEN).astype(np.int32)
+    q_ids = edit_copy(rng, t_ids, LONG_EDITS, 4)
+    qb, tb = acgt[q_ids].tobytes(), acgt[t_ids].tobytes()
+    d, a_dist, a_loc = phase("long_nw", lambda: (
+        et.nw_distance_long(qb, tb), et.align(qb, tb),
+        et.align(qb, tb, task="locations")), ("wavefront_banded",),
+        ("nw_banded",))
+    want = {"editDistance": d, "alphabetLength": 4,
+            "locations": [(None, len(t_ids) - 1)], "cigar": None}
+    if a_dist != want or a_loc != dict(want, locations=[(0, len(t_ids) - 1)]):
+        fail(f"long_nw: align gives {a_dist}, {a_loc}; nw_distance_long {d}")
+    if (et.nw_distance_long(qb, tb, k=d) != d
+            or et.nw_distance_long(qb, tb, k=d - 1) != -1):
+        fail(f"long_nw: k = {d} / {d - 1} does not give {d} / -1")
+    pq, pt, _ = transform_sequences(qb, tb)
+    d_unb, unb_s, unb_calls, unb_counts = recorded(
+        ck, rec, lambda: Wavefront(device=dev).nw_distance(pq, pt, 4))
+    if d_unb != d:
+        fail(f"long_nw: banded {d} != unbanded wavefront {d_unb}")
+    calls["long_nw_unbanded_check"] = unb_calls, unb_counts
+    summary["long_nw"].update(distance=d, unbanded_s=unb_s)
+    log(f"long_nw: distance {d} (k contract holds), equal to the unbanded "
+        f"wavefront ({unb_s:.2f} s)")
+    # The break-even at BREAK_LEN: the banded wavefront against the one-lane
+    # align_batch route (nw_banded), which align takes below the gate.
+    bq = rng.randint(0, 4, BREAK_LEN).astype(np.int32)
+    bqb, btb = acgt[bq].tobytes(), acgt[edit_copy(rng, bq, LONG_EDITS,
+                                                  4)].tobytes()
+    be = {}
+    for route, fn, kernel in (
+            ("wavefront", lambda: et.nw_distance_long(bqb, btb),
+             "wavefront_banded"),
+            ("one_lane_nw_banded",
+             lambda: et.align_batch([bqb], [btb])[0]["editDistance"],
+             "nw_banded")):
+        got, cold, _, counts = recorded(ck, rec, fn)
+        if not counts[kernel]:
+            fail(f"break-even: the {route} route never launched {kernel}")
+        _, warm = timed(fn)
+        be[route] = dict(result=got, cold_s=cold, warm_s=warm)
+    if be["wavefront"]["result"] != be["one_lane_nw_banded"]["result"]:
+        fail(f"break-even: align {be['wavefront']['result']} != align_batch "
+             f"{be['one_lane_nw_banded']['result']}")
+    summary["break_even"] = dict(
+        pair_len=BREAK_LEN,
+        distance=be["wavefront"]["result"],
+        **{f"{r}_{k}": v[k] for r, v in be.items()
+           for k in ("cold_s", "warm_s")})
+    log(f"break-even {BREAK_LEN} bp: {summary['break_even']}")
+
+    # 15. Long SHW: the same query against its source plus a random tail.
+    s_ids = np.concatenate([t_ids, rng.randint(0, 4, LONG_SHW_TAIL)]
+                           ).astype(np.int32)
+    sb = acgt[s_ids].tobytes()
+    best, locs = phase("long_shw", lambda: (
+        et.shw_best_long(qb, sb),
+        et.semiglobal_locations_long(qb, sb, mode="SHW")),
+        ("wavefront_banded", "wavefront"))
+    if best != (locs[0], locs[1][0]):
+        fail(f"long_shw: shw_best_long {best} is not the head of {locs}")
+    pq, ps, _ = transform_sequences(qb, sb)
+    stream, stream_s = timed(lambda: Wavefront(device=dev).semiglobal_scores(
+        pq, ps, 4, mode_is_hw=False))
+    want = _filter_locations(stream, len(pq), float("inf"))
+    if (want[0], list(want[1])) != (locs[0], list(locs[1])):
+        fail(f"long_shw: {locs[0]}, {locs[1][:5]} != the unbanded stream's "
+             f"{want[0]}, {want[1][:5]}")
+    summary["long_shw"].update(best=locs[0], n_locations=len(locs[1]),
+                               unbanded_stream_s=stream_s)
+    log(f"long_shw: best {locs[0]} at {len(locs[1])} ends, equal to the "
+        f"unbanded stream ({stream_s:.2f} s)")
+
+    # 16. Long HW: a 10 kbp read with 5% edits planted twice in the target.
+    a = rng.randint(0, LONG_LEN - LONG_READ)
+    read = edit_copy(rng, t_ids[a:a + LONG_READ], LONG_READ_EDITS, 4)
+    h_ids = t_ids.copy()
+    for p in (LONG_LEN // 4, 3 * LONG_LEN // 4):
+        h_ids[p:p + len(read)] = read
+    rb, hb = acgt[read].tobytes(), acgt[h_ids].tobytes()
+    locs = phase("long_hw", lambda: et.semiglobal_locations_long(
+        rb, hb, mode="HW"), ("wavefront",))
+    ref, ref_s = timed(lambda: et.align(rb, hb, mode="HW",
+                                        task="locations"))
+    if len(locs[1]) < 2 or locs != (ref["editDistance"],
+                                    [e for _, e in ref["locations"]]):
+        fail(f"long_hw: {locs} != align's {ref['editDistance']}, "
+             f"{ref['locations']}")
+    summary["long_hw"].update(best=locs[0], ends=locs[1], align_s=ref_s)
+    log(f"long_hw: best {locs[0]} at ends {locs[1]}, equal to align's "
+        f"per-lane route ({ref_s:.1f} s)")
+
+    # 17. Long NW path: the distance from the banded wavefront, the root's
+    # half-sweeps from column_cells on the card, the rest on the host.
+    pq = rng.randint(0, 4, LONG_PATH_LEN).astype(np.int32)
+    pt = edit_copy(rng, pq, LONG_EDITS, 4)
+    pqb, ptb = acgt[pq].tobytes(), acgt[pt].tobytes()
+    out = phase("long_path", lambda: et.align(pqb, ptb, task="path"),
+                ("wavefront_banded", "wavefront"))
+    check_cigars("long_path", [out], [pq], [pt], shared=False)
+    _, dist_s = timed(lambda: et.nw_distance_long(pqb, ptb))
+    summary["long_path"].update(pair_len=LONG_PATH_LEN,
+                                distance=out["editDistance"],
+                                distance_only_s=dist_s)
+    log(f"long_path: CIGAR valid, distance {out['editDistance']}; "
+        f"distance alone {dist_s:.2f} s")
+    # The device half-sweeps against the host's on a smaller pair, the
+    # gate lowered so three Hirschberg levels take the card.
+    eq_q = rng.randint(0, 4, LONG_PATH_EQ_LEN).astype(np.int32)
+    eq_t = edit_copy(rng, eq_q, LONG_EDITS, 4)
+    cq, ct, alpha = transform_sequences(acgt[eq_q].tobytes(),
+                                        acgt[eq_t].tobytes())
+    eq = np.eye(len(alpha), dtype=bool)
+    dist = et.nw_distance_long(acgt[eq_q].tobytes(), acgt[eq_t].tobytes())
+    gate = thb._DEVICE_PATH_MIN_CELLS
+    thb._DEVICE_PATH_MIN_CELLS = PATH_EQ_GATE
+    try:
+        ops_dev, dev_s, _, counts = recorded(
+            ck, rec, lambda: thb.obtain_alignment(cq, ct, eq, dist,
+                                                  device=dev))
+    finally:
+        thb._DEVICE_PATH_MIN_CELLS = gate
+    ops_host, host_s = timed(lambda: thb.obtain_alignment(cq, ct, eq, dist,
+                                                          device=dev))
+    if not counts["wavefront"]:
+        fail("long_path: the lowered gate took no half-sweep on the card")
+    if not np.array_equal(ops_dev, ops_host):
+        fail(f"long_path: {LONG_PATH_EQ_LEN} bp ops differ between the "
+             "device and the host half-sweeps")
+    summary["long_path"].update(eq_pair_len=LONG_PATH_EQ_LEN,
+                                eq_device_s=dev_s, eq_host_s=host_s,
+                                eq_half_sweep_launches=counts["wavefront"])
+    log(f"long_path: {LONG_PATH_EQ_LEN} bp ops byte-equal, device "
+        f"half-sweeps {dev_s:.2f} s vs host {host_s:.2f} s")
+    torch.cuda.empty_cache()
+    return summary, calls
+
+
 # --------------------------------------------------------------------------
 # Main
 # --------------------------------------------------------------------------
@@ -801,6 +1160,7 @@ def main(argv=None) -> int:
 
     # 2. Kernels vs plain versions, small shapes.
     check_kernels(rng, dev, ck)
+    check_wavefront_kernels(rng, dev, ck)
     log("kernels equal their plain versions at small shapes")
 
     rec = Recorder(ck)
@@ -1041,6 +1401,10 @@ def main(argv=None) -> int:
         "nw_path", to_bytes(nq, acgt), [acgt[t].tobytes() for t in nt], nq,
         nt, "NW", "path", ("capture", "nw_banded"))
 
+    # 14-17. Long single pairs, each through its public entry points.
+    long_pairs, long_calls = long_pair_phases(
+        rng, dev, ck, rec, edlib_tpu_torch, acgt)
+
     # 6 and 13. Timings on each path's own operands.
     kernels = []
     for name, calls, counts, path in (
@@ -1078,6 +1442,28 @@ def main(argv=None) -> int:
                                  "bound_ms", "bound_by", "calls")})
         log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
             f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
+    # Phase 13 for the wavefront kernels: every call of each path timed,
+    # held against the plain version on segments of its own operands.
+    for name, path, others in (
+            ("wavefront_banded", "long_nw", ("long_shw", "long_path")),
+            ("wavefront", "long_hw", ("long_shw", "long_path",
+                                      "long_nw_unbanded_check"))):
+        entry = None
+        for label in (path,) + others:
+            calls, counts = long_calls[label]
+            if not calls[name]:
+                continue
+            m = measure_wavefront(ck, name, calls[name])
+            sub = kernel_entry(name, m, counts[name], label, card)
+            if entry is None:
+                entry = sub
+                kernels.append(entry)
+            else:
+                entry.setdefault("other_paths", []).append(
+                    {k: sub[k] for k in ("path", "launches", "max_abs_err",
+                                         "ms", "plain_ms", "plain_cols",
+                                         "cols", "bound_ms", "bound_by",
+                                         "calls")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {
         "card": card, "reads": B, "qlen": QLEN, "target_len": len(t_ids),
@@ -1085,7 +1471,7 @@ def main(argv=None) -> int:
         "map_reads_warm_s": warm_s, "full_shared_sweep_s": sweep_s,
         "sigma100_target_len": len(t100), "sigma100_map_reads_cold_s":
         cold100_s, "build_s": build_s, "warm_profile": prof,
-        "align_batch": phases}}))
+        "align_batch": phases, "long_pairs": long_pairs}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,7 +8,13 @@ namesakes:
 * ``align_batch(queries, targets, mode="NW", task="distance", k=-1,
   additionalEqualities=None, device=None)`` and ``align(query, target,
   ...)``: edlib's alignment, NW/SHW/HW, tasks "distance", "locations" and
-  "path" (the CIGAR);
+  "path" (the CIGAR); NW pairs past 8e9 effective DP cells take the banded
+  wavefront, and Hirschberg nodes past 1e10 cells their half-sweeps on the
+  card;
+* ``nw_distance_long(query, target, k=-1, backend="auto", device=None)``,
+  ``shw_best_long(...)`` and ``semiglobal_locations_long(query, target,
+  mode="HW", k=-1, backend="auto", device=None)``: one long pair spread
+  over the whole card by the wavefront kernels;
 * ``getNiceAlignment(result, query, target)``, ``alignment_to_cigar`` and
   ``cigar_to_alignment``: the CIGAR helpers of the reference binding.
 
@@ -20,6 +26,9 @@ standard library only.
 
 from edlib_tpu_torch.align import align, align_batch
 from edlib_tpu_torch.cigar import alignment_to_cigar, cigar_to_alignment
+from edlib_tpu_torch.longpair import (nw_distance_long,
+                                      semiglobal_locations_long,
+                                      shw_best_long)
 from edlib_tpu_torch.mapping import map_reads
 from edlib_tpu_torch.nice import getNiceAlignment
 from edlib_tpu_torch.types import (EDOP_DELETE, EDOP_INSERT, EDOP_MATCH,
@@ -28,7 +37,8 @@ from edlib_tpu_torch.types import (EDOP_DELETE, EDOP_INSERT, EDOP_MATCH,
 from edlib_tpu_torch.utils.hw import (card_name_and_power, nvcc_path,
                                       resolve_device)
 
-__all__ = ["align", "align_batch", "map_reads", "getNiceAlignment",
+__all__ = ["align", "align_batch", "map_reads", "nw_distance_long",
+           "shw_best_long", "semiglobal_locations_long", "getNiceAlignment",
            "alignment_to_cigar", "cigar_to_alignment", "AlignMode",
            "AlignTask", "CigarFormat", "EDOP_MATCH", "EDOP_INSERT",
            "EDOP_DELETE", "EDOP_MISMATCH", "resolve_device",

@@ -3,7 +3,10 @@
 Signature and result-dict parity with the reference Python binding
 (edlib.pyx:56-155): {editDistance, alphabetLength, locations: [(start|None,
 end)], cigar}.  Both entry points run the batched device path
-(batch.align_batch_device); align is a batch of one.  Tasks "distance",
+(batch.align_batch_device); align is a batch of one, except for huge NW
+pairs (at least EDLIB_TPU_WAVEFRONT_MIN_CELLS effective DP cells, 8e9 by
+default), whose distance comes from the banded wavefront that spreads the
+pair over the whole card (ops/wavefront.py).  Tasks "distance",
 "locations" and "path" (the extended CIGAR of the first location pair) in
 every mode; the ``mesh=`` sharding of edlib_tpu.align_batch is not ported
 yet and raises NotImplementedError.
@@ -16,14 +19,82 @@ survives filtering only when the overall best equals Q).
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from edlib_tpu_torch import encode
+from edlib_tpu_torch.types import (STATUS_OK, AlignMode, AlignResult,
+                                   AlignTask)
 from edlib_tpu_torch.utils import hw
 
 _INF = float("inf")
+
+# Huge NW pairs take the banded wavefront from this many effective DP cells
+# (edlib_tpu/align.py:127-146: its attached-chip floor; the card is
+# attached, so no dispatch-RTT scaling).  EDLIB_TPU_WAVEFRONT_MIN_CELLS
+# overrides; _WAVEFRONT_MIN_CELLS is also the tests' monkeypatch point.
+_env_wf = os.environ.get("EDLIB_TPU_WAVEFRONT_MIN_CELLS")
+_WAVEFRONT_MIN_CELLS = int(_env_wf) if _env_wf else None
+_WAVEFRONT_FLOOR_CELLS = 8_000_000_000
+
+
+def _wavefront_gate() -> int:
+    return (_WAVEFRONT_MIN_CELLS if _WAVEFRONT_MIN_CELLS is not None
+            else _WAVEFRONT_FLOOR_CELLS)
+
+
+def _nw_effective_cells(q_ids, t_ids, eq, k_eff,
+                        d_ub: Optional[int] = None) -> int:
+    """Similarity-aware DP cost of an NW pair (edlib_tpu/align.py:184-205):
+    a banded engine visits ~2*(d+1)*max_len cells, d bounded by the O(n)
+    substitution bound and a finite k; never more than qlen*tlen."""
+    qlen, tlen = len(q_ids), len(t_ids)
+    if d_ub is None:
+        d_ub = encode.nw_upper_bound(q_ids, t_ids, eq)
+    if not (k_eff is _INF or k_eff >= (1 << 40)):
+        d_ub = min(d_ub, int(k_eff) + 1)
+    return min(qlen * tlen, 2 * (d_ub + 1) * max(qlen, tlen))
+
+
+def _nw_wavefront_run(q_ids, t_ids, eq, k_eff, device) -> int:
+    """One NW distance on the banded wavefront (-1 above k_eff)."""
+    from edlib_tpu_torch.ops.wavefront import BandedWavefront
+    k = -1 if (k_eff is _INF or k_eff >= (1 << 40)) else int(k_eff)
+    return BandedWavefront(device=device).nw_distance(
+        q_ids, t_ids, eq.shape[0], k=k, eq=eq)
+
+
+def _align_huge_nw(qb: bytes, tb: bytes, eq_pairs, task: AlignTask, k: int,
+                   device) -> Optional[dict]:
+    """align's result for an NW pair past the wavefront gate, else None
+    (the pair goes to the batch of one).  The distance comes from the
+    banded wavefront, the end is tlen-1, the start 0, and the path is
+    obtain_alignment's (edlib_tpu/align.py:459-489), also for task "path",
+    where the JAX package keeps the distance on its native engine."""
+    if not qb or not tb or len(qb) * len(tb) < _wavefront_gate():
+        return None
+    q_ids, t_ids, alphabet = encode.transform_sequences(qb, tb)
+    eq = encode.build_equality_matrix(alphabet, eq_pairs)
+    k_eff = _INF if k < 0 else k
+    if _nw_effective_cells(q_ids, t_ids, eq, k_eff) < _wavefront_gate():
+        return None
+    dev = hw.resolve_device(device)
+    res = AlignResult(status=STATUS_OK, alphabet_length=len(alphabet))
+    d = _nw_wavefront_run(q_ids, t_ids, eq, k_eff, dev)
+    if d < 0:
+        return res.to_dict()
+    res.edit_distance = d
+    res.end_locations = np.array([len(t_ids) - 1], np.int64)
+    res.num_locations = 1
+    if task in (AlignTask.LOC, AlignTask.PATH):
+        res.start_locations = np.zeros(1, np.int64)
+    if task == AlignTask.PATH:
+        from edlib_tpu_torch.path.hirschberg import obtain_alignment
+        res.alignment = obtain_alignment(q_ids, t_ids, eq, d, device=dev)
+        res.alignment_length = len(res.alignment)
+    return res.to_dict()
 
 
 def _neg1_candidate_exists(qlen: int) -> bool:
@@ -80,9 +151,15 @@ def align_batch(queries, targets, mode="NW", task="distance", k=-1,
 def align(query, target, mode="NW", task="distance", k=-1,
           additionalEqualities=None, device=None) -> dict:
     """Align query with target using edit distance, as edlib_tpu.align: a
-    device batch of one pair (inputs of any hashable alphabet are mapped to
-    bytes first, edlib.pyx:22-53)."""
+    device batch of one pair, or for NW pairs past the wavefront gate the
+    banded wavefront (inputs of any hashable alphabet are mapped to bytes
+    first, edlib.pyx:22-53)."""
     qb, tb, eq_pairs = encode.map_to_bytes(query, target,
                                            additionalEqualities)
+    if AlignMode.parse(mode) == AlignMode.NW:
+        got = _align_huge_nw(qb, tb, eq_pairs, AlignTask.parse(task),
+                             -1 if k is None else k, device)
+        if got is not None:
+            return got
     return align_batch([qb], [tb], mode=mode, task=task, k=k,
                        additionalEqualities=eq_pairs, device=device)[0]

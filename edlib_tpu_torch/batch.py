@@ -658,7 +658,8 @@ def _fill_paths(results, id_pairs, main_idx, sigma, eq, dev):
     for i in host_idx:
         q_ids, w_ids = window(i)
         results[i].alignment = obtain_alignment(q_ids, w_ids, eq,
-                                                int(results[i].edit_distance))
+                                                int(results[i].edit_distance),
+                                                dev)
     for i in dev_idx + host_idx:
         results[i].alignment_length = len(results[i].alignment)
     _PATH_ROUTES["capture"] += len(dev_idx)

@@ -1,7 +1,7 @@
 """Carry the JAX package's per-target state and operands into the port.
 
-The system has no weights: its state is the per-target q-gram index and the
-query profiles.  These helpers take the JAX package's arrays as numpy (bit
+The system has no weights: its state is the per-target q-gram index, the
+query profiles, and a long pair's wavefront state between segments.  These helpers take the JAX package's arrays as numpy (bit
 words as uint32, presence tables as bf16 or any 0/1 dtype) and return the
 port's tensors: bit words as int32 holding the same bit patterns, presence
 as 0/1 float32, symbols as int32.  The *_from_tiles helpers undo the TPU
@@ -61,3 +61,30 @@ def hit_words_from_tiles(tiles, n_lanes=None, device=None) -> torch.Tensor:
     flat = np.transpose(t, (0, 3, 4, 1, 2)).reshape(n_tiles * 1024,
                                                     n_chunks * G)
     return bit_words(flat[:n_lanes]).to(device)
+
+
+def wavefront_state_from_jax(state, device=None) -> torch.Tensor:
+    """The JAX wavefront kernels' state, uint32 (8, R, 128) or the banded
+    kernel's (8 + S1, R, 128), -> the port's int32 (7, R * 128) [Pv, Mv,
+    hneg, hpos, score, runmin, runpos]: the symbol plane (2) and the banded
+    Peq window (8:) are dropped, since the port's kernels read the target
+    and the profile themselves."""
+    s = np.asarray(state, dtype=np.uint32)
+    planes = s[[0, 1, 3, 4, 5, 6, 7]].reshape(7, -1)
+    return bit_words(planes).to(device)
+
+
+def wavefront_state_to_jax(state, symwin=None, peq_window=None) -> np.ndarray:
+    """The port's wavefront state (7, NS) -> the JAX kernels' uint32
+    (8, NS // 128, 128), or with peq_window (S1, NS) the banded kernel's
+    (8 + S1, NS // 128, 128).  symwin (NS,): slot s's current symbol, the
+    target at the word's column (0 where none); the port does not keep it."""
+    s = np.asarray(torch.as_tensor(state).cpu(), dtype=np.int32)
+    s = s.view(np.uint32)
+    ns = s.shape[1]
+    sym = (np.zeros(ns, np.uint32) if symwin is None
+           else np.asarray(symwin, np.int32).view(np.uint32))
+    planes = [s[0], s[1], sym, *s[2:]]
+    if peq_window is not None:
+        planes += list(np.asarray(peq_window, np.uint32))
+    return np.stack(planes).reshape(len(planes), ns // 128, 128)

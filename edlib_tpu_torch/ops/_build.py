@@ -1,11 +1,11 @@
 """Builds the port's CUDA source and binds it with ctypes.
 
-At first use ``csrc/myers.cu`` is compiled by nvcc into a shared library with
-a plain C interface, for ``sm_90a``.  The library goes to
-``build/edlib_tpu_torch/`` at the root of the checkout, named by a hash of the
-source and flags, so a changed source builds anew and an unchanged one is
-reused.  A failed build raises with nvcc's output.  ptxas's register and
-spill report is kept beside the library (``.log``).
+At first use ``csrc/myers.cu`` and ``csrc/wavefront.cu`` are compiled by
+one nvcc into a shared library with a plain C interface, for ``sm_90a``.
+The library goes to ``build/edlib_tpu_torch/`` at the root of the checkout,
+named by a hash of the sources and flags, so a changed source builds anew
+and an unchanged one is reused.  A failed build raises with nvcc's output.
+ptxas's register and spill report is kept beside the library (``.log``).
 """
 
 from __future__ import annotations
@@ -19,14 +19,17 @@ from pathlib import Path
 
 from edlib_tpu_torch.utils import hw
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "myers.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+# Compiled together into one library: the per-lane sweeps and the
+# single-pair wavefront sweeps.
+SOURCES = (CSRC / "myers.cu", CSRC / "wavefront.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "edlib_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/myers.cu: the device index first, the stream last,
+# C signatures of csrc/*.cu: the device index first, the stream last,
 # every pointer and the stream as void*.
 SIGNATURES = {
     "myers_reduce_lanes": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I,
@@ -46,6 +49,10 @@ SIGNATURES = {
     "myers_shw_banded_hits": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
                               _P, _P, _P, _I, _P, _P, _I, _P, _P],
     "myers_capture": [_I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "myers_wavefront": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P, _P],
+    "myers_wavefront_banded": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -54,24 +61,27 @@ _lib = None
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES:
+        h.update(src.read_bytes())
     return BUILD_DIR / f"libmyers-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile csrc/myers.cu unless it is built already; returns the
+    """Compile csrc/*.cu unless they are built already; returns the
     library's path.  Raises RuntimeError with nvcc's output on failure."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [hw.nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [hw.nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(src) for src in SOURCES)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                           f"{SOURCE.name}:\n{proc.stdout}")
+        names = ", ".join(src.name for src in SOURCES)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {names}:\n"
+                           f"{proc.stdout}")
     out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
     return out

@@ -1,8 +1,9 @@
 """Myers bit-vector sweeps with in-sweep reduction: CUDA kernels and their
 plain PyTorch versions.
 
-Port of the sweeps of edlib_tpu/ops/pallas_kernel.py.  Nine kernels, in
-csrc/myers.cu (its header says what bounds them):
+Port of the sweeps of edlib_tpu/ops/pallas_kernel.py and
+edlib_tpu/ops/wavefront.py.  Eleven kernels, in csrc/myers.cu and
+csrc/wavefront.cu (their headers say what bounds them):
 
   reduce_lanes     per-lane target rows, Eq from each lane's query profile
                    (pallas_kernel._reduce_kernel, per-lane form; with one
@@ -18,7 +19,11 @@ csrc/myers.cu (its header says what bounds them):
   shw_banded       banded SHW (best, pfirst, plast) (_shw_banded_kernel);
   shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel);
   capture          every column's (Pv, Mv[, Ph, Mh]) words, stored
-                   (_capture_kernel), for the batched PATH decode.
+                   (_capture_kernel), for the batched PATH decode;
+  wavefront        ONE pair, every query word of it (or a fixed word
+                   window) an anti-diagonal a step (wavefront._wf_kernel);
+  wavefront_banded the same over a window of word slots sliding along the
+                   band (wavefront._wfb_kernel).
 
 Each wrapper checks its operands, runs the plain version when they lie on
 the CPU, and otherwise launches its kernel on the current stream, raises on
@@ -52,7 +57,8 @@ _I32 = torch.int32
 # Kernel launches per wrapper, counted where each wrapper launches its kernel.
 _LAUNCHES = {"reduce_lanes": 0, "reduce_bitplane": 0, "sweep_shared": 0,
              "hits_lanes": 0, "hits_bitplane": 0, "nw_banded": 0,
-             "shw_banded": 0, "shw_banded_hits": 0, "capture": 0}
+             "shw_banded": 0, "shw_banded_hits": 0, "capture": 0,
+             "wavefront": 0, "wavefront_banded": 0}
 
 # ---------------------------------------------------------------------------
 # Routing constants and the band schedule, as the JAX package computes them.
@@ -452,6 +458,101 @@ def shw_banded_hits_plain(peq, targets, woff, lo, hi, prow, trow, best,
 
 
 # ---------------------------------------------------------------------------
+# The wavefront of one pair.  State int32 (7, NS), one column per word slot
+# in logical order (slot s holds word base + s): [Pv, Mv, hneg, hpos, score,
+# runmin, runpos], the JAX kernels' state planes without the symbol plane
+# and the banded kernel's Peq window (the port reads target and profile
+# directly).  At step d word w advances scan column d - w with the hout word
+# w-1 produced at step d-1 (the window's top word takes (0, hin0)).
+# ---------------------------------------------------------------------------
+
+WF_PLANES = 7
+
+
+def wavefront_base(d: int, lo: int, base_cap: int) -> int:
+    """The banded window's top word at step d (wavefront.py:454-456)."""
+    return min(max((d + lo - 31) // 33, 0), base_cap)
+
+
+def _wavefront_steps(t, peq, state, d_base: int, n_steps: int, n_words: int,
+                     t_scan: int, hin0: int, col_lo: int, col_hi: int,
+                     base_of, stream):
+    """The step body of wavefront._wf_kernel / _wfb_kernel in torch, one
+    loop iteration per step over all slots; base_of(d) gives the window's
+    top word (a step where it advances slides the window first)."""
+    ns = state.shape[1]
+    dev = state.device
+    pw = peq.shape[1]
+    flat = peq.reshape(-1)
+    pv, mv, hn, hp, sc, rmin, rpos = state.clone().unbind(0)
+    slot = torch.arange(ns, dtype=torch.int64, device=dev)
+    zero = torch.zeros(1, dtype=_I32, device=dev)
+    top = torch.full((1,), hin0, dtype=_I32, device=dev)
+    ones, big = top.new_full((1,), -1), top.new_full((1,), _BIG)
+    track = col_hi > col_lo
+    bottom = n_words - 1
+    base = base_of(d_base - 1)
+    for i in range(n_steps):
+        d = d_base + i
+        nb = base_of(d)
+        if nb != base:
+            # Slide: the top word leaves, the entering bottom word is the
+            # cell above + 1 per row, from the old bottom's step d-1 state.
+            enter = sc[-1:] - (hp[-1:] - hn[-1:]) + 32
+            pv, mv, hn, hp, sc, rmin, rpos = (
+                torch.cat([x[1:], f]) for x, f in (
+                    (pv, ones), (mv, zero), (hn, zero), (hp, zero),
+                    (sc, enter), (rmin, big), (rpos, ones)))
+        base = nb
+        in_n = torch.cat([zero, hn[:-1]])
+        in_p = torch.cat([top, hp[:-1]])
+        word = base + slot
+        col = d - word
+        active = (col >= 0) & (col < t_scan) & (word < n_words)
+        sym = t[col.clamp(0, t_scan - 1)].long()
+        eq = flat[sym * pw + word.clamp(0, pw - 1)]
+        pv2, mv2, on, op = _advance_word(pv, mv, eq, in_n, in_p)
+        pv = torch.where(active, pv2, pv)
+        mv = torch.where(active, mv2, mv)
+        sc = sc + torch.where(active, op - on, 0)
+        hn = torch.where(active, on, 0)
+        hp = torch.where(active, op, 0)
+        if track:
+            upd = (active & (word == bottom) & (col >= col_lo)
+                   & (col < col_hi) & (sc < rmin))
+            rmin = torch.where(upd, sc, rmin)
+            rpos = torch.where(upd, col.to(_I32), rpos)
+        if stream is not None and 0 <= bottom - base < ns:
+            stream[i] = sc[bottom - base]
+    return torch.stack([pv, mv, hn, hp, sc, rmin, rpos])
+
+
+def _wavefront_stream(n_steps: int, emit: bool, dev):
+    return (torch.full((n_steps,), _BIG, dtype=_I32, device=dev)
+            if emit else None)
+
+
+def wavefront_plain(t, peq, state, d_base: int, n_steps: int, n_words: int,
+                    t_scan: int, hin0: int, col_lo: int, col_hi: int,
+                    word0: int, emit_stream: bool):
+    """Plain version of wavefront (same operands and outputs)."""
+    stream = _wavefront_stream(n_steps, emit_stream, state.device)
+    out = _wavefront_steps(t, peq, state, d_base, n_steps, n_words, t_scan,
+                           hin0, col_lo, col_hi, lambda d: word0, stream)
+    return out, stream
+
+
+def wavefront_banded_plain(t, peq, state, d_base: int, n_steps: int,
+                           n_words: int, t_scan: int, lo: int, col_lo: int,
+                           col_hi: int):
+    """Plain version of wavefront_banded (same operands and output)."""
+    base_cap = max(0, n_words - state.shape[1])
+    return _wavefront_steps(t, peq, state, d_base, n_steps, n_words, t_scan,
+                            1, col_lo, col_hi,
+                            lambda d: wavefront_base(d, lo, base_cap), None)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
@@ -796,8 +897,88 @@ def capture(peq, targets, hin0: int, want_h: bool = False):
     return tuple(o.permute(2, 0, 1) for o in outs)
 
 
+def _check_wavefront(name, t, peq, state, d_base: int, n_steps: int,
+                     n_words: int, t_scan: int) -> None:
+    _check(name, t, "t", 1)
+    _check(name, peq, "peq", 2)
+    _check(name, state, "state", 2)
+    ns = state.shape[1]
+    if state.shape[0] != WF_PLANES or ns < 1:
+        raise ValueError(f"{name}: state must be ({WF_PLANES}, slots), got "
+                         f"{tuple(state.shape)}")
+    if not 1 <= n_words <= peq.shape[1] or not 1 <= t_scan <= t.shape[0]:
+        raise ValueError(f"{name}: n_words={n_words} / t_scan={t_scan} "
+                         f"outside peq {tuple(peq.shape)} / t "
+                         f"{tuple(t.shape)}")
+    # The kernels hand scores on packed as score << 2 | hout bits.
+    if (n_words + ns + 1) * WORD_SIZE + t_scan >= 1 << 29:
+        raise ValueError(f"{name}: {n_words} words and {t_scan} columns "
+                         "exceed the kernels' score range")
+    if n_steps < 0 or d_base < 0 or d_base + n_steps >= 1 << 31:
+        raise ValueError(f"{name}: steps [{d_base}, {d_base + n_steps}) "
+                         "outside [0, 2^31)")
+
+
+def wavefront(t, peq, state, d_base: int, n_steps: int, n_words: int,
+              t_scan: int, hin0: int, col_lo: int, col_hi: int, word0: int,
+              emit_stream: bool):
+    """n_steps wavefront steps of one pair from absolute step d_base over
+    the fixed word window [word0, word0 + NS) (kernel wavefront).
+
+    t: int32 (>= t_scan,) scan-column symbols; peq: int32 (S1, >= n_words)
+    profile bit words; state: int32 (7, NS) (layout above).  Only words
+    < n_words and columns in [0, t_scan) advance; the bottom word n_words-1
+    keeps its running (min, first argmin) over columns [col_lo, col_hi).
+    Returns (new state, stream): stream int32 (n_steps,) holds the bottom
+    word's score after each step (None unless emit_stream; _BIG where the
+    bottom word is outside the window).  The input state is not changed."""
+    name = "wavefront"
+    _check_wavefront(name, t, peq, state, d_base, n_steps, n_words, t_scan)
+    dev = state.device
+    if not _on_cuda(name, t, peq, state):
+        return wavefront_plain(t, peq, state, d_base, n_steps, n_words,
+                               t_scan, hin0, col_lo, col_hi, word0,
+                               emit_stream)
+    out = state.clone()
+    stream = _wavefront_stream(n_steps, emit_stream, dev)
+    if n_steps:
+        hand = torch.empty(2 * state.shape[1], dtype=_I32, device=dev)
+        _launch(name, "myers_wavefront", dev.index, t.data_ptr(),
+                peq.data_ptr(), peq.shape[1], out.data_ptr(),
+                hand.data_ptr(), int(d_base), int(n_steps), state.shape[1],
+                int(n_words), int(t_scan), int(hin0), int(col_lo),
+                int(col_hi), int(word0),
+                None if stream is None else stream.data_ptr(), _stream(dev))
+    return out, stream
+
+
+def wavefront_banded(t, peq, state, d_base: int, n_steps: int, n_words: int,
+                     t_scan: int, lo: int, col_lo: int, col_hi: int):
+    """n_steps banded wavefront steps from absolute step d_base (kernel
+    wavefront_banded): the window of NS word slots has its top word at
+    wavefront_base(d, lo, max(0, n_words - NS)) and slides as that
+    advances; its top word takes hin +1.  Operands as wavefront; returns
+    the new state (exact wherever a value is <= the band's k)."""
+    name = "wavefront_banded"
+    _check_wavefront(name, t, peq, state, d_base, n_steps, n_words, t_scan)
+    if not _on_cuda(name, t, peq, state):
+        return wavefront_banded_plain(t, peq, state, d_base, n_steps,
+                                      n_words, t_scan, lo, col_lo, col_hi)
+    dev = state.device
+    out = state.clone()
+    if n_steps:
+        hand = torch.empty(2 * state.shape[1], dtype=_I32, device=dev)
+        _launch(name, "myers_wavefront_banded", dev.index, t.data_ptr(),
+                peq.data_ptr(), peq.shape[1], out.data_ptr(),
+                hand.data_ptr(), int(d_base), int(n_steps), state.shape[1],
+                int(n_words), int(t_scan), int(lo), int(col_lo), int(col_hi),
+                _stream(dev))
+    return out
+
+
 KERNELS = (reduce_lanes, reduce_bitplane, sweep_shared, hits_lanes,
-           hits_bitplane, nw_banded, shw_banded, shw_banded_hits, capture)
+           hits_bitplane, nw_banded, shw_banded, shw_banded_hits, capture,
+           wavefront, wavefront_banded)
 
 
 def launch_counts() -> dict:

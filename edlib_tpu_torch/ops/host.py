@@ -1,14 +1,16 @@
 """Host Myers engine over Python big-ints, for the host PATH route.
 
-Copied from the JAX package's ops/host.py (the parts path/ uses).  The
+Copied from the JAX package's ops/host.py (the parts path/ and longpair.py
+use).  The
 whole Q-bit column lives in ONE arbitrary-precision integer, so the
 carry-propagating add in ``(Eq & Pv) + Pv`` needs no word decomposition
 (contrast the reference's 64-bit block chain, edlib.cpp:412-447).  No
 padding: bit i is query row i and the tracked score is exactly cell(Q-1, c).
 
 The port reconstructs windows here that the batched capture route does not
-take (path/hirschberg.py); the JAX package hands those to its native C++
-engine when it is built, which emits the same ops.
+take (path/hirschberg.py), and runs the long-pair functions' "native"
+backend here (longpair.py); the JAX package hands both to its native C++
+engine when it is built, which gives the same answers.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from edlib_tpu_torch.types import AlignMode
 
 
 def advance_column(Pv: int, Mv: int, Eq: int, hin: int,
@@ -52,6 +56,25 @@ class ColumnState:
     Pv: int
     Mv: int
     score: int  # cell(Q-1, c)
+
+
+def semiglobal_scores(peq: Sequence[int], t_ids: np.ndarray, qlen: int,
+                      mode) -> np.ndarray:
+    """Bottom-row scores cell(Q-1, c) for every target column c.
+
+    HW feeds hin=0 at the top boundary (free gap before query,
+    edlib.cpp:584); SHW feeds hin=1.
+    """
+    mask = (1 << qlen) - 1
+    high_bit = 1 << (qlen - 1)
+    hin0 = 0 if AlignMode.parse(mode) == AlignMode.HW else 1
+    Pv, Mv, score = mask, 0, qlen
+    out = np.empty(len(t_ids), dtype=np.int64)
+    for c, sym in enumerate(t_ids):
+        Pv, Mv, hout = advance_column(Pv, Mv, peq[sym], hin0, mask, high_bit)
+        score += hout
+        out[c] = score
+    return out
 
 
 def nw_run(peq: Sequence[int], t_ids: np.ndarray, qlen: int,
