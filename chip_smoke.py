@@ -8,7 +8,11 @@ Phases, each of which exits non-zero on any failure:
 2. Hold every kernel against its plain PyTorch version on the card, at small
    shapes, for exact equality (every output is an integer); the capture
    kernel at NW 1, 4, 8, 16 and 64 (register and read-back forms), both
-   hin0, with and without Ph/Mh, over a ragged last chunk.
+   hin0, with and without Ph/Mh, over a ragged last chunk; the score-stream
+   and eq-stream kernels at NW 1, 4 (registers) and 9 (scratch), both
+   hin0, over a ragged 197 columns; every per-lane kernel in the wave form
+   (one block a lane) at 256 and a ragged 300 words; and sweep_scores and
+   reduce_lanes at 12,300 words (past the wave form: one thread a lane).
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -24,9 +28,8 @@ Phases, each of which exits non-zero on any failure:
 5. An SHW batch and a B <= 64 segmented batch, each equal to the same call
    on the CPU (the plain versions).
 6. Each kernel timed on the operands its main path gave it (CUDA events)
-   and its output held against its plain version's on the same operands:
-   over every column for the per-lane reduces, over the first
-   SHARED_PLAIN_COLS columns for the shared sweep.  Beside each: the plain
+   and its output held against its plain version's on the same operands,
+   over at most the first SHARED_PLAIN_COLS columns.  Beside each: the plain
    version's time over the columns it ran, and the least time the card
    could take.
 
@@ -56,11 +59,12 @@ Phases, each of which exits non-zero on any failure:
       nw_banded for the distances, capture).
    Each path phase also profiles one batched-windows call alone: the
    capture kernel's device time, the decode and walk's, and peak memory.
-13. Each kernel of phases 7-12 timed and held against its plain version on
-   its phase's operands, over at most SHARED_PLAIN_COLS columns; each
-   wavefront kernel of phases 14-17 timed over every call of its path and
-   held against its plain version over WF_PLAIN_STEPS steps of the first,
-   middle and last calls.
+13. Each kernel of phases 7-12 and 18-20 timed and held against its plain
+   version on its phase's operands, over at most SHARED_PLAIN_COLS columns
+   (and PLAIN_WORD_COLS word-columns) of at most the first, middle and last
+   calls of a path; each wavefront kernel of phases 14-17 timed over every
+   call of its path and held against its plain version over WF_PLAIN_STEPS
+   steps of the first, middle and last calls.
 14-17. Long single pairs through nw_distance_long, shw_best_long,
    semiglobal_locations_long and align, each with its launch counts and a
    warm repeat that must agree:
@@ -78,6 +82,26 @@ Phases, each of which exits non-zero on any failure:
       banded distance, the root's half-sweeps on the card), a valid CIGAR
       of that cost; on a 30,000-bp pair with the device gate lowered the
       ops equal the host half-sweeps'.
+18-19. align_batch past the per-lane alphabet cap with dense equalities,
+   checked as 7-10 (the numpy DP compares equality classes): HW locations
+   of 120-bp reads over sigma=100, each against its own 1,000-bp window
+   with 6% substitutions, every symbol equal to the other 7 of its class of
+   8 (v // 8), so no bit-plane plan exists:
+   18. 4,096 reads: the JAX footprint estimate is 0.98 GB, under 1 GiB, so
+      the eq-stream kernels run (reduce_eqstream, hits_eqstream; the start
+      re-runs too) and sweep_scores must not;
+   19. 8,192 reads: 1.96 GB, so the main bucket takes the score stream
+      (sweep_scores).
+20. One long pair on the score-stream route: align(a, b), task distance and
+   then locations, on a random 100,000-bp sigma=4 sequence and its copy
+   with 3% substitutions (one lane of 4,096 words x 131,072 columns; the
+   bit-plane budget and the eq-stream footprint both fail, and the Hamming
+   bound keeps it under the wavefront gate): sweep_scores runs,
+   wavefront_banded must not; its distance equals nw_distance_long's, k = d
+   gives d and k = d-1 gives -1; warm against the banded wavefront.  And
+   hw_stream_segmented: a 1,000-bp read with 5% edits planted in phase 14's
+   1 Mbp target, its positions at the stream's minimum equal
+   semiglobal_locations_long(mode="HW")'s ends.
 
 Output: the kernels' JSON line, the end-to-end JSON line, the card line, and
 last {"ok": true, "device": {...}}.  Data comes from --seed.
@@ -114,12 +138,14 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 OPS_PER_WORD = 13
 OPS_PER_COLUMN = 6
 OPS_PER_COLUMN_SHARED = 4
-# A sweep's plain version runs over at most the first 3 staging chunks of
-# csrc/myers.cu (kChunk = 2048) and a ragged tail; the shared sweep's
-# full-width output is held against an O(Q*T) DP on the card
+# A sweep's plain version runs over at most the first staging chunk of
+# csrc/myers.cu (kChunk = 2048) and a ragged tail, and over at most
+# PLAIN_WORD_COLS word-columns (a lane of 4,096 words: 16 columns); the
+# shared sweep's full-width output is held against an O(Q*T) DP on the card
 # (dp_best_hw_card), the per-lane sweeps' by each phase's device="cpu"
 # subsample and DP checks.
-SHARED_PLAIN_COLS = 3 * 2048 + 37
+SHARED_PLAIN_COLS = 2048 + 37
+PLAIN_WORD_COLS = 1 << 16
 # Main-path sizes (bench.py's read-mapping shape).
 READS, QLEN, N_RANDOM = 8192, 120, 96
 BASE_LEN, TILES = 1 << 20, 4          # sigma=4 target: BASE_LEN random, tiled
@@ -138,18 +164,24 @@ PATH_PAIRS, PATH_LEN = 8_192, 500
 # copy with 3% edits (the JAX package's 1 Mbp chromosome-vs-mutant drive),
 # the same query against the target plus a random SHW tail, a 10 kbp read
 # planted twice for HW, and NW PATH pairs.  BREAK_LEN pairs time the
-# banded wavefront against the one-lane align_batch route (nw_banded): past
-# 65,536 bp (2,048 words) that route needs the eq-stream kernels, which are
-# not ported (the profile fits neither the per-lane nor the bit-plane
-# kernels' routing budget there).
+# banded wavefront against the one-lane align_batch route (nw_banded); past
+# 65,536 bp (2,048 words) that route is the score stream (phase 20): the
+# profile fits neither the per-lane nor the bit-plane kernels' routing
+# budget, and one lane's eq-stream footprint estimate is past 1 GiB.
 LONG_LEN, LONG_EDITS, BREAK_LEN, LONG_SHW_TAIL = 1_000_000, 0.03, 30_000, \
     200_000
 LONG_READ, LONG_READ_EDITS = 10_000, 0.05
 LONG_PATH_LEN, LONG_PATH_EQ_LEN, PATH_EQ_GATE = 200_000, 30_000, 10**8
+# Phases 18-19: phase 10's read shape over sigma = BP_SIGMA with dense
+# equalities (each symbol equal to the other EQ_CLASS - 1 of its class).
+EQ_READS, STREAM_READS, EQ_CLASS = 4_096, 8_192, 8
+# Phase 20: a STREAM_LEN-bp pair with substitutions only, and a
+# SEG_READ_LEN-bp read for hw_stream_segmented.
+STREAM_LEN, STREAM_SUBS, SEG_READ_LEN = 100_000, 0.03, 1_000
 # The wavefront kernels' plain versions run one torch step per wavefront
 # step: a full-width call is held over WF_PLAIN_STEPS steps of its first,
 # middle and last segments.
-WF_PLAIN_STEPS = 2048
+WF_PLAIN_STEPS = 1024
 KERNEL_SOURCE = {"wavefront": "edlib_tpu_torch/ops/csrc/wavefront.cu",
                  "wavefront_banded": "edlib_tpu_torch/ops/csrc/wavefront.cu"}
 KERNEL_SOURCE_DEFAULT = "edlib_tpu_torch/ops/csrc/myers.cu"
@@ -165,6 +197,9 @@ REPLACES = {
     "capture": "edlib_tpu/ops/pallas_kernel.py:2635",
     "wavefront": "edlib_tpu/ops/wavefront.py:205",
     "wavefront_banded": "edlib_tpu/ops/wavefront.py:573",
+    "sweep_scores": "edlib_tpu/ops/pallas_kernel.py:211",
+    "reduce_eqstream": "edlib_tpu/ops/pallas_kernel.py:1869",
+    "hits_eqstream": "edlib_tpu/ops/pallas_kernel.py:1905",
 }
 
 
@@ -413,7 +448,7 @@ def check_kernels(rng, dev, ck):
     import torch
     for nw in (1, 4, 9):
         for hin0 in (0, 1):
-            ops = lane_operands(rng, dev, n_lanes=300, n_rows=6, T=400, s1=5,
+            ops = lane_operands(rng, dev, n_lanes=300, n_rows=6, T=200, s1=5,
                                 nw=nw)
             check_equal(f"reduce_lanes nw={nw} hin0={hin0}",
                         ck.reduce_lanes(*ops, hin0),
@@ -423,8 +458,8 @@ def check_kernels(rng, dev, ck):
                 words.astype(np.uint32).view(np.int32)).to(dev)
             target = ops[1][0].contiguous()
             check_equal(f"sweep_shared nw={nw} hin0={hin0}",
-                        ck.sweep_shared(peq_t, target, hin0, 17, 390),
-                        ck.sweep_shared_plain(peq_t, target, hin0, 17, 390))
+                        ck.sweep_shared(peq_t, target, hin0, 17, 190),
+                        ck.sweep_shared_plain(peq_t, target, hin0, 17, 190))
     sigma = 100
     nb = ck.bitplane_nb(sigma)
     for nw in (4, 9):
@@ -436,7 +471,7 @@ def check_kernels(rng, dev, ck):
         q_alts, pad = ck.bitplane_identity_operands(q, qlens, sigma, nw)
         planes = ck.bitplane_planes(q_alts, nb)
         _, targets, lo, hi, prow, trow = lane_operands(
-            rng, dev, n_lanes=300, n_rows=B, T=400, s1=sigma + 2, nw=1)
+            rng, dev, n_lanes=300, n_rows=B, T=200, s1=sigma + 2, nw=1)
         for hin0 in (0, 1):
             args = (planes, pad, targets, lo, hi, prow, trow, hin0)
             check_equal(f"reduce_bitplane nw={nw} hin0={hin0}",
@@ -449,7 +484,7 @@ def check_kernels(rng, dev, ck):
                         [ck.hits_bitplane_plain(*hargs)])
     for nw in (1, 4, 9):
         for hin0 in (0, 1):
-            ops = lane_operands(rng, dev, n_lanes=300, n_rows=6, T=400, s1=5,
+            ops = lane_operands(rng, dev, n_lanes=300, n_rows=6, T=200, s1=5,
                                 nw=nw)
             best = hit_targets(rng, ck.reduce_lanes(*ops, hin0))
             check_equal(f"hits_lanes nw={nw} hin0={hin0}",
@@ -461,8 +496,8 @@ def check_kernels(rng, dev, ck):
     for n_win, nw in ((1, 3), (2, 8), (4, 9), (8, 16), (12, 32), (16, 24),
                       (3, 7), (20, 40)):
         peq, targets, lo, hi, prow, trow = lane_operands(
-            rng, dev, n_lanes=300, n_rows=6, T=400, s1=5, nw=nw)
-        n_chunks = -(-400 // chunk)
+            rng, dev, n_lanes=300, n_rows=6, T=200, s1=5, nw=nw)
+        n_chunks = -(-200 // chunk)
         steps = rng.choice([0, 0, 1, 2, 5], n_chunks - 1)
         woff = np.minimum(np.concatenate([[0], np.cumsum(steps)]),
                           nw - n_win).astype(np.int32)
@@ -481,6 +516,77 @@ def check_kernels(rng, dev, ck):
                                         n_win, chunk)],
                     [ck.shw_banded_hits_plain(*band, lo, hi, prow, trow,
                                               best, n_win, chunk)])
+    # The score-stream and eq-stream kernels: register widths and a scratch
+    # width, both hin0, a ragged 197 columns, sigma = 100.
+    for nw in (1, 4, 9):
+        for hin0 in (0, 1):
+            peq, targets, lo, hi, prow, trow = lane_operands(
+                rng, dev, n_lanes=300, n_rows=6, T=197, s1=101, nw=nw)
+            rows = (peq, targets, prow, trow, hin0)
+            check_equal(f"sweep_scores nw={nw} hin0={hin0}",
+                        [ck.sweep_scores(*rows)],
+                        [ck.sweep_scores_plain(*rows)])
+            eq_t = ck.eqstream_gather(peq[prow.long()],
+                                      targets[trow.long()]).permute(1, 2, 0)
+            got = ck.reduce_eqstream(eq_t, lo, hi, hin0)
+            check_equal(f"reduce_eqstream nw={nw} hin0={hin0}", got,
+                        ck.reduce_eqstream_plain(eq_t, lo, hi, hin0))
+            best = hit_targets(rng, got)
+            check_equal(f"hits_eqstream nw={nw} hin0={hin0}",
+                        [ck.hits_eqstream(eq_t, lo, hi, best, hin0)],
+                        [ck.hits_eqstream_plain(eq_t, lo, hi, best, hin0)])
+    # The wave form (a block a lane, 8 words a thread) at 256 words and at a
+    # ragged 300, over fewer columns than the block has threads (every
+    # column still passes every thread).
+    for nw, hin0 in ((256, 0), (300, 1)):
+        peq, targets, lo, hi, prow, trow = lane_operands(
+            rng, dev, n_lanes=3, n_rows=2, T=16, s1=5, nw=nw)
+        lanes = (peq, targets, lo, hi, prow, trow, hin0)
+        got = ck.reduce_lanes(*lanes)
+        check_equal(f"reduce_lanes nw={nw} hin0={hin0}", got,
+                    ck.reduce_lanes_plain(*lanes))
+        best = hit_targets(rng, got)
+        check_equal(f"hits_lanes nw={nw} hin0={hin0}",
+                    [ck.hits_lanes(*lanes[:6], best, hin0)],
+                    [ck.hits_lanes_plain(*lanes[:6], best, hin0)])
+        rows = (peq, targets, prow, trow, hin0)
+        check_equal(f"sweep_scores nw={nw} hin0={hin0}",
+                    [ck.sweep_scores(*rows)], [ck.sweep_scores_plain(*rows)])
+        eq_t = ck.eqstream_gather(peq[prow.long()],
+                                  targets[trow.long()]).permute(1, 2, 0)
+        got = ck.reduce_eqstream(eq_t, lo, hi, hin0)
+        check_equal(f"reduce_eqstream nw={nw} hin0={hin0}", got,
+                    ck.reduce_eqstream_plain(eq_t, lo, hi, hin0))
+        best = hit_targets(rng, got)
+        check_equal(f"hits_eqstream nw={nw} hin0={hin0}",
+                    [ck.hits_eqstream(eq_t, lo, hi, best, hin0)],
+                    [ck.hits_eqstream_plain(eq_t, lo, hi, best, hin0)])
+        q = torch.from_numpy(rng.randint(0, sigma, (3, nw * 32))
+                             .astype(np.int32)).to(dev)
+        qlens = torch.from_numpy(rng.randint(1, nw * 32 + 1, 3)
+                                 .astype(np.int32)).to(dev)
+        q_alts, pad = ck.bitplane_identity_operands(q, qlens, sigma, nw)
+        args = (ck.bitplane_planes(q_alts, nb), pad, targets, lo, hi, prow,
+                trow, hin0)
+        got = ck.reduce_bitplane(*args, nb, 1, sigma)
+        check_equal(f"reduce_bitplane nw={nw} hin0={hin0}", got,
+                    ck.reduce_bitplane_plain(*args, nb, 1, sigma))
+        best = hit_targets(rng, got)
+        hargs = args[:7] + (best, hin0, nb, 1, sigma)
+        check_equal(f"hits_bitplane nw={nw} hin0={hin0}",
+                    [ck.hits_bitplane(*hargs)],
+                    [ck.hits_bitplane_plain(*hargs)])
+    # Lanes past the wave form's 4,096 words take one thread each again:
+    # 12,300 words, a few columns.
+    peq, targets, lo, hi, prow, trow = lane_operands(
+        rng, dev, n_lanes=3, n_rows=2, T=3, s1=5, nw=12_300)
+    hi[:] = 3
+    rows = (peq, targets, prow, trow, 0)
+    check_equal("sweep_scores nw=12300 hin0=0", [ck.sweep_scores(*rows)],
+                [ck.sweep_scores_plain(*rows)])
+    lanes = (peq, targets, lo, hi, prow, trow, 1)
+    check_equal("reduce_lanes nw=12300 hin0=1", ck.reduce_lanes(*lanes),
+                ck.reduce_lanes_plain(*lanes))
     # The capture kernel in its register (NW <= 8) and read-back forms, 200
     # columns padded with the wildcard to 256 (a ragged last chunk).
     for nw in (1, 4, 8, 16, 64):
@@ -666,9 +772,12 @@ class Recorder:
         return calls
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean CUDA-event time of reps calls, after one warm-up call unless
+    the caller has just made one (warm=False)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -741,7 +850,33 @@ def call_plan(ck, name, args):
     the symbol's bit masks and two for the wildcard test; plus
     OPS_PER_COLUMN for the score and the reduction or hit mask.  A call's
     plain version runs over at most its first SHARED_PLAIN_COLS columns
-    (the kernel is held on the same prefix)."""
+    and PLAIN_WORD_COLS word-columns (the kernel is held on the same
+    prefix).  The score stream writes every lane-column's score; the
+    eq-stream kernels read NW words for every column a lane scans."""
+    import torch
+    if name == "sweep_scores":
+        peq, targets, prow, trow, hin0 = args
+        n, T, nw = prow.shape[0], targets.shape[1], peq.shape[2]
+        full = torch.full((n,), T, dtype=torch.int64, device=prow.device)
+        nbytes, ops = lane_call_cost(peq.shape[1] * nw, targets, full, prow,
+                                     trow, 2, nw * OPS_PER_WORD + 1, n * T * 4)
+        plain_cols = min(T, SHARED_PLAIN_COLS, max(8, PLAIN_WORD_COLS // nw))
+        checked = args if plain_cols == T else (
+            peq, targets[:, :plain_cols].contiguous(), prow, trow, hin0)
+        return nbytes, ops, n, T, nw, checked, plain_cols
+    if name in ("reduce_eqstream", "hits_eqstream"):
+        eq_t, lo, hi = args[:3]
+        T, nw, n = eq_t.shape
+        lane_cols = int(hi.long().clamp(0, T).sum())
+        end = min(T, int(hi.max())) if n else 0
+        hits = name == "hits_eqstream"
+        nbytes = (lane_cols * nw * 4 + n * (3 if hits else 2) * 4
+                  + n * (-(-T // 32) if hits else 4) * 4)
+        ops = lane_cols * (nw * OPS_PER_WORD + OPS_PER_COLUMN)
+        plain_cols = min(end, SHARED_PLAIN_COLS, max(8, PLAIN_WORD_COLS // nw))
+        checked = args if plain_cols == end else (
+            (eq_t[:plain_cols],) + tuple(args[1:]))
+        return nbytes, ops, n, end, nw, checked, plain_cols
     if name == "capture":
         # Profiles and targets read once, every output word written once.
         peq, targets, _, want_h = args
@@ -800,30 +935,38 @@ def bound(nbytes, ops):
 
 def measure(ck, name, calls):
     """Kernel time, plain time and bound summed over a path's calls of one
-    kernel, each call's output held against its plain version's on the
-    call's operands (see call_plan for the columns the plain version
-    runs)."""
+    kernel, the first, middle and last calls' outputs held against their
+    plain versions' on the calls' operands (see call_plan for the columns
+    the plain version runs)."""
     import torch
     kernel = getattr(ck, name)
     plain = getattr(ck, name + "_plain")
     out = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nbytes=0, ops=0,
                max_abs_err=0.0, calls=[])
-    for args in calls:
+    held = {0, len(calls) // 2, len(calls) - 1}
+    for i, args in enumerate(calls):
         nbytes, ops, n, end, nw, checked, plain_cols = call_plan(
             ck, name, args)
-        reps = 3 if end * n > 1e8 else 10
-        ms = time_ms(lambda: kernel(*args), reps)
-        got = kernel(*checked)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = plain(*checked)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if isinstance(got, torch.Tensor):
-            got, want = [got], [want]
-        out["max_abs_err"] = max(out["max_abs_err"],
-                                 check_equal(f"{name} on main-path operands",
-                                             got, want))
+        # The warm-up call sets the repetitions: one for a call of seconds
+        # (a single lane of thousands of words).
+        _, first_s = timed(lambda: kernel(*args))
+        reps = 1 if first_s > 0.5 else 3 if end * n > 1e8 else 10
+        ms = time_ms(lambda: kernel(*args), reps, warm=False)
+        plain_ms = 0.0
+        if i not in held:
+            plain_cols = 0
+        else:
+            got = kernel(*checked)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(*checked)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if isinstance(got, torch.Tensor):
+                got, want = [got], [want]
+            out["max_abs_err"] = max(out["max_abs_err"], check_equal(
+                f"{name} on main-path operands", got, want))
+            del got, want
         out["ms"] += ms
         out["plain_ms"] += plain_ms
         b, _ = bound(nbytes, ops)
@@ -834,9 +977,8 @@ def measure(ck, name, calls):
                                  plain_ms=plain_ms, plain_cols=plain_cols,
                                  bound_ms=b))
         log(f"{name} call: {n} lanes x {end} cols (nw {nw}), kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.1f} ms over {plain_cols} cols, "
-            f"equal")
-        del got, want
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms over {plain_cols} cols"
+            + (", equal" if i in held else ""))
         torch.cuda.empty_cache()
     out["bound_by"] = bound(out["nbytes"], out["ops"])[1]
     return out
@@ -889,10 +1031,12 @@ def drive(ck, rec, label, call, required):
 
 
 def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
-                mode, task, rng, cpu_refs, cpu_key=None):
+                mode, task, rng, cpu_refs, cpu_key=None, eqs=None):
     """align_batch's results: one per pair, distances in range, a
     subsample of SUBSAMPLE pairs equal to device="cpu" (a shared target
-    stays shared), DP_SAMPLES of them equal to the numpy DP.  Phases that
+    stays shared; with the same equalities eqs), DP_SAMPLES of them equal
+    to the numpy DP (q_ids, t_ids: symbols, or with equalities their
+    classes, which the DP compares).  Phases that
     name one cpu_key run the same batch: the first runs the device="cpu"
     reference once with task "path" (its editDistance, alphabetLength and
     locations are the other tasks' answers) on one subsample, kept in
@@ -912,7 +1056,7 @@ def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
         ref = align_batch([queries[i] for i in idx],
                           targets if shared else [targets[i] for i in idx],
                           mode=mode, task="path" if cpu_key else task,
-                          device="cpu")
+                          additionalEqualities=eqs, device="cpu")
         if cpu_key:
             cpu_refs[cpu_key] = idx, ref
     cpu_s = time.perf_counter() - t0
@@ -955,10 +1099,11 @@ def recorded(ck, rec, fn):
 
 
 def long_pair_phases(rng, dev, ck, rec, et, acgt):
-    """Phases 14-17: one long pair at a time through nw_distance_long,
-    shw_best_long, semiglobal_locations_long and align (NW huge route and
-    the device Hirschberg), each held against the unbanded wavefront, the
-    batched routes or the host engine.  Returns (the e2e summary, {label:
+    """Phases 14-17 and 20: one long pair at a time through
+    nw_distance_long, shw_best_long, semiglobal_locations_long and align
+    (NW huge route, the device Hirschberg, the score-stream route), each
+    held against the unbanded wavefront, the batched routes or the host
+    engine; and hw_stream_segmented.  Returns (the e2e summary, {label:
     (recorded calls, launch counts)} for the kernel timings)."""
     import torch
     from edlib_tpu_torch.align import _filter_locations
@@ -1112,6 +1257,61 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
                                 eq_half_sweep_launches=counts["wavefront"])
     log(f"long_path: {LONG_PATH_EQ_LEN} bp ops byte-equal, device "
         f"half-sweeps {dev_s:.2f} s vs host {host_s:.2f} s")
+
+    # 20. One long pair on the score-stream route: substitutions only, so
+    # the Hamming bound keeps the pair under the wavefront gate, and past
+    # 65,536 bp neither the per-lane nor the bit-plane kernels take it.
+    sq = rng.randint(0, 4, STREAM_LEN).astype(np.int32)
+    st = sq.copy()
+    sub = rng.rand(STREAM_LEN) < STREAM_SUBS
+    st[sub] = (st[sub] + rng.randint(1, 4, int(sub.sum()))) % 4
+    sqb, stb = acgt[sq].tobytes(), acgt[st].tobytes()
+    got = phase("long_stream", lambda: et.align(sqb, stb), ("sweep_scores",),
+                ("wavefront_banded", "wavefront"))
+    loc, loc_s, _, counts = recorded(
+        ck, rec, lambda: et.align(sqb, stb, task="locations"))
+    if not counts["sweep_scores"] or counts["wavefront_banded"]:
+        fail(f"long_stream: locations took launches {counts}")
+    d, wf_cold = timed(lambda: et.nw_distance_long(sqb, stb))
+    _, wf_warm = timed(lambda: et.nw_distance_long(sqb, stb))
+    want = {"editDistance": d, "alphabetLength": 4,
+            "locations": [(None, STREAM_LEN - 1)], "cigar": None}
+    if got != want or loc != dict(want, locations=[(0, STREAM_LEN - 1)]):
+        fail(f"long_stream: align gives {got}, {loc}; nw_distance_long {d}")
+    if (et.align(sqb, stb, k=d)["editDistance"] != d
+            or et.align(sqb, stb, k=d - 1)["editDistance"] != -1):
+        fail(f"long_stream: k = {d} / {d - 1} does not give {d} / -1")
+    summary["long_stream"].update(
+        pair_len=STREAM_LEN, distance=d, locations_s=loc_s,
+        wavefront_cold_s=wf_cold, wavefront_warm_s=wf_warm)
+    log(f"long_stream: distance {d} (k contract holds), equal to "
+        f"nw_distance_long; align warm {summary['long_stream']['warm_s']:.2f}"
+        f" s vs the banded wavefront {wf_warm:.3f} s")
+
+    # hw_stream_segmented: a read planted in phase 14's target, its stream's
+    # minimal positions against semiglobal_locations_long's ends.
+    from edlib_tpu_torch.ops.segmented import hw_stream_segmented
+    a = rng.randint(0, LONG_LEN - SEG_READ_LEN)
+    read = edit_copy(rng, t_ids[a:a + SEG_READ_LEN], LONG_READ_EDITS, 4)
+    g_ids = t_ids.copy()
+    g_ids[LONG_LEN // 2:LONG_LEN // 2 + len(read)] = read
+    stream, seg_s, seg_calls, counts = recorded(
+        ck, rec, lambda: hw_stream_segmented(read, g_ids, 4, len(read),
+                                             device=dev))
+    if not counts["sweep_scores"]:
+        fail("segmented stream: sweep_scores never ran")
+    locs = et.semiglobal_locations_long(acgt[read].tobytes(),
+                                        acgt[g_ids].tobytes(), mode="HW")
+    got = (int(stream.min()), np.nonzero(stream == stream.min())[0].tolist())
+    if stream.shape != (LONG_LEN,) or got != (locs[0], [
+            e for e in locs[1] if e >= 0]):
+        fail(f"segmented stream: {got} != semiglobal_locations_long's {locs}")
+    calls["segmented_stream"] = seg_calls, counts
+    summary["segmented_stream"] = dict(read_len=len(read), s=seg_s,
+                                       best=got[0], ends=got[1],
+                                       launches=counts["sweep_scores"])
+    log(f"segmented stream: best {got[0]} at {got[1]} in {seg_s:.2f} s, "
+        "equal to semiglobal_locations_long")
     torch.cuda.empty_cache()
     return summary, calls
 
@@ -1300,8 +1500,9 @@ def main(argv=None) -> int:
     cpu_refs = {}
 
     def run_phase(label, queries, targets, q_ids, t_ids, mode, task,
-                  required, cpu_key=None):
-        call = lambda: align_batch(queries, targets, mode=mode, task=task)
+                  required, cpu_key=None, eqs=None, forbidden=()):
+        call = lambda: align_batch(queries, targets, mode=mode, task=task,
+                                   additionalEqualities=eqs)
         # The batched-windows call of a PATH phase's first run, kept to
         # profile that stage alone.
         windows = []
@@ -1318,8 +1519,12 @@ def main(argv=None) -> int:
                 ck, rec, label, call, required)
         finally:
             bpath.batched_windows_path = batched
+        for name in forbidden:
+            if counts[name]:
+                fail(f"{label} launched {name} {counts[name]} times")
         cpu_s = check_align(label, align_batch, out, queries, targets,
-                            q_ids, t_ids, mode, task, rng, cpu_refs, cpu_key)
+                            q_ids, t_ids, mode, task, rng, cpu_refs, cpu_key,
+                            eqs)
         prof_ = profile_call(call)
         phases[label] = dict(pairs=len(queries), mode=mode, task=task,
                              cold_s=cold, warm_s=warm, cpu_subsample_s=cpu_s,
@@ -1401,7 +1606,37 @@ def main(argv=None) -> int:
         "nw_path", to_bytes(nq, acgt), [acgt[t].tobytes() for t in nt], nq,
         nt, "NW", "path", ("capture", "nw_banded"))
 
-    # 14-17. Long single pairs, each through its public entry points.
+    # 18-19. HW locations past the per-lane cap with dense equalities:
+    # sigma = 100, every symbol equal to the other 7 of its class of 8.
+    cls = np.arange(BP_SIGMA) // EQ_CLASS
+    eq_pairs = [(int(letters[a]), int(letters[b]))
+                for a in range(BP_SIGMA) for b in range(a + 1, BP_SIGMA)
+                if cls[a] == cls[b]]
+
+    def eq_batch(n):
+        win = rng.randint(0, BP_SIGMA, (n, BP_WIN)).astype(np.int32)
+        off = rng.randint(0, BP_WIN - BP_QLEN, n)
+        ids = win[np.arange(n)[:, None],
+                  off[:, None] + np.arange(BP_QLEN)[None, :]]
+        muts = rng.rand(n, BP_QLEN) < HW_RATE
+        ids[muts] = (ids[muts] + rng.randint(1, BP_SIGMA, int(muts.sum()))
+                     ) % BP_SIGMA
+        return ids, win
+
+    eq_ids, eq_win = eq_batch(EQ_READS)
+    eq_counts, eq_calls = run_phase(
+        "hw_eqstream", to_bytes(eq_ids, letters), to_bytes(eq_win, letters),
+        cls[eq_ids], cls[eq_win], "HW", "locations",
+        ("reduce_eqstream", "hits_eqstream"), eqs=eq_pairs,
+        forbidden=("sweep_scores",))
+    st_ids, st_win = eq_batch(STREAM_READS)
+    st_counts, st_calls = run_phase(
+        "hw_stream", to_bytes(st_ids, letters), to_bytes(st_win, letters),
+        cls[st_ids], cls[st_win], "HW", "locations", ("sweep_scores",),
+        eqs=eq_pairs)
+    del eq_ids, eq_win, st_ids, st_win
+
+    # 14-17 and 20. Long single pairs, each through its public entry points.
     long_pairs, long_calls = long_pair_phases(
         rng, dev, ck, rec, edlib_tpu_torch, acgt)
 
@@ -1421,7 +1656,13 @@ def main(argv=None) -> int:
             ("shw_banded", shw_calls["shw_banded"], shw_counts, "shw_banded"),
             ("shw_banded_hits", shw_calls["shw_banded_hits"], shw_counts,
              "shw_banded"),
-            ("capture", hwp_calls["capture"], hwp_counts, "hw_path")):
+            ("capture", hwp_calls["capture"], hwp_counts, "hw_path"),
+            ("reduce_eqstream", eq_calls["reduce_eqstream"], eq_counts,
+             "hw_eqstream"),
+            ("hits_eqstream", eq_calls["hits_eqstream"], eq_counts,
+             "hw_eqstream"),
+            ("sweep_scores", st_calls["sweep_scores"], st_counts,
+             "hw_stream")):
         m = measure(ck, name, calls)
         kernels.append(kernel_entry(name, m, counts[name], path, card))
         log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
@@ -1432,7 +1673,13 @@ def main(argv=None) -> int:
              "hw_shared"),
             ("reduce_bitplane", bp_calls["reduce_bitplane"], bp_counts,
              "hw_sigma100"),
-            ("capture", nwp_calls["capture"], nwp_counts, "nw_path")):
+            ("capture", nwp_calls["capture"], nwp_counts, "nw_path"),
+            ("reduce_eqstream", st_calls["reduce_eqstream"], st_counts,
+             "hw_stream"),
+            ("sweep_scores", long_calls["long_stream"][0]["sweep_scores"],
+             long_calls["long_stream"][1], "long_stream")):
+        if not calls:
+            continue
         m = measure(ck, name, calls)
         entry = next(k for k in kernels if k["name"] == name)
         sub = kernel_entry(name, m, counts[name], path, card)

@@ -8,9 +8,11 @@ namesakes:
 * ``align_batch(queries, targets, mode="NW", task="distance", k=-1,
   additionalEqualities=None, device=None)`` and ``align(query, target,
   ...)``: edlib's alignment, NW/SHW/HW, tasks "distance", "locations" and
-  "path" (the CIGAR); NW pairs past 8e9 effective DP cells take the banded
-  wavefront, and Hirschberg nodes past 1e10 cells their half-sweeps on the
-  card;
+  "path" (the CIGAR), any alphabet and length (dense equalities and
+  queries past 65,536 bp take the eq-stream or score-stream kernels); NW
+  pairs past 8e9 effective DP cells take the banded wavefront, and
+  Hirschberg nodes past 1e10 cells their half-sweeps on the card; only
+  ``mesh=`` raises (not ported yet);
 * ``nw_distance_long(query, target, k=-1, backend="auto", device=None)``,
   ``shw_best_long(...)`` and ``semiglobal_locations_long(query, target,
   mode="HW", k=-1, backend="auto", device=None)``: one long pair spread

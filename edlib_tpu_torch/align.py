@@ -8,8 +8,12 @@ pairs (at least EDLIB_TPU_WAVEFRONT_MIN_CELLS effective DP cells, 8e9 by
 default), whose distance comes from the banded wavefront that spreads the
 pair over the whole card (ops/wavefront.py).  Tasks "distance",
 "locations" and "path" (the extended CIGAR of the first location pair) in
-every mode; the ``mesh=`` sharding of edlib_tpu.align_batch is not ported
-yet and raises NotImplementedError.
+every mode, at every alphabet size and length the reference takes: buckets
+past the per-lane kernels' alphabet cap or routing budget (dense
+equalities past 63 symbols, queries past 65,536 bp) take the bit-plane,
+eq-stream or score-stream kernels, as edlib_tpu routes them.  Only the
+``mesh=`` sharding of edlib_tpu.align_batch is not ported yet: it raises
+NotImplementedError.
 
 One reference quirk is emulated exactly: edlib can report end location -1
 (query aligned entirely before the target, edlib.cpp:237-249).  With 64-bit

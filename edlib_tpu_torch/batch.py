@@ -18,9 +18,12 @@ Routes, as the JAX package takes them with a device:
   one target object read that one target row.
 * Per-lane buckets with sigma >= 32 (or past the per-lane kernels' 64-row
   alphabet cap) take the bit-plane kernels, unless EDLIB_TPU_BITPLANE=0.
-  Where the JAX package would take its eq-stream kernels or its XLA stream
-  engine instead (dense equalities past the cap), the port raises
-  NotImplementedError: those are not ported yet.
+  A bucket past the cap that the bit-plane kernels do not take (dense
+  equalities, or a profile past their routing budget, as any query past
+  65,536 bp) takes the eq-stream kernels on Eq words gathered per column
+  where the JAX package's footprint test passes
+  (EDLIB_TPU_EQSTREAM_MAX_MB), else the score-stream kernel, summarised on
+  the device.  No single-card route raises.
 * HW start locations: every (pair, end location) reversed-SHW re-run goes
   into one more bucketed reduce.
 * PATH: the window of the first location pair of every pair within k is
@@ -166,19 +169,20 @@ def _bigalpha_plan(sigma: int, eq: np.ndarray):
     return _bigalpha_plan_cached(sigma, eqb.tobytes())
 
 
-def _bigalpha_route(sigma: int, eq: np.ndarray, nw_b: int):
-    """The bit-plane plan for a per-lane bucket past the per-lane kernels'
-    alphabet cap.  Where the JAX package would take its eq-stream kernels or
-    its XLA stream engine instead, raise: neither is ported yet."""
+def _bigalpha_route(sigma: int, eq: np.ndarray, n_pairs: int, nw_b: int,
+                    t_scan: int):
+    """The route of a per-lane bucket past the per-lane kernels' alphabet
+    cap, as the JAX package picks it (edlib_tpu/batch.py:356-372):
+    ("bitplane", plan) when the bit-plane kernels take its equalities,
+    ("eqstream", None) when the eq-stream footprint test passes, else
+    ("stream", None), the score stream."""
     if os.environ.get("EDLIB_TPU_BITPLANE", "") != "0":
         plan = _bigalpha_plan(sigma, eq)
         if plan is not None and ck.bitplane_ok(nw_b, sigma, plan[2]):
-            return plan
-    raise NotImplementedError(
-        f"edlib_tpu_torch: a per-lane bucket with sigma+1 = {sigma + 1} > "
-        f"{ck.max_sigma1(nw_b, False)} whose equalities the bit-plane "
-        "kernels do not take (or EDLIB_TPU_BITPLANE=0) needs the eq-stream "
-        "kernels, not ported yet (ROADMAP Queue B 12)")
+            return "bitplane", plan
+    if ck.eqstream_ok(n_pairs, nw_b, t_scan, sigma):
+        return "eqstream", None
+    return "stream", None
 
 
 def _bucket_profiles(queries, eq: np.ndarray, sigma: int, nw_b: int,
@@ -219,11 +223,9 @@ def _run_bucket_bitplane(idxs, pairs, metas, sigma, plan, nw_b, t_scan,
     B = len(idxs)
     q_alts = np.full((B, n_alts, R), sent, np.int32)
     pad_words = np.zeros((B, nw_b), np.uint32)
-    lo = np.zeros(B, np.int32)
-    hi = np.zeros(B, np.int32)
     row_bit = (np.uint32(1) << (np.arange(R, dtype=np.uint32) % 32))
     for row, i in enumerate(idxs):
-        q_ids, t_ids = pairs[i]
+        q_ids = pairs[i][0]
         qlen = len(q_ids)
         qv = np.asarray(q_ids, np.int64)
         alts = altset[qv].T                        # (n_alts, qlen)
@@ -232,13 +234,18 @@ def _run_bucket_bitplane(idxs, pairs, metas, sigma, plan, nw_b, t_scan,
         always[:qlen] = universal[qv]
         pad_words[row] = np.bitwise_or.reduce(
             np.where(always, row_bit, 0).reshape(nw_b, 32), axis=1)
-        lo[row] = metas[i][1]
-        hi[row] = metas[i][1] + len(t_ids)
     targets = _bucket_targets([pairs[i][1] for i in idxs], sigma, t_scan)
     outs = ck.reduce_flat_device_bitplane(
         *(torch.from_numpy(a).to(dev) for a in (
-            q_alts, pad_words.view(np.int32), targets, lo, hi)),
+            q_alts, pad_words.view(np.int32), targets)),
+        *_bucket_windows(idxs, pairs, metas, dev),
         hin0=hin0, sigma=sigma, chunk=_CHUNK, want_hits=want_hits)
+    return _summaries(idxs, metas, outs, want_hits)
+
+
+def _summaries(idxs, metas, outs, want_hits) -> List[PairSummary]:
+    """PairSummary per lane (real position space) from a bucket's
+    (best, pfirst, plast, last[, hit words]) in scan-column space."""
     best, pf, pl_, last = (o.cpu().numpy() for o in outs[:4])
     hits = decode_hit_words(outs[4]) if want_hits else None
     out = []
@@ -248,6 +255,85 @@ def _run_bucket_bitplane(idxs, pairs, metas, sigma, plan, nw_b, t_scan,
         out.append(PairSummary(int(best[row]), int(pf[row]) - w,
                                int(pl_[row]) - w, int(last[row]), positions))
     return out
+
+
+def _bucket_windows(idxs, pairs, metas, dev):
+    """Each lane's real end columns [lo, hi) = [W, W + tlen), int32 on
+    the device."""
+    lo = np.array([metas[i][1] for i in idxs], np.int32)
+    hi = lo + np.array([len(pairs[i][1]) for i in idxs], np.int32)
+    return torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+
+
+def _run_bucket_eqstream(idxs, pairs, metas, sigma, eq, nw_b, t_scan, hin0,
+                         want_hits, dev) -> List[PairSummary]:
+    """One per-lane bucket past the alphabet cap through the eq-stream
+    kernels: each lane's Eq words gathered per column from its profile, then
+    the reduce (and hits) over that stream (edlib_tpu/batch.py:375-411)."""
+    peq = _bucket_profiles([pairs[i][0] for i in idxs], eq, sigma, nw_b, dev)
+    targets = _bucket_targets([pairs[i][1] for i in idxs], sigma, t_scan)
+    lo, hi = _bucket_windows(idxs, pairs, metas, dev)
+    outs = ck.reduce_flat_device_eqstream(
+        peq, torch.from_numpy(targets).to(dev), lo, hi, hin0=hin0,
+        want_hits=want_hits)
+    return _summaries(idxs, metas, outs, want_hits)
+
+
+def _sweep_bucket(q_ids_list, t_ids_list, sigma: int, eq: np.ndarray,
+                  n_words: int, t_scan: int, hin0: int, dev) -> torch.Tensor:
+    """One shape bucket's score streams, int32 (B, t_scan) on the device
+    (edlib_tpu/batch.py:69-82 with _run_sweep :100-116, which takes
+    jax_engine past the per-lane cap: here always the stream kernel)."""
+    peq = _bucket_profiles(q_ids_list, eq, sigma, n_words, dev)
+    targets = _bucket_targets(t_ids_list, sigma, t_scan)
+    return Sweeper(dev, _CHUNK).sweep(peq, targets, hin0)
+
+
+def _summarize_streams(streams: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, want_hits: bool):
+    """(best, pfirst, plast, last[, hit words]) of each lane's stream over
+    its columns [lo, hi), on the device, as the reduce and hits kernels give
+    them: batch._summarize_stream (edlib_tpu/batch.py:134-138) on every
+    lane at once.  T must be a multiple of 32 (t_scan is)."""
+    T = streams.shape[1]
+    cols = torch.arange(T, dtype=torch.int32, device=streams.device)[None, :]
+    in_win = (cols >= lo[:, None]) & (cols < hi[:, None])
+    best = torch.where(in_win, streams, _BIG_SENTINEL).amin(1)
+    hit = in_win & (streams == best[:, None])
+    any_hit = hit.any(1)
+    pfirst = torch.where(any_hit, torch.where(hit, cols, T).amin(1), -1)
+    plast = torch.where(hit, cols, -1).amax(1)
+    last = torch.where(
+        hi > 0, streams.gather(1, (hi.long() - 1).clamp(0, T - 1)[:, None])
+        [:, 0], _BIG_SENTINEL)
+    out = tuple(x.to(torch.int32) for x in (best, pfirst, plast, last))
+    return out + ((ck._pack_bits(hit),) if want_hits else ())
+
+
+def _run_bucket_stream(idxs, pairs, metas, sigma, eq, nw_b, t_scan, hin0,
+                       want_hits, dev) -> List[PairSummary]:
+    """One per-lane bucket through the score-stream kernel, each lane's
+    stream summarised over its real columns (edlib_tpu/batch.py:522-530)."""
+    streams = _sweep_bucket([pairs[i][0] for i in idxs],
+                            [pairs[i][1] for i in idxs], sigma, eq, nw_b,
+                            t_scan, hin0, dev)
+    lo, hi = _bucket_windows(idxs, pairs, metas, dev)
+    return _summaries(idxs, metas,
+                      _summarize_streams(streams, lo, hi, want_hits),
+                      want_hits)
+
+
+def _run_bucket_past_cap(idxs, pairs, metas, sigma, eq, nw_b, t_scan, hin0,
+                         want_hits, dev) -> List[PairSummary]:
+    """A per-lane bucket past the per-lane kernels' alphabet cap, on the
+    route _bigalpha_route picks."""
+    route, plan = _bigalpha_route(sigma, eq, len(idxs), nw_b, t_scan)
+    if route == "bitplane":
+        return _run_bucket_bitplane(idxs, pairs, metas, sigma, plan, nw_b,
+                                    t_scan, hin0, want_hits, dev)
+    run = _run_bucket_eqstream if route == "eqstream" else _run_bucket_stream
+    return run(idxs, pairs, metas, sigma, eq, nw_b, t_scan, hin0, want_hits,
+               dev)
 
 
 def _shw_banded_bucket(sweeper, peq, targets, lo, hi, kb, k_user,
@@ -336,9 +422,8 @@ def _run_bucketed_summary(pairs: List[Tuple[np.ndarray, np.ndarray]],
     for (nw_b, t_scan), idxs in buckets.items():
         shared = _is_shared(pairs, idxs)
         if not (shared or sigma + 1 <= ck.max_sigma1(nw_b, False)):
-            plan = _bigalpha_route(sigma, eq, nw_b)
-            for i, summ in zip(idxs, _run_bucket_bitplane(
-                    idxs, pairs, metas, sigma, plan, nw_b, t_scan, hin0,
+            for i, summ in zip(idxs, _run_bucket_past_cap(
+                    idxs, pairs, metas, sigma, eq, nw_b, t_scan, hin0,
                     want_hits, dev)):
                 out[i] = summ
             continue
@@ -417,10 +502,10 @@ def _run_bucketed_nw_banded(pairs: List[Tuple[np.ndarray, np.ndarray]],
     for (nw_b, t_scan), idxs in buckets.items():
         shared = _is_shared(pairs, idxs)
         if not (shared or sigma + 1 <= ck.max_sigma1(nw_b, False)):
-            # Full-sweep NW distance via the bit-plane reduce.
-            plan = _bigalpha_route(sigma, eq, nw_b)
-            summs = _run_bucket_bitplane(idxs, pairs, metas, sigma, plan,
-                                         nw_b, t_scan, 1, False, dev)
+            # Full-sweep NW distance: the final column of the bit-plane or
+            # eq-stream reduce, or of the score stream.
+            summs = _run_bucket_past_cap(idxs, pairs, metas, sigma, eq, nw_b,
+                                         t_scan, 1, False, dev)
             for row, i in enumerate(idxs):
                 out[i] = int(summs[row].last_score)
             continue

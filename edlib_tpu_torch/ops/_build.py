@@ -1,7 +1,8 @@
 """Builds the port's CUDA source and binds it with ctypes.
 
-At first use ``csrc/myers.cu`` and ``csrc/wavefront.cu`` are compiled by
-one nvcc into a shared library with a plain C interface, for ``sm_90a``.
+At first use ``csrc/myers.cu`` and ``csrc/wavefront.cu`` are compiled for
+``sm_90a`` by one nvcc each, both started together, and linked into one
+shared library with a plain C interface.
 The library goes to ``build/edlib_tpu_torch/`` at the root of the checkout,
 named by a hash of the sources and flags, so a changed source builds anew
 and an unchanged one is reused.  A failed build raises with nvcc's output.
@@ -20,12 +21,12 @@ from pathlib import Path
 from edlib_tpu_torch.utils import hw
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# Compiled together into one library: the per-lane sweeps and the
+# Linked into one library: the per-lane sweeps and the
 # single-pair wavefront sweeps.
 SOURCES = (CSRC / "myers.cu", CSRC / "wavefront.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "edlib_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,12 @@ SIGNATURES = {
     "myers_shw_banded_hits": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
                               _P, _P, _P, _I, _P, _P, _I, _P, _P],
     "myers_capture": [_I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "myers_sweep_scores": [_I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P,
+                           _P],
+    "myers_reduce_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
+                              _P, _P, _P],
+    "myers_hits_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _P,
+                            _P],
     "myers_wavefront": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P],
     "myers_wavefront_banded": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
@@ -66,6 +73,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmyers-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless they are built already; returns the
     library's path.  Raises RuntimeError with nvcc's output on failure."""
@@ -73,17 +85,28 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [hw.nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(src) for src in SOURCES)]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        names = ", ".join(src.name for src in SOURCES)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {names}:\n"
-                           f"{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)
+    nvcc = hw.nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    try:
+        procs = [_run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                                   f"{src.name}:\n{log}")
+        link = _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        link_log = link.communicate()[0]
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({link.returncode}) linking "
+                               f"{out.name}:\n{link_log}")
+        out.with_suffix(".log").write_text("".join(logs) + link_log)
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 

@@ -3,7 +3,8 @@
 // the stream arrive as void*, every function returns the cudaError_t of its
 // launch (0 = cudaSuccess) and never synchronises or allocates.
 //
-// Nine kernels, one thread per alignment lane.  Each replaces a kernel of
+// Twelve kernels, one thread per alignment lane (or a block, in the wave
+// form below).  Each replaces a kernel of
 // edlib_tpu/ops/pallas_kernel.py:
 //
 //   myers_reduce_lanes     _reduce_kernel (:434), per-lane form, launched by
@@ -28,6 +29,18 @@
 //   myers_capture          _capture_kernel (:2548), launched by
 //                          _sweep_capture_call (:2605, pallas_call :2635)
 //                          through capture_flat_device (:2655).
+//   myers_sweep_scores     _sweep_kernel (:134), launched by
+//                          sweep_scores_pallas (:196, pallas_call :211): the
+//                          bottom-row score of every column of every lane,
+//                          stored instead of reduced.  Peq is read per lane,
+//                          so it takes any alphabet (the TPU kernel's S1-way
+//                          select capped it at 64 rows).
+//   myers_reduce_eqstream  _reduce_kernel with eq_stream=True, launched by
+//                          _sweep_reduce_eqstream_call (:1851, pallas_call
+//                          :1869): Eq words pre-gathered per column.
+//   myers_hits_eqstream    _hits_kernel with eq_stream=True, launched by
+//                          _sweep_hits_eqstream_call (:1891, pallas_call
+//                          :1905).
 //
 // What bounds them on this card: integer issue.  advance_word below is 20
 // two-input operations as written, 13 as Hopper issues them (a logic function
@@ -42,10 +55,11 @@
 // What this first design does about it: nothing yet.  Each thread keeps its
 // lane's Pv/Mv words and running reduction in registers (templated on the
 // word count for 1-8 words, on the band window width for 1, 2, 4, 8, 12 and
-// 16 words; other counts keep their state in a global scratch buffer laid out
-// (NW, lanes) so a warp's accesses coalesce), loops over the columns itself,
-// and loads each column's symbol and Eq words from memory.  A lane stops at
-// its own window end hi, so padded candidates (hi = 0) cost nothing.  The
+// 16 words; other counts keep their state in a global scratch buffer laid
+// out (NW, lanes) so a warp's accesses coalesce, or take the wave form
+// below), loops over the columns itself, and loads each column's symbol and
+// Eq words from memory.  A lane stops at its own window end hi, so padded
+// candidates (hi = 0) cost nothing.  The
 // per-column loads are latency-bound when few lanes are resident (a shared
 // sweep of 32 stragglers runs on one warp); splitting the target across
 // blocks and a register-blocked Eq prefetch are later work.
@@ -60,12 +74,33 @@
 // (lane, column, word) view.  Beyond 8 words it reads the previous column's
 // state back from its own output instead of a scratch buffer.
 //
+// The eq-stream kernels read each lane-column's NW Eq words (4 * NW bytes)
+// from a stream gathered before the launch, against 13 * NW operations: at
+// about 3.3 operations a byte, where the card issues about 5 for every byte
+// HBM delivers, so they are bound by bytes.  The stream is lane-minor,
+// (column, word, lane), so a warp's loads of one word fill whole lines (the
+// TPU's (n_tiles, n_chunks, chunk*NW, 8, 128) blocks are not kept).  The
+// score-stream kernel writes 4 bytes per lane-column (lane-minor,
+// (column, lane), so a warp's stores of one column fill whole lines)
+// against 13 * NW + 1 operations: at one or two words it is bound by its
+// stores, beyond that by integer issue.
+//
+// Past 8 words (template argument 0) a lane takes one of two forms.  A
+// lane of kWaveMinWords to kWaveWords * kWaveThreads words (one long pair,
+// 8-131 kbp) is a block of its own, the wave form: in one thread its column
+// would be one dependent chain of word updates, about 6 dependent operations
+// a word, so instead each thread holds kWaveWords words in registers and
+// runs one column behind the thread above it, which makes the block an
+// anti-diagonal pipeline on one SM, one barrier a column step.  Other lanes
+// keep their state in the global scratch buffer, one thread a lane.
+//
 // Semantics are the TPU kernels' exactly:
 //   score starts at NW*32 (the padded bottom cell of column -1), hin of the
 //   top word is 0 (HW: free leading gap) or +1 (SHW/NW), and for scan columns
 //   c in [lo, hi):  best = min score, pfirst = first column reaching it,
 //   plast = last column reaching it; last = score at column hi-1; the hit
-//   mask has bit c%32 of word c/32 set where score == best.
+//   mask has bit c%32 of word c/32 set where score == best; the score
+//   stream holds the score after every column c < T.
 //   Columns past the row length are not scanned (callers keep hi <= T).
 // The banded kernels advance only the window of n_win words whose top word
 // for column c is woff[c / chunk] (nondecreasing).  Words below the window
@@ -86,6 +121,9 @@ constexpr int32_t kBig = 0x3FFFFFFF;  // pallas_kernel._BIG: "no column seen"
 constexpr int kThreads = 64;          // lanes per block
 constexpr int kChunk = 2048;          // shared-target symbols staged per step
 constexpr int kMaxPlanes = 9;         // bit planes for symbols up to 256 + sentinel
+constexpr int kWaveWords = 8;         // words per thread of a wave block
+constexpr int kWaveThreads = 512;     // threads of a wave block, at most
+constexpr int kWaveMinWords = 256;    // lanes of this many words take a block
 
 // One Myers block update (edlib.cpp:412-447; pallas_kernel._advance_word_h).
 // hneg/hpos carry the horizontal delta into the word (1 where it is -1/+1)
@@ -171,6 +209,18 @@ struct HitMask {
   }
 };
 
+// Every column's score: column c of this lane at out[c * stride] (out is
+// offset by the lane, stride is the lane count: a (T, lanes) stream).
+struct ScoreStream {
+  int32_t* out;
+  size_t stride;
+
+  __device__ __forceinline__ void update(int32_t score, int c, bool) {
+    out[(size_t)c * stride] = score;
+  }
+  __device__ __forceinline__ void finish(int) {}
+};
+
 // Eq words of one lane from its query profile: peq row `sym` of (S1, NW).
 struct PeqEq {
   const uint32_t* peq;
@@ -214,14 +264,101 @@ struct BitplaneEq {
   }
 };
 
+// Eq words gathered before the launch: word w of column c of this lane at
+// eq[(c * nw + w) * lanes] (eq is offset by the lane: a (T, NW, lanes)
+// stream, so a warp's loads of one word are consecutive).
+struct StreamEq {
+  const uint32_t* eq;
+  size_t lanes;
+  int nw;
+  const uint32_t* row;
+
+  __device__ __forceinline__ void at(int c) {
+    row = eq + (size_t)c * nw * lanes;
+  }
+  __device__ __forceinline__ uint32_t word(int w) const {
+    return row[(size_t)w * lanes];
+  }
+};
+
+// One lane swept by a whole block (the wave form): thread t holds words
+// [kWaveWords * t, + kWaveWords) in registers and advances column d - t at
+// step d, its top word taking the carry out of thread t-1's bottom word
+// from step d-1 through shared memory (double-buffered, one barrier a
+// step).  Each thread loads the next column's Eq words before advancing
+// this one.  The thread holding the bottom word carries the score and runs
+// the visitor.  Every thread of the block must call this.
+template <class Eq, class Visit>
+__device__ __forceinline__ void sweep_wave(Eq eq, int nw, int end,
+                                           uint32_t hin_pos, Visit& v) {
+  __shared__ uint32_t carry[2][2][kWaveThreads];  // [buffer][neg, pos][t]
+  const int t = threadIdx.x;
+  const int last = blockDim.x - 1;
+  const int w0 = t * kWaveWords;
+  const int n = min(kWaveWords, nw - w0);
+  uint32_t pv[kWaveWords], mv[kWaveWords], e[kWaveWords], en[kWaveWords];
+#pragma unroll
+  for (int i = 0; i < kWaveWords; ++i) {
+    pv[i] = ~0u;
+    mv[i] = 0u;
+  }
+  if (end > 0) {
+    eq.at(0);
+#pragma unroll
+    for (int i = 0; i < kWaveWords; ++i)
+      if (i < n) e[i] = eq.word(w0 + i);
+  }
+  int32_t score = nw * 32;
+  for (int d = 0; d < end + last; ++d) {
+    const int c = d - t;
+    const int buf = d & 1;
+    if (c >= 0 && c < end) {
+      const bool more = c + 1 < end;
+      if (more) {
+        eq.at(c + 1);
+#pragma unroll
+        for (int i = 0; i < kWaveWords; ++i)
+          if (i < n) en[i] = eq.word(w0 + i);
+      }
+      uint32_t hneg = 0u, hpos = hin_pos;
+      if (t > 0) {
+        hneg = carry[buf][0][t - 1];
+        hpos = carry[buf][1][t - 1];
+      }
+#pragma unroll
+      for (int i = 0; i < kWaveWords; ++i)
+        if (i < n) advance_word(pv[i], mv[i], e[i], hneg, hpos);
+      carry[buf ^ 1][0][t] = hneg;
+      carry[buf ^ 1][1][t] = hpos;
+      if (t == last) {
+        score += static_cast<int32_t>(hpos) - static_cast<int32_t>(hneg);
+        v.update(score, c, true);
+      }
+      if (more) {
+#pragma unroll
+        for (int i = 0; i < kWaveWords; ++i) e[i] = en[i];
+      }
+    }
+    __syncthreads();
+  }
+  if (t == last && end > 0) v.finish(end);
+}
+
 // Sweep one lane over columns [0, min(hi, n_cols)).  NW > 0: the word count,
-// state in registers.  NW == 0: nw words, state in scratch (stride apart).
+// state in registers.  NW == 0: nw words, either the wave form (wave: the
+// block is the lane) or one thread with its state in scratch (stride apart).
 template <int NW, class Eq, class Visit>
 __device__ __forceinline__ void sweep_lane(Eq eq, int nw, int n_cols, int hi,
                                            uint32_t hin_pos, uint32_t* spv,
                                            uint32_t* smv, size_t stride,
-                                           Visit& v) {
+                                           bool wave, Visit& v) {
   const int end = min(hi, n_cols);
+  if constexpr (NW == 0) {
+    if (wave) {
+      sweep_wave(eq, nw, end, hin_pos, v);
+      return;
+    }
+  }
   if constexpr (NW > 0) {
     uint32_t pv[NW], mv[NW];
 #pragma unroll
@@ -353,6 +490,7 @@ struct LaneArgs {
   int32_t* plast;
   int32_t* last;
   uint32_t* scratch;       // 2 * nw * n_lanes words for the scratch paths
+  int wave;                // per-lane kernels: one lane a block (sweep_wave)
   const int32_t* want;     // hit kernels: the best each lane's mask marks
   int32_t* hits;           // hit kernels: (n_lanes, n_out) words, zeroed
   int n_out;
@@ -396,54 +534,105 @@ __device__ __forceinline__ uint32_t* scratch_mv(const LaneArgs& a, int nw,
   return a.scratch + (size_t)nw * a.n_lanes + lane;
 }
 
+// This thread's lane, and whether it writes the lane's results: in the
+// wave form the block is the lane and its last thread holds the results.
+__device__ __forceinline__ int lane_index(const LaneArgs& a) {
+  return a.wave ? blockIdx.x : blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ bool lane_owner(const LaneArgs& a) {
+  return !a.wave || threadIdx.x == blockDim.x - 1;
+}
+
 template <int NW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
 reduce_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = lane_index(a);
   if (lane >= a.n_lanes) return;
   Reduction r{a.lo[lane], a.hi[lane]};
   sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, r.hi, a.hin_pos,
                  scratch_pv(a, lane), scratch_mv(a, nw, lane),
-                 (size_t)a.n_lanes, r);
-  store(a, lane, r);
+                 (size_t)a.n_lanes, a.wave, r);
+  if (lane_owner(a)) store(a, lane, r);
 }
 
 template <int NW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
 reduce_bitplane_kernel(const uint32_t* __restrict__ planes,
                        const uint32_t* __restrict__ pad, int nw, int nb,
                        int n_alts, int wildcard, LaneArgs a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = lane_index(a);
   if (lane >= a.n_lanes) return;
   Reduction r{a.lo[lane], a.hi[lane]};
   sweep_lane<NW>(bitplane_eq(planes, pad, nw, nb, n_alts, wildcard, a, lane),
                  nw, a.n_cols, r.hi, a.hin_pos, scratch_pv(a, lane),
-                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, r);
-  store(a, lane, r);
+                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, a.wave, r);
+  if (lane_owner(a)) store(a, lane, r);
 }
 
 template <int NW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
 hits_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = lane_index(a);
   if (lane >= a.n_lanes) return;
   HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
   sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, a.hi[lane],
                  a.hin_pos, scratch_pv(a, lane), scratch_mv(a, nw, lane),
-                 (size_t)a.n_lanes, h);
+                 (size_t)a.n_lanes, a.wave, h);
 }
 
 template <int NW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
 hits_bitplane_kernel(const uint32_t* __restrict__ planes,
                      const uint32_t* __restrict__ pad, int nw, int nb,
                      int n_alts, int wildcard, LaneArgs a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = lane_index(a);
   if (lane >= a.n_lanes) return;
   HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
   sweep_lane<NW>(bitplane_eq(planes, pad, nw, nb, n_alts, wildcard, a, lane),
                  nw, a.n_cols, a.hi[lane], a.hin_pos, scratch_pv(a, lane),
-                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, h);
+                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, a.wave, h);
+}
+
+// Every column of every lane; out (n_cols, n_lanes).
+template <int NW>
+__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+sweep_scores_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
+                    LaneArgs a, int32_t* out) {
+  const int lane = lane_index(a);
+  if (lane >= a.n_lanes) return;
+  ScoreStream s{out + lane, (size_t)a.n_lanes};
+  sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, a.n_cols,
+                 a.hin_pos, scratch_pv(a, lane), scratch_mv(a, nw, lane),
+                 (size_t)a.n_lanes, a.wave, s);
+}
+
+__device__ __forceinline__ StreamEq stream_eq(const uint32_t* eq, int nw,
+                                              const LaneArgs& a, int lane) {
+  return StreamEq{eq + lane, (size_t)a.n_lanes, nw, nullptr};
+}
+
+template <int NW>
+__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+reduce_eqstream_kernel(const uint32_t* __restrict__ eq, int nw, LaneArgs a) {
+  const int lane = lane_index(a);
+  if (lane >= a.n_lanes) return;
+  Reduction r{a.lo[lane], a.hi[lane]};
+  sweep_lane<NW>(stream_eq(eq, nw, a, lane), nw, a.n_cols, r.hi, a.hin_pos,
+                 scratch_pv(a, lane), scratch_mv(a, nw, lane),
+                 (size_t)a.n_lanes, a.wave, r);
+  if (lane_owner(a)) store(a, lane, r);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+hits_eqstream_kernel(const uint32_t* __restrict__ eq, int nw, LaneArgs a) {
+  const int lane = lane_index(a);
+  if (lane >= a.n_lanes) return;
+  HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
+  sweep_lane<NW>(stream_eq(eq, nw, a, lane), nw, a.n_cols, a.hi[lane],
+                 a.hin_pos, scratch_pv(a, lane), scratch_mv(a, nw, lane),
+                 (size_t)a.n_lanes, a.wave, h);
 }
 
 template <int NWIN>
@@ -609,6 +798,21 @@ capture_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
 
 int blocks_for(int n_lanes) { return (n_lanes + kThreads - 1) / kThreads; }
 
+struct Config {
+  int blocks, threads;
+};
+
+// Launch shape of a per-lane kernel: kThreads lanes a block, except that
+// past 8 words (template word count 0) a lane of kWaveMinWords to
+// kWaveWords * kWaveThreads words is a block of its own (the wave form,
+// a.wave).
+Config lane_config(int nw_template, int nw, LaneArgs& a) {
+  a.wave = nw_template == 0 && nw >= kWaveMinWords &&
+           nw <= kWaveWords * kWaveThreads;
+  if (a.wave) return Config{a.n_lanes, (nw + kWaveWords - 1) / kWaveWords};
+  return Config{blocks_for(a.n_lanes), kThreads};
+}
+
 LaneArgs lane_args(const void* targets, int n_cols, const void* lo,
                    const void* hi, const void* prow, const void* trow,
                    int n_lanes, int hin0, void* scratch) {
@@ -642,7 +846,14 @@ void set_hits(LaneArgs& a, const void* want, void* hits, int n_out) {
 }  // namespace
 
 // Word counts 1-8 get register-resident state; any other count takes the
-// generic scratch path (template argument 0).
+// generic scratch path (template argument 0).  LANE_LAUNCH launches per-lane
+// kernel K<N> in lane_config's shape; its arguments include `a`.
+#define LANE_LAUNCH(N, K, ...)                              \
+  do {                                                      \
+    const Config cfg = lane_config(N, nw, a);               \
+    K<N><<<cfg.blocks, cfg.threads, 0, st>>>(__VA_ARGS__);  \
+  } while (0)
+
 #define MYERS_DISPATCH_NW(nw, LAUNCH) \
   switch (nw) {                       \
     case 1: LAUNCH(1); break;         \
@@ -731,7 +942,7 @@ int myers_reduce_lanes(int device, const void* peq, int s1, int nw,
   set_reduction(a, best, pfirst, plast, last);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
-#define LAUNCH(N) reduce_lanes_kernel<N><<<blocks_for(n_lanes), kThreads, 0, st>>>(p, s1, nw, a)
+#define LAUNCH(N) LANE_LAUNCH(N, reduce_lanes_kernel, p, s1, nw, a)
   MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
@@ -754,9 +965,8 @@ int myers_reduce_bitplane(int device, const void* planes, const void* pad,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* pl = static_cast<const uint32_t*>(planes);
   const uint32_t* pd = static_cast<const uint32_t*>(pad);
-#define LAUNCH(N)                                                         \
-  reduce_bitplane_kernel<N><<<blocks_for(n_lanes), kThreads, 0, st>>>( \
-      pl, pd, nw, nb, n_alts, wildcard, a)
+#define LAUNCH(N) \
+  LANE_LAUNCH(N, reduce_bitplane_kernel, pl, pd, nw, nb, n_alts, wildcard, a)
   MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
@@ -777,7 +987,7 @@ int myers_hits_lanes(int device, const void* peq, int s1, int nw,
   set_hits(a, want, hits, n_out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
-#define LAUNCH(N) hits_lanes_kernel<N><<<blocks_for(n_lanes), kThreads, 0, st>>>(p, s1, nw, a)
+#define LAUNCH(N) LANE_LAUNCH(N, hits_lanes_kernel, p, s1, nw, a)
   MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
@@ -799,9 +1009,8 @@ int myers_hits_bitplane(int device, const void* planes, const void* pad,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* pl = static_cast<const uint32_t*>(planes);
   const uint32_t* pd = static_cast<const uint32_t*>(pad);
-#define LAUNCH(N)                                                       \
-  hits_bitplane_kernel<N><<<blocks_for(n_lanes), kThreads, 0, st>>>( \
-      pl, pd, nw, nb, n_alts, wildcard, a)
+#define LAUNCH(N) \
+  LANE_LAUNCH(N, hits_bitplane_kernel, pl, pd, nw, nb, n_alts, wildcard, a)
   MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
@@ -904,6 +1113,66 @@ int myers_capture(int device, const void* peq, int s1, int nw,
     MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// peq, targets, prow, trow as myers_reduce_lanes; every lane sweeps all
+// n_cols columns.  out int32 (n_cols, n_lanes): lane b's score after column
+// c at c * n_lanes + b.
+int myers_sweep_scores(int device, const void* peq, int s1, int nw,
+                       const void* targets, int n_cols, const void* prow,
+                       const void* trow, int n_lanes, int hin0, void* out,
+                       void* scratch, void* stream) {
+  if (n_lanes <= 0 || n_cols <= 0) return 0;
+  if (nw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(targets, n_cols, nullptr, nullptr, prow, trow,
+                         n_lanes, hin0, scratch);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* p = static_cast<const uint32_t*>(peq);
+  int32_t* o = static_cast<int32_t*>(out);
+#define LAUNCH(N) LANE_LAUNCH(N, sweep_scores_kernel, p, s1, nw, a, o)
+  MYERS_DISPATCH_NW(nw, LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// eq uint32 (n_cols, nw, n_lanes): lane b's Eq word w of column c at
+// (c * nw + w) * n_lanes + b; lo, hi and the outputs as myers_reduce_lanes.
+int myers_reduce_eqstream(int device, const void* eq, int nw, int n_cols,
+                          const void* lo, const void* hi, int n_lanes,
+                          int hin0, void* best, void* pfirst, void* plast,
+                          void* last, void* scratch, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (nw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(nullptr, n_cols, lo, hi, nullptr, nullptr, n_lanes,
+                         hin0, scratch);
+  set_reduction(a, best, pfirst, plast, last);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* q = static_cast<const uint32_t*>(eq);
+#define LAUNCH(N) LANE_LAUNCH(N, reduce_eqstream_kernel, q, nw, a)
+  MYERS_DISPATCH_NW(nw, LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// eq, lo, hi as myers_reduce_eqstream; want and hits as myers_hits_lanes.
+int myers_hits_eqstream(int device, const void* eq, int nw, int n_cols,
+                        const void* lo, const void* hi, int n_lanes, int hin0,
+                        const void* want, void* hits, int n_out,
+                        void* scratch, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (nw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(nullptr, n_cols, lo, hi, nullptr, nullptr, n_lanes,
+                         hin0, scratch);
+  set_hits(a, want, hits, n_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* q = static_cast<const uint32_t*>(eq);
+#define LAUNCH(N) LANE_LAUNCH(N, hits_eqstream_kernel, q, nw, a)
+  MYERS_DISPATCH_NW(nw, LAUNCH)
+#undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,7 @@
 plain PyTorch versions.
 
 Port of the sweeps of edlib_tpu/ops/pallas_kernel.py and
-edlib_tpu/ops/wavefront.py.  Eleven kernels, in csrc/myers.cu and
+edlib_tpu/ops/wavefront.py.  Fourteen kernels, in csrc/myers.cu and
 csrc/wavefront.cu (their headers say what bounds them):
 
   reduce_lanes     per-lane target rows, Eq from each lane's query profile
@@ -20,6 +20,12 @@ csrc/wavefront.cu (their headers say what bounds them):
   shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel);
   capture          every column's (Pv, Mv[, Ph, Mh]) words, stored
                    (_capture_kernel), for the batched PATH decode;
+  sweep_scores     every column's bottom-row score, stored (_sweep_kernel),
+                   for buckets the JAX package sweeps as score streams;
+  reduce_eqstream  reduce_lanes with each column's Eq words gathered before
+                   the launch (eqstream_gather; _reduce_kernel, eq-stream
+                   form), for dense equalities past the per-lane cap;
+  hits_eqstream    hits_lanes on the same stream (_hits_kernel, eq-stream);
   wavefront        ONE pair, every query word of it (or a fixed word
                    window) an anti-diagonal a step (wavefront._wf_kernel);
   wavefront_banded the same over a window of word slots sliding along the
@@ -46,6 +52,8 @@ materialises the repeated profiles or targets.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -58,7 +66,8 @@ _I32 = torch.int32
 _LAUNCHES = {"reduce_lanes": 0, "reduce_bitplane": 0, "sweep_shared": 0,
              "hits_lanes": 0, "hits_bitplane": 0, "nw_banded": 0,
              "shw_banded": 0, "shw_banded_hits": 0, "capture": 0,
-             "wavefront": 0, "wavefront_banded": 0}
+             "wavefront": 0, "wavefront_banded": 0, "sweep_scores": 0,
+             "reduce_eqstream": 0, "hits_eqstream": 0}
 
 # ---------------------------------------------------------------------------
 # Routing constants and the band schedule, as the JAX package computes them.
@@ -87,6 +96,22 @@ def bitplane_ok(n_words: int, sigma: int, n_alts: int) -> bool:
     (pallas_kernel.bitplane_ok at the routing budget)."""
     rows = n_alts * bitplane_nb(sigma) * n_words
     return rows * _TILE_LANES * 4 <= _ROUTING_VMEM_BYTES // 4
+
+
+def eqstream_ok(n_pairs: int, n_words: int, t_scan: int, sigma: int) -> bool:
+    """Whether the JAX package routes a per-lane bucket past the per-lane
+    alphabet cap to its eq-stream kernels (batch._eqstream_ok): its
+    estimate of the device memory the TPU route takes, for lanes padded to
+    1024-lane tiles, the gathered stream twice and its gather's bf16 one-hot
+    operand, within EDLIB_TPU_EQSTREAM_MAX_MB (default 1024).  Otherwise the
+    bucket takes the score stream.  A routing constant, read with the JAX
+    meaning so both packages send a bucket to the same kernels: the port
+    keeps one stream and no one-hot, and the card has no such limit."""
+    b_pad = -(-max(n_pairs, 1) // _TILE_LANES) * _TILE_LANES
+    cap = int(os.environ.get("EDLIB_TPU_EQSTREAM_MAX_MB", "1024")) << 20
+    stream = b_pad * t_scan * n_words * 4 * 2
+    onehot = b_pad * t_scan * (sigma + 1) * 2
+    return stream + onehot <= cap
 
 
 def nw_band_schedule(n_words: int, n_chunks: int, chunk: int,
@@ -190,6 +215,22 @@ def bitplane_identity_operands(q_arr: torch.Tensor, qlens: torch.Tensor,
     qa[:, :qmax] = q_arr.to(_I32)
     q_alts = torch.where(pad, sent, qa)[:, None, :]
     return q_alts, _pack_bits(pad)
+
+
+def eqstream_gather(peq: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """eq[b, c, w] = peq[b, targets[b, c], w]: int32 (B, T, NW), a view of
+    lane-minor (T, NW, B) storage, so x.permute(1, 2, 0) is the eq-stream
+    kernels' contiguous operand.  An exact index gather, one per word
+    (pallas_kernel.eqstream_gather, which gathers with a one-hot product on
+    the TPU's matrix unit).  peq: int32 (B, S1, NW); targets: int32 (B, T)
+    in [0, S1)."""
+    B, _, nw = peq.shape
+    T = targets.shape[1]
+    out = torch.empty((T, nw, B), dtype=_I32, device=peq.device)
+    idx = targets.long()
+    for w in range(nw):
+        out[:, w, :] = torch.gather(peq[:, :, w], 1, idx).t()
+    return out.permute(2, 0, 1)
 
 
 def bitplane_planes(q_alts: torch.Tensor, nb: int) -> torch.Tensor:
@@ -355,6 +396,14 @@ def _bitplane_columns(planes, pad, targets, hi, prow, trow, hin0, nb,
     return _sweep_plain(eq_at, end, n_words, hi.shape[0], hi.device, hin0)
 
 
+def _stream_columns(eq_t, hi, hin0):
+    """Plain sweep over a gathered Eq stream int32 (T, NW, B)."""
+    T, n_words, B = eq_t.shape
+    end = _columns_end(T, hi)
+    return _sweep_plain(lambda c: list(eq_t[c].unbind(0)), end, n_words, B,
+                        hi.device, hin0)
+
+
 def _banded_columns(peq, targets, woff, hi, prow, trow, n_win, chunk):
     """Plain banded sweep of per-lane profiles over per-lane target rows."""
     end = _columns_end(targets.shape[1], hi)
@@ -389,6 +438,27 @@ def capture_plain(peq, targets, hin0: int, want_h: bool = False):
         for out, val in zip(outs, (pv, mv, ph, mh)):
             out[c] = torch.stack(val)
     return tuple(o.permute(2, 0, 1) for o in outs)
+
+
+def sweep_scores_plain(peq, targets, prow, trow, hin0: int):
+    """Plain version of sweep_scores (same operands and output)."""
+    T, n = targets.shape[1], prow.shape[0]
+    out = torch.empty((T, n), dtype=_I32, device=prow.device)
+    hi = torch.full((n,), T, dtype=_I32, device=prow.device)
+    for c, score, _ in _peq_columns(peq, targets, hi, prow, trow, hin0):
+        out[c] = score
+    return out.t()
+
+
+def reduce_eqstream_plain(eq_t, lo, hi, hin0: int):
+    """Plain version of reduce_eqstream (same operands and outputs)."""
+    return _reduction(_stream_columns(eq_t, hi, hin0), lo, hi)
+
+
+def hits_eqstream_plain(eq_t, lo, hi, best, hin0: int):
+    """Plain version of hits_eqstream (same operands and output)."""
+    return _hit_words(_stream_columns(eq_t, hi, hin0), lo, hi, best,
+                      eq_t.shape[0])
 
 
 def reduce_lanes_plain(peq, targets, lo, hi, prow, trow, hin0: int):
@@ -897,6 +967,85 @@ def capture(peq, targets, hin0: int, want_h: bool = False):
     return tuple(o.permute(2, 0, 1) for o in outs)
 
 
+def sweep_scores(peq, targets, prow, trow, hin0: int):
+    """Every lane's score after every column (the score-stream kernel).
+
+    peq: int32 (R_p, S1, NW) profile bit words; targets: int32 (R_t, T)
+    symbols in [0, S1); prow, trow: int32 (B,).  Lane i sweeps target row
+    trow[i] with profile row prow[i] over all T columns.  Returns int32
+    (B, T), the padded bottom cell after each column (equal to the true
+    cell(qlen-1, c - W) for c >= W), a view of (T, B) storage: lane-minor,
+    x.t() is contiguous.  hin0: 0 for HW, 1 for SHW/NW."""
+    name = "sweep_scores"
+    _check(name, peq, "peq", 3)
+    _check(name, targets, "targets", 2)
+    n = _check_lanes(name, dict(prow=prow, trow=trow))
+    if not _on_cuda(name, peq, targets, prow, trow):
+        return sweep_scores_plain(peq, targets, prow, trow, hin0)
+    s1, nw = peq.shape[1], peq.shape[2]
+    T = targets.shape[1]
+    dev = peq.device
+    out = torch.empty((T, n), dtype=_I32, device=dev)
+    if n and T:
+        _launch(name, "myers_sweep_scores", dev.index, peq.data_ptr(), s1, nw,
+                targets.data_ptr(), T, *_ptrs(prow, trow), n, int(hin0),
+                out.data_ptr(), _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return out.t()
+
+
+def _check_stream(name, eq_t) -> None:
+    _check(name, eq_t, "eq_t", 3)
+    if eq_t.shape[1] < 1:
+        raise ValueError(f"{name}: eq_t {tuple(eq_t.shape)} has no words")
+
+
+def reduce_eqstream(eq_t, lo, hi, hin0: int):
+    """reduce_lanes on Eq words gathered before the launch (kernel
+    reduce_eqstream).
+
+    eq_t: int32 (T, NW, B), lane b's Eq word w of column c at [c, w, b]
+    (eqstream_gather(...).permute(1, 2, 0)); lo, hi: int32 (B,).  Returns
+    (best, pfirst, plast, last) int32 (B,) over columns [lo, hi), as
+    reduce_lanes."""
+    name = "reduce_eqstream"
+    _check_stream(name, eq_t)
+    n = _check_lanes(name, dict(lo=lo, hi=hi))
+    if n != eq_t.shape[2]:
+        raise ValueError(f"{name}: eq_t has {eq_t.shape[2]} lanes, lo {n}")
+    if not _on_cuda(name, eq_t, lo, hi):
+        return reduce_eqstream_plain(eq_t, lo, hi, hin0)
+    T, nw = eq_t.shape[0], eq_t.shape[1]
+    dev = eq_t.device
+    out = _lane_outputs(n, dev)
+    if n == 0:
+        return tuple(out)
+    _launch(name, "myers_reduce_eqstream", dev.index, eq_t.data_ptr(), nw, T,
+            *_ptrs(lo, hi), n, int(hin0), *_ptrs(*out),
+            _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return tuple(out)
+
+
+def hits_eqstream(eq_t, lo, hi, best, hin0: int):
+    """hits_lanes on a gathered Eq stream (kernel hits_eqstream): operands as
+    reduce_eqstream plus best int32 (B,); output as hits_lanes."""
+    name = "hits_eqstream"
+    _check_stream(name, eq_t)
+    n = _check_lanes(name, dict(lo=lo, hi=hi, best=best))
+    if n != eq_t.shape[2]:
+        raise ValueError(f"{name}: eq_t has {eq_t.shape[2]} lanes, lo {n}")
+    if not _on_cuda(name, eq_t, lo, hi, best):
+        return hits_eqstream_plain(eq_t, lo, hi, best, hin0)
+    T, nw = eq_t.shape[0], eq_t.shape[1]
+    dev = eq_t.device
+    hits = _hit_output(n, T, dev)
+    if n == 0:
+        return hits
+    _launch(name, "myers_hits_eqstream", dev.index, eq_t.data_ptr(), nw, T,
+            *_ptrs(lo, hi), n, int(hin0), best.data_ptr(), hits.data_ptr(),
+            hits.shape[1], _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return hits
+
+
 def _check_wavefront(name, t, peq, state, d_base: int, n_steps: int,
                      n_words: int, t_scan: int) -> None:
     _check(name, t, "t", 1)
@@ -978,7 +1127,8 @@ def wavefront_banded(t, peq, state, d_base: int, n_steps: int, n_words: int,
 
 KERNELS = (reduce_lanes, reduce_bitplane, sweep_shared, hits_lanes,
            hits_bitplane, nw_banded, shw_banded, shw_banded_hits, capture,
-           wavefront, wavefront_banded)
+           wavefront, wavefront_banded, sweep_scores, reduce_eqstream,
+           hits_eqstream)
 
 
 def launch_counts() -> dict:
@@ -1044,6 +1194,28 @@ def reduce_flat_device_bitplane(q_alts, pad_words, targets, lo, hi,
         return out
     hits = hits_bitplane(*args, out[0], hin0, nb, q_alts.shape[1], sigma)
     return out + (hits[:, :-(-targets.shape[1] // WORD_SIZE)],)
+
+
+def reduce_flat_device_eqstream(peq, targets, lo, hi, hin0: int,
+                                chunk: int = 128, want_hits: bool = False):
+    """pallas_kernel.reduce_flat_device_eqstream: peq (B, S1, NW) of any
+    S1, targets (B, T) in [0, S1), lo/hi (B,); the Eq stream gathered once
+    (eqstream_gather) for the reduce and the hits kernel.  Returns as
+    reduce_flat_device.  chunk is accepted for the JAX signature: it sized
+    the TPU's column blocks and changes nothing here."""
+    del chunk
+    eq_t = eqstream_gather(peq, targets).permute(1, 2, 0)
+    out = reduce_eqstream(eq_t, lo, hi, hin0)
+    if not want_hits:
+        return out
+    return out + (hits_eqstream(eq_t, lo, hi, out[0], hin0),)
+
+
+def sweep_flat_device(peq, targets, hin0: int):
+    """PallasSweeper.sweep on flat operands: peq (B, S1, NW), targets (B, T)
+    one row per lane -> int32 (B, T) score streams (a lane-minor view)."""
+    rows = _identity_rows(peq.shape[0], peq.device)
+    return sweep_scores(peq, targets, rows, rows, hin0)
 
 
 def hits_flat_device_shared(peq, target_scan, lo, hi, best, hin0: int,

@@ -9,7 +9,8 @@ wherever <= qlen, and the HW best is always <= qlen, so the per-segment
 
 Each (read, segment) pair is one lane of the per-lane reduce kernel; the
 lanes name their profile row and their segment row by index, so neither the
-profiles nor the segments are repeated in memory.
+profiles nor the segments are repeated in memory.  hw_stream_segmented keeps
+every segment's whole score stream instead (the score-stream kernel).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from edlib_tpu_torch import encode
 from edlib_tpu_torch.ops import cuda_kernel as ck
+from edlib_tpu_torch.utils import hw
 
 _BIG = 1 << 30
 _I32 = torch.int32
@@ -38,6 +40,23 @@ def plan_segments(tlen: int, halo: int, w_pad: int,
     core = math.ceil(tlen / n)
     n = math.ceil(tlen / core)
     return n, core
+
+
+def segment_target(t_ids: np.ndarray, sigma: int, n_seg: int, core: int,
+                   halo: int, w_pad: int) -> np.ndarray:
+    """int32 (n_seg, halo + core + w_pad) slices; NULL (sigma+1) before the
+    target start, the wildcard (sigma) after its end and in the w_pad
+    tail (edlib_tpu/ops/segmented.py:42-58)."""
+    tlen = len(t_ids)
+    out = np.full((n_seg, halo + core + w_pad), sigma, dtype=np.int32)
+    padded = np.concatenate([
+        np.full(halo, sigma + 1, dtype=np.int32),
+        np.asarray(t_ids, dtype=np.int32),
+        np.full(n_seg * core - tlen, sigma, dtype=np.int32),
+    ])
+    for s in range(n_seg):
+        out[s, :halo + core] = padded[s * core:s * core + halo + core]
+    return out
 
 
 def padded_target(t_ids: torch.Tensor, sigma: int, halo: int, n_seg: int,
@@ -125,3 +144,33 @@ def hw_best_segmented(read_ids, t_ids: np.ndarray, sigma: int,
         n_words=n_words, halo=halo, core=core, tlen=tlen, bitplane=False)
     return (best.cpu().numpy().astype(np.int64),
             pos.cpu().numpy().astype(np.int64))
+
+
+def hw_stream_segmented(q_ids, t_ids: np.ndarray, sigma: int, k_eff: int,
+                        device=None) -> np.ndarray:
+    """The full HW bottom-row score stream cell(Q-1, c), c in [0, tlen), of
+    one query over a long target, int64 (tlen,): the target cut into
+    NULL-haloed segments (segment_target), one lane of the score-stream
+    kernel each, every lane reading the one profile row.
+
+    Entries are exact wherever <= k_eff; the others are overestimates
+    (> k_eff).  Any sigma: the JAX function (edlib_tpu/ops/segmented.py:
+    165-215) returns None past its per-lane alphabet cap."""
+    dev = hw.resolve_device(device)
+    qlen = len(q_ids)
+    tlen = len(t_ids)
+    n_words = encode.num_words(qlen)
+    w_pad = n_words * 32 - qlen
+    halo = qlen + int(k_eff) - 1
+    n_seg, core = plan_segments(tlen, halo, w_pad)
+    rows = torch.from_numpy(segment_target(t_ids, sigma, n_seg, core, halo,
+                                           w_pad)).to(dev)
+    q = torch.from_numpy(np.asarray(q_ids, np.int32).reshape(1, -1)).to(dev)
+    peq = ck.build_peq_device(q, torch.full((1,), qlen, dtype=_I32,
+                                            device=dev), sigma, n_words)
+    peq = torch.cat([peq, peq.new_zeros((1, 1, n_words))], 1).contiguous()
+    streams = ck.sweep_scores(peq, rows, torch.zeros(n_seg, dtype=_I32,
+                                                     device=dev),
+                              torch.arange(n_seg, dtype=_I32, device=dev), 0)
+    cores = streams[:, halo + w_pad:]
+    return cores.reshape(-1)[:tlen].cpu().numpy().astype(np.int64)

@@ -1,7 +1,7 @@
 """One bucket's sweeps on the card: the port's PallasSweeper.
 
-Counterpart of PallasSweeper's two-phase and banded methods
-(edlib_tpu/ops/pallas_kernel.py:2293-2512) on flat tensors.  A bucket is its
+Counterpart of PallasSweeper's full sweep, two-phase and banded methods
+(edlib_tpu/ops/pallas_kernel.py:2286-2512) on flat tensors.  A bucket is its
 query profiles (B, S1, NW) and its targets: one row per lane, or, when
 shared, ONE target row that every lane reads (trow = 0).  So the TPU
 kernels' shared forms are the per-lane kernels here, with one target row.
@@ -90,6 +90,15 @@ class Sweeper:
         woff, n_win = ck.nw_band_schedule(n_words, n_chunks, self.chunk,
                                           d_lo, d_hi)
         return torch.from_numpy(woff).to(self.device), n_win
+
+    def sweep(self, peq, targets, hin0: int) -> torch.Tensor:
+        """Full score streams (PallasSweeper.sweep): peq int32 tensor
+        (B, S1, NW) of any S1, targets numpy int32 (B, T) one row per lane
+        -> int32 (B, T) on the device, every column's padded bottom cell
+        (a lane-minor view of the stream kernel's output)."""
+        tg = torch.from_numpy(np.ascontiguousarray(targets, np.int32)).to(
+            self.device)
+        return ck.sweep_flat_device(peq.to(self.device), tg, hin0)
 
     def reduce(self, peq, targets, lo, hi, hin0: int, shared: bool = False):
         """Phase 1: (best, pos_first, pos_last, last_score), each (B,)

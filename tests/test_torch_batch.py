@@ -300,15 +300,18 @@ def test_unported_routes_raise(rng):
     with pytest.raises(NotImplementedError, match="Queue A 13"):
         edlib_tpu_torch.align_batch([b"ACG"], b"ACGT", mesh=object(),
                                     device="cpu")
-    # sigma+1 > 64 per-lane with a symbol equal to six others: the JAX
-    # package takes its eq-stream kernels there.
+    # sigma+1 > 64 per-lane with a symbol equal to six others: the eq-stream
+    # route, as in the JAX package (no longer a raise).
     A = _alphabet(100)
     qs = [_seq(rng, 40, A) for _ in range(3)]
     ts = [_seq(rng, 50, A) for _ in range(3)]
+    ts[0] += A
     dense = [(A[0], A[i]) for i in range(1, 7)]
-    with pytest.raises(NotImplementedError, match="Queue B 12"):
-        edlib_tpu_torch.align_batch(qs, ts, mode="HW",
-                                    additionalEqualities=dense, device="cpu")
+    assert edlib_tpu_torch.align_batch(
+        qs, ts, mode="HW", task="locations", additionalEqualities=dense,
+        device="cpu") == edlib_tpu.align_batch(
+            qs, ts, mode="HW", task="locations", additionalEqualities=dense,
+            backend="host")
 
 
 def test_device_none_needs_a_card(monkeypatch):

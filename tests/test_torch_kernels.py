@@ -242,3 +242,42 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
     assert not list(tmp_path.glob("*.so"))
+
+
+def _fake_nvcc(tmp_path, fail_on=None):
+    """A stand-in compiler: writes the file named by -o and one log line;
+    exits 2 on a command naming fail_on."""
+    nvcc = tmp_path / "nvcc"
+    fail = (f'case "$*" in *{fail_on}*) echo "error: {fail_on}"; exit 2;; '
+            'esac\n') if fail_on else ""
+    nvcc.write_text(
+        "#!/bin/sh\n" + fail
+        + 'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; '
+        'done\necho "ptxas info : wrote $out"\n: > "$out"\n')
+    nvcc.chmod(0o755)
+    return str(nvcc)
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One compile per source, then one link; the log keeps every step's
+    output, no object file is left, and a second build reuses the library."""
+    nvcc = _fake_nvcc(tmp_path)
+    out_dir = tmp_path / "build"
+    monkeypatch.setattr(_build, "BUILD_DIR", out_dir)
+    monkeypatch.setattr(_build.hw, "nvcc_path", lambda: nvcc)
+    lib = _build.build()
+    assert lib.exists() and lib.parent == out_dir
+    log = lib.with_suffix(".log").read_text()
+    assert log.count("ptxas info") == len(_build.SOURCES) + 1
+    assert sorted(p.name for p in out_dir.iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".log").name])
+    assert _build.build() == lib
+
+
+def test_build_reports_the_failing_source(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.hw, "nvcc_path",
+                        lambda: _fake_nvcc(tmp_path, "wavefront.cu"))
+    with pytest.raises(RuntimeError, match="on wavefront.cu"):
+        _build.build()
+    assert not list((tmp_path / "build").iterdir())
