@@ -12,7 +12,13 @@ Phases, each of which exits non-zero on any failure:
    and eq-stream kernels at NW 1, 4 (registers) and 9 (scratch), both
    hin0, over a ragged 197 columns; every per-lane kernel in the wave form
    (one block a lane) at 256 and a ragged 300 words; and sweep_scores and
-   reduce_lanes at 12,300 words (past the wave form: one thread a lane).
+   reduce_lanes at 12,300 words (past the wave form: one thread a lane);
+   the resumable reduce and the carry form of the score stream, per-lane
+   and shared rows, both hin0, NW 1, 4, 9 and 300, from a fresh and a
+   random state, two chained segments equal to one reduce_lanes /
+   sweep_scores sweep; and hw_adaptive at NW 1, 4 and 32 over two tiles of
+   1,024 lanes, with and without the strong reduce (raw outputs and the
+   word-columns each tile swept).
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -59,7 +65,7 @@ Phases, each of which exits non-zero on any failure:
       nw_banded for the distances, capture).
    Each path phase also profiles one batched-windows call alone: the
    capture kernel's device time, the decode and walk's, and peak memory.
-13. Each kernel of phases 7-12 and 18-20 timed and held against its plain
+13. Each kernel of phases 7-12 and 18-23 timed and held against its plain
    version on its phase's operands, over at most SHARED_PLAIN_COLS columns
    (and PLAIN_WORD_COLS word-columns) of at most the first, middle and last
    calls of a path; each wavefront kernel of phases 14-17 timed over every
@@ -102,6 +108,29 @@ Phases, each of which exits non-zero on any failure:
    hw_stream_segmented: a 1,000-bp read with 5% edits planted in phase 14's
    1 Mbp target, its positions at the stream's minimum equal
    semiglobal_locations_long(mode="HW")'s ends.
+21-22. The sharded API (edlib_tpu_torch.parallel) on a 2 x 2 DeviceGrid of
+   the one card (the shards take turns on its kernels), each call with its
+   launch counts and a warm repeat that must agree:
+   21. sharded_reduce_pipeline of phase 3's 8,192 reads against its
+      4,194,304-bp target, hin0 0 and 1: reduce_resume 2 launches a dp row,
+      4 in all, the result equal lane for lane to one shared reduce_lanes
+      sweep of the whole scan.
+   22. align_batch(mesh=) on phase 7's HW batch (locations: sp halo slices
+      merged over the grid, start re-runs data-parallel) and phase 8's NW
+      batch (the full reduce, nw_banded must not run), map_reads(mesh=) on
+      phase 3's batch (the filter over the grid, the stragglers on
+      sweep_shared), each equal to its phase's unsharded result; and
+      sharded_nw_pipeline of 1,024 of phase 3's reads against phase 7's
+      target, equal to one sweep_scores of the joined scan
+      (sweep_scores_resume, 4 launches).
+23. Sweeper.reduce_hw_adaptive: 8,192 reads of 1,000 bp (32 words) with 6%
+   substitutions planted in one shared 100,000-bp target, k = 8, 16, 32 and
+   64 (hw_adaptive); lanes whose unbanded best (reduce_lanes on the same
+   operands, timed beside it) is <= k equal it, the rest are above k.
+   Phase 13 holds the kernels of 21-23 against their plain versions on
+   their phases' operands (hw_adaptive's raw outputs over the first
+   2,048 columns) and times them; hw_adaptive's bound counts the live
+   word-columns the kernel reports.
 
 Output: the kernels' JSON line, the end-to-end JSON line, the card line, and
 last {"ok": true, "device": {...}}.  Data comes from --seed.
@@ -178,6 +207,12 @@ EQ_READS, STREAM_READS, EQ_CLASS = 4_096, 8_192, 8
 # Phase 20: a STREAM_LEN-bp pair with substitutions only, and a
 # SEG_READ_LEN-bp read for hw_stream_segmented.
 STREAM_LEN, STREAM_SUBS, SEG_READ_LEN = 100_000, 0.03, 1_000
+# Phases 21-23: a 2 x 2 grid of the one card; NW_PIPE_READS of phase 3's
+# reads through sharded_nw_pipeline against phase 7's target; and the
+# adaptive reduce on 1,000-bp reads (32 words) in one shared 100 kbp target.
+GRID_DP, GRID_SP, NW_PIPE_READS = 2, 2, 1024
+ADAPT_READS, ADAPT_QLEN, ADAPT_TLEN = 8_192, 1_000, 100_000
+ADAPT_KS = (8, 16, 32, 64)
 # The wavefront kernels' plain versions run one torch step per wavefront
 # step: a full-width call is held over WF_PLAIN_STEPS steps of its first,
 # middle and last segments.
@@ -200,6 +235,10 @@ REPLACES = {
     "sweep_scores": "edlib_tpu/ops/pallas_kernel.py:211",
     "reduce_eqstream": "edlib_tpu/ops/pallas_kernel.py:1869",
     "hits_eqstream": "edlib_tpu/ops/pallas_kernel.py:1905",
+    "reduce_resume": "edlib_tpu/ops/pallas_kernel.py:679",
+    "hw_adaptive": "edlib_tpu/ops/pallas_kernel.py:1669",
+    # The carry form of the score stream: the JAX package leaves it to XLA.
+    "sweep_scores_resume": "edlib_tpu/ops/jax_engine.py:140",
 }
 
 
@@ -665,6 +704,99 @@ def check_wavefront_kernels(rng, dev, ck):
                         f"cols={cols} from step {d}", [got], [want])
 
 
+def check_resumable_kernels(rng, dev, ck):
+    """The resumable reduce and the carry form of the score stream == their
+    plain versions at small shapes: per-lane and shared target rows, both
+    hin0, registers (NW 1, 4), scratch (9) and the wave form (300 words),
+    from a fresh and a random carried state; two chained segments (the
+    second ragged) equal one reduce_lanes / sweep_scores sweep of the joined
+    columns, and their exit state one resumable sweep's."""
+    import torch
+    from edlib_tpu_torch.parallel.dist import merge_segments
+    for nw, shared in ((1, False), (4, True), (9, False), (300, True)):
+        n, T = (3, 24) if nw == 300 else (300, 200)
+        peq, targets, lo, hi, prow, trow = lane_operands(
+            rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+        if shared:
+            targets, trow = targets[:1].contiguous(), trow * 0
+        fresh = (torch.full((n, nw), -1, dtype=torch.int32, device=dev),
+                 torch.zeros((n, nw), dtype=torch.int32, device=dev),
+                 torch.full((n,), nw * 32, dtype=torch.int32, device=dev))
+        words = rng.randint(0, 1 << 32, (2, n, nw), dtype=np.uint64)
+        pv0, mv0 = torch.from_numpy(
+            words.astype(np.uint32).view(np.int32)).to(dev)
+        carried = (pv0, mv0 & ~pv0, torch.from_numpy(
+            rng.randint(0, 400, n).astype(np.int32)).to(dev))
+        cut = T // 2 + 1
+        halves = (targets[:, :cut].contiguous(),
+                  targets[:, cut:].contiguous())
+        for hin0 in (0, 1):
+            tag = f"nw={nw} shared={shared} hin0={hin0}"
+            for state in (fresh, carried):
+                lanes = (peq, targets, lo, hi, prow, trow) + state + (hin0,)
+                check_equal(f"reduce_resume {tag}", ck.reduce_resume(*lanes),
+                            ck.reduce_resume_plain(*lanes))
+                rows = (peq, targets, prow, trow) + state + (hin0,)
+                check_equal(f"sweep_scores_resume {tag}",
+                            ck.sweep_scores_resume(*rows),
+                            ck.sweep_scores_resume_plain(*rows))
+            r1 = ck.reduce_resume(peq, halves[0], lo.clamp(max=cut),
+                                  hi.clamp(max=cut), prow, trow, *fresh,
+                                  hin0)
+            r2 = ck.reduce_resume(peq, halves[1], (lo - cut).clamp(min=0),
+                                  (hi - cut).clamp(min=0), prow, trow,
+                                  *r1[4:], hin0)
+            # Lanes with an empty window keep the pipelines' defaults.
+            live = hi > lo
+            check_equal(f"reduce_resume chained {tag}",
+                        [x[live] for x in merge_segments(
+                            [r1[:4], r2[:4]], cut, hi)],
+                        [x[live] for x in ck.reduce_lanes(
+                            peq, targets, lo, hi, prow, trow, hin0)])
+            check_equal(f"reduce_resume chained state {tag}", r2[4:],
+                        ck.reduce_resume(peq, targets, lo, hi, prow, trow,
+                                         *fresh, hin0)[4:])
+            s1 = ck.sweep_scores_resume(peq, halves[0], prow, trow, *fresh,
+                                        hin0)
+            s2 = ck.sweep_scores_resume(peq, halves[1], prow, trow, *s1[1:],
+                                        hin0)
+            check_equal(f"sweep_scores_resume chained {tag}",
+                        [torch.cat([s1[0], s2[0]], 1)],
+                        [ck.sweep_scores(peq, targets, prow, trow, hin0)])
+
+
+def check_adaptive_kernel(rng, dev, ck):
+    """hw_adaptive == its plain version, raw outputs and the word-columns
+    each tile swept, at NW 1, 4 and 32 over two tiles of 1,024 lanes (reads
+    with 6% substitutions planted in one shared target, and random reads),
+    with and without the strong reduce."""
+    import torch
+    for nw, strong, k in ((1, 2, 6), (4, 4, 12), (4, 0, 40), (32, 2, 40),
+                          (32, 0, 70)):
+        qlen = nw * 32 - 5
+        t_ids = rng.randint(0, 4, 400 if nw < 32 else 1500).astype(np.int32)
+        reads, _ = make_batch(rng, t_ids, 4, 2048, qlen, 256, rate=0.06)
+        q = torch.from_numpy(reads).to(dev)
+        peq = ck.build_peq_device(
+            q, torch.full((2048,), qlen, dtype=torch.int32, device=dev), 4,
+            nw)
+        W = nw * 32 - qlen
+        tg = torch.full((1, len(t_ids) + W), 4, dtype=torch.int32,
+                        device=dev)
+        tg[0, :len(t_ids)] = torch.from_numpy(t_ids).to(dev)
+        lo = torch.full((2048,), W, dtype=torch.int32, device=dev)
+        hi = lo + len(t_ids)
+        hi[1500:] -= 77                    # the second tile ends earlier
+        rows = torch.arange(2048, dtype=torch.int32, device=dev)
+        args = (peq, tg, lo, hi, rows, rows * 0, k, 0, 8, strong)
+        live = torch.zeros(2, dtype=torch.int64, device=dev)
+        live_plain = live.clone()
+        got = ck.hw_adaptive(*args, live=live)
+        want = ck.hw_adaptive_plain(*args, live=live_plain)
+        check_equal(f"hw_adaptive nw={nw} strong_every={strong} k={k}",
+                    list(got) + [live], list(want) + [live_plain])
+
+
 def wavefront_work(ck, name, args):
     """(bytes, ops) one wavefront call needs: 13 operations (OPS_PER_WORD)
     per advanced word-step, the word-steps counted from the call's own
@@ -864,6 +996,48 @@ def call_plan(ck, name, args):
         checked = args if plain_cols == T else (
             peq, targets[:, :plain_cols].contiguous(), prow, trow, hin0)
         return nbytes, ops, n, T, nw, checked, plain_cols
+    if name == "sweep_scores_resume":
+        peq, targets, prow, trow, pv0, mv0, s0, hin0 = args
+        n, T, nw = prow.shape[0], targets.shape[1], peq.shape[2]
+        full = torch.full((n,), T, dtype=torch.int64, device=prow.device)
+        nbytes, ops = lane_call_cost(peq.shape[1] * nw, targets, full, prow,
+                                     trow, 2 + 2 * (2 * nw + 1),
+                                     nw * OPS_PER_WORD + 1, n * T * 4)
+        plain_cols = min(T, SHARED_PLAIN_COLS, max(8, PLAIN_WORD_COLS // nw))
+        checked = (peq, targets[:, :plain_cols].contiguous()) + args[2:]
+        return nbytes, ops, n, T, nw, checked, plain_cols
+    if name == "reduce_resume":
+        # Every lane sweeps every column of its segment (for the exit
+        # state), whatever its window; the state is read and written.
+        peq, targets, lo, hi, prow, trow = args[:6]
+        n, T, nw = prow.shape[0], targets.shape[1], peq.shape[2]
+        full = torch.full((n,), T, dtype=torch.int64, device=prow.device)
+        nbytes, ops = lane_call_cost(peq.shape[1] * nw, targets, full, prow,
+                                     trow, 4 + 2 * (2 * nw + 1),
+                                     nw * OPS_PER_WORD + OPS_PER_COLUMN,
+                                     n * 4 * 4)
+        plain_cols = min(T, SHARED_PLAIN_COLS, max(8, PLAIN_WORD_COLS // nw))
+        checked = (peq, targets[:, :plain_cols].contiguous()) + args[2:]
+        return nbytes, ops, n, T, nw, checked, plain_cols
+    if name == "hw_adaptive":
+        # The operations the band admitted: 13 per live word-column of each
+        # tile (the kernel counts them) for its 1,024 lanes, and the score
+        # and reduction for every lane-column.
+        peq, targets, lo, hi, prow, trow = args[:6]
+        n, nw = prow.shape[0], peq.shape[2]
+        live = torch.zeros(n // 1024, dtype=torch.int64, device=prow.device)
+        getattr(ck.hw_adaptive, "__wrapped__", ck.hw_adaptive)(*args,
+                                                               live=live)
+        end = min(targets.shape[1], int(hi.max())) if n else 0
+        nbytes, _ = lane_call_cost(peq.shape[1] * nw, targets, hi, prow,
+                                   trow, 4, 0, n * 3 * 4)
+        ops = (int(live.sum()) * 1024 * OPS_PER_WORD
+               + int(hi.long().clamp(0, targets.shape[1]).sum())
+               * OPS_PER_COLUMN)
+        plain_cols = min(end, SHARED_PLAIN_COLS,
+                         max(8, PLAIN_WORD_COLS // nw))
+        checked = (peq, targets[:, :plain_cols].contiguous()) + args[2:]
+        return nbytes, ops, n, end, nw, checked, plain_cols
     if name in ("reduce_eqstream", "hits_eqstream"):
         eq_t, lo, hi = args[:3]
         T, nw, n = eq_t.shape
@@ -1321,6 +1495,167 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
 # --------------------------------------------------------------------------
 
 
+def as_lists(outs):
+    """Tensors or arrays -> lists, so that two runs' results compare."""
+    return [np.asarray(x.cpu() if hasattr(x, "cpu") else x).tolist()
+            for x in outs]
+
+
+def sharded_phases(rng, dev, ck, rec, et, grid, acgt, main_batch, hw_batch,
+                   nw_batch, prior):
+    """Phases 21-22 on the DeviceGrid `grid` (the card four times, 2 x 2),
+    each through its public entry point with its launch counts (drive):
+
+    21. sharded_reduce_pipeline of phase 3's reads against its 4 Mbp target,
+        hin0 0 and 1, equal lane for lane to one shared reduce_lanes sweep
+        of the whole scan; reduce_resume 2 launches a dp row, 4 in all.
+    22. align_batch(mesh=) on phase 7's HW batch (locations) and phase 8's
+        NW batch (distance), map_reads(mesh=) on phase 3's batch, each equal
+        to its phase's unsharded result; and sharded_nw_pipeline of
+        NW_PIPE_READS of phase 3's reads against phase 7's target, equal to
+        one sweep_scores of the joined scan (sweep_scores_resume, 4
+        launches).
+
+    prior: the unsharded results {"map": (best, pos), "hw_shared": out,
+    "nw_banded": out}.  Returns (the e2e summary, {label: (recorded calls,
+    launch counts)})."""
+    import hashlib
+
+    import torch
+    from edlib_tpu_torch import parallel as tpar
+    summary, calls = {}, {}
+
+    def digest(t):
+        return tuple(t.shape), hashlib.blake2b(
+            t.contiguous().cpu().numpy().tobytes(), digest_size=16).digest()
+
+    def phase(label, call, required, exact=None):
+        out, counts, rec_calls, cold, warm, _ = drive(ck, rec, label, call,
+                                                      required)
+        for name, n in (exact or {}).items():
+            if counts[name] != n:
+                fail(f"{label}: {name} launched {counts[name]} times, not "
+                     f"{n}")
+        calls[label] = rec_calls, counts
+        summary[label] = dict(cold_s=cold, warm_s=warm, launches={
+            k: v for k, v in counts.items() if v})
+        return out
+
+    # 21. The resumable reduce pipeline, 8,192 reads x 4,194,304 columns.
+    read_ids, t_ids = main_batch
+    B, qlen = read_ids.shape
+    nw = -(-qlen // 32)
+    W = nw * 32 - qlen
+    peq = ck.build_peq_device(
+        torch.from_numpy(read_ids).to(dev),
+        torch.full((B,), qlen, dtype=torch.int32, device=dev), 4, nw)
+    T = len(t_ids)
+    lo = np.full(B, W, np.int64)
+    hi = lo + T
+    scan = torch.full((1, T + W), 4, dtype=torch.int32, device=dev)
+    scan[0, :T] = torch.from_numpy(t_ids).to(dev)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    lo_t = torch.from_numpy(lo.astype(np.int32)).to(dev)
+    hi_t = torch.from_numpy(hi.astype(np.int32)).to(dev)
+    dp = grid.shape["dp"]
+    for hin0 in (0, 1):
+        label = f"reduce_pipeline_hin0_{hin0}"
+        got = phase(label, lambda: as_lists(tpar.sharded_reduce_pipeline(
+            grid, peq, t_ids, qlen, lo, hi, hin0=hin0)), ("reduce_resume",),
+            {"reduce_resume": 2 * dp})
+        want, secs = timed(lambda: as_lists(ck.reduce_lanes(
+            peq, scan, lo_t, hi_t, rows, rows * 0, hin0)))
+        if got != want:
+            fail(f"{label} differs from one reduce_lanes sweep of the scan")
+        summary[label]["one_sweep_s"] = secs
+        log(f"{label}: {B} lanes equal one shared reduce_lanes sweep "
+            f"({secs:.2f} s)")
+
+    # 22. The sharded API at full width.
+    hw_q, hw_t = hw_batch
+    out = phase("mesh_hw_shared", lambda: et.align_batch(
+        hw_q, hw_t, mode="HW", task="locations", mesh=grid),
+        ("reduce_lanes", "hits_lanes"))
+    if out != prior["hw_shared"]:
+        fail("mesh_hw_shared differs from phase 7's unsharded results")
+    nw_q, nw_t = nw_batch
+    out = phase("mesh_nw", lambda: et.align_batch(
+        nw_q, nw_t, mode="NW", task="distance", mesh=grid),
+        ("reduce_lanes",))
+    if calls["mesh_nw"][1]["nw_banded"]:
+        fail("mesh_nw took the banded NW route under a grid")
+    if out != prior["nw_banded"]:
+        fail("mesh_nw differs from phase 8's unsharded results")
+    reads = to_bytes(read_ids, acgt)
+    target = acgt[t_ids].tobytes()
+    out = phase("mesh_map_reads", lambda: as_lists(et.map_reads(
+        reads, target, k=-1, mesh=grid)), ("reduce_lanes", "sweep_shared"))
+    if out != as_lists(prior["map"]):
+        fail("mesh_map_reads differs from phase 3's unsharded results")
+    t_hw = prior["hw_target_ids"]
+    n = min(NW_PIPE_READS, B)
+    ppeq = peq[:n]
+    sp = grid.shape["sp"]
+    C = -(-(len(t_hw) + W) // sp)
+    got = phase("mesh_nw_pipeline", lambda: digest(
+        tpar.sharded_nw_pipeline(grid, ppeq, t_hw, qlen)[0]),
+        ("sweep_scores_resume",), {"sweep_scores_resume": 2 * dp})
+    joined = torch.full((1, C * sp), 4, dtype=torch.int32, device=dev)
+    joined[0, :len(t_hw)] = torch.from_numpy(t_hw).to(dev)
+    stream = ck.sweep_scores(ppeq, joined, rows[:n], rows[:n] * 0, 1)
+    if got != digest(stream.reshape(n, sp, C).permute(1, 0, 2)):
+        fail("mesh_nw_pipeline differs from one sweep_scores of the scan")
+    log(f"mesh_nw_pipeline: {n} lanes x {C * sp} columns equal one "
+        "sweep_scores")
+    return summary, calls
+
+
+def adaptive_phase(rng, dev, ck, rec):
+    """Phase 23: Sweeper.reduce_hw_adaptive on ADAPT_READS reads of
+    ADAPT_QLEN bp with 6% substitutions, planted in one shared ADAPT_TLEN-bp
+    target, for k in ADAPT_KS, each with its launch counts (drive); lanes
+    whose unbanded best (reduce_lanes on the same operands) is <= k equal
+    it, the others are above k; the unbanded sweep is timed beside it.
+    Returns (the e2e summary, {label: (recorded calls, launch counts)})."""
+    import torch
+    from edlib_tpu_torch.ops.sweeper import Sweeper
+    t_ids = rng.randint(0, 4, ADAPT_TLEN).astype(np.int32)
+    reads, _ = make_batch(rng, t_ids, 4, ADAPT_READS, ADAPT_QLEN, 0,
+                          rate=0.06)
+    nw = -(-ADAPT_QLEN // 32)
+    W = nw * 32 - ADAPT_QLEN
+    peq = ck.build_peq_device(
+        torch.from_numpy(reads).to(dev),
+        torch.full((ADAPT_READS,), ADAPT_QLEN, dtype=torch.int32,
+                   device=dev), 4, nw)
+    lo = np.full(ADAPT_READS, W, np.int64)
+    hi = lo + ADAPT_TLEN
+    sw = Sweeper(dev)
+    full, full_s = timed(lambda: sw.reduce(peq, t_ids, lo, hi, 0,
+                                           shared=True))
+    summary, calls = {"unbanded_s": full_s}, {}
+    for k in ADAPT_KS:
+        label = f"hw_adaptive_k{k}"
+        got, counts, rec_calls, cold, warm, _ = drive(
+            ck, rec, label, lambda: as_lists(sw.reduce_hw_adaptive(
+                peq, t_ids, lo, hi, k, shared=True)), ("hw_adaptive",))
+        got = [np.asarray(x) for x in got]
+        within = full[0] <= k
+        for g, w in zip(got, full[:3]):
+            if not np.array_equal(g[within], w[within]):
+                fail(f"{label}: a lane with best <= k differs from the "
+                     "unbanded reduce")
+        if (got[0][~within] <= k).any():
+            fail(f"{label}: a lane with best > k reported <= k")
+        calls[label] = rec_calls, counts
+        summary[label] = dict(cold_s=cold, warm_s=warm,
+                              lanes_within_k=int(within.sum()))
+        log(f"{label}: {int(within.sum())} of {ADAPT_READS} lanes within k "
+            f"equal the unbanded reduce ({warm:.2f} s warm, unbanded "
+            f"{full_s:.2f} s)")
+    return summary, calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1334,6 +1669,7 @@ def main(argv=None) -> int:
     try:
         import edlib_tpu_torch
         from edlib_tpu_torch import mapping as mp
+        from edlib_tpu_torch import parallel as tpar
         from edlib_tpu_torch.ops import _build
         from edlib_tpu_torch.ops import cuda_kernel as ck
         from edlib_tpu_torch.path import batched as bpath
@@ -1361,6 +1697,8 @@ def main(argv=None) -> int:
     # 2. Kernels vs plain versions, small shapes.
     check_kernels(rng, dev, ck)
     check_wavefront_kernels(rng, dev, ck)
+    check_resumable_kernels(rng, dev, ck)
+    check_adaptive_kernel(rng, dev, ck)
     log("kernels equal their plain versions at small shapes")
 
     rec = Recorder(ck)
@@ -1498,6 +1836,7 @@ def main(argv=None) -> int:
     phases = {}
 
     cpu_refs = {}
+    outs = {}
 
     def run_phase(label, queries, targets, q_ids, t_ids, mode, task,
                   required, cpu_key=None, eqs=None, forbidden=()):
@@ -1522,6 +1861,7 @@ def main(argv=None) -> int:
         for name in forbidden:
             if counts[name]:
                 fail(f"{label} launched {name} {counts[name]} times")
+        outs[label] = out
         cpu_s = check_align(label, align_batch, out, queries, targets,
                             q_ids, t_ids, mode, task, rng, cpu_refs, cpu_key,
                             eqs)
@@ -1640,6 +1980,20 @@ def main(argv=None) -> int:
     long_pairs, long_calls = long_pair_phases(
         rng, dev, ck, rec, edlib_tpu_torch, acgt)
 
+    # 21-22. The sharded API on a 2 x 2 grid of the card.
+    grid = tpar.make_alignment_mesh(GRID_DP * GRID_SP, dp=GRID_DP,
+                                    sp=GRID_SP,
+                                    devices=[dev] * (GRID_DP * GRID_SP))
+    sharded, sharded_calls = sharded_phases(
+        rng, dev, ck, rec, edlib_tpu_torch, grid, acgt, (read_ids, t_ids),
+        (to_bytes(hw_ids, acgt), acgt[t_hw].tobytes()),
+        (p_queries, [acgt[t].tobytes() for t in pt]),
+        {"map": (best, pos), "hw_shared": outs["hw_shared"],
+         "nw_banded": outs["nw_banded"], "hw_target_ids": t_hw})
+
+    # 23. The adaptive banded reduce.
+    adaptive, adaptive_calls = adaptive_phase(rng, dev, ck, rec)
+
     # 6 and 13. Timings on each path's own operands.
     kernels = []
     for name, calls, counts, path in (
@@ -1689,6 +2043,23 @@ def main(argv=None) -> int:
                                  "bound_ms", "bound_by", "calls")})
         log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
             f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
+    # Phase 13 for the kernels of phases 21-23.
+    pipe_calls, pipe_counts = sharded_calls["reduce_pipeline_hin0_0"]
+    nwp_calls2, nwp_counts2 = sharded_calls["mesh_nw_pipeline"]
+    ad_calls = [c for k in ADAPT_KS
+                for c in adaptive_calls[f"hw_adaptive_k{k}"][0]["hw_adaptive"]]
+    ad_launches = sum(adaptive_calls[f"hw_adaptive_k{k}"][1]["hw_adaptive"]
+                      for k in ADAPT_KS)
+    for name, calls, n_launch, path in (
+            ("reduce_resume", pipe_calls["reduce_resume"],
+             pipe_counts["reduce_resume"], "reduce_pipeline_hin0_0"),
+            ("sweep_scores_resume", nwp_calls2["sweep_scores_resume"],
+             nwp_counts2["sweep_scores_resume"], "mesh_nw_pipeline"),
+            ("hw_adaptive", ad_calls, ad_launches, "hw_adaptive")):
+        m = measure(ck, name, calls)
+        kernels.append(kernel_entry(name, m, n_launch, path, card))
+        log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
+            f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
     # Phase 13 for the wavefront kernels: every call of each path timed,
     # held against the plain version on segments of its own operands.
     for name, path, others in (
@@ -1718,7 +2089,8 @@ def main(argv=None) -> int:
         "map_reads_warm_s": warm_s, "full_shared_sweep_s": sweep_s,
         "sigma100_target_len": len(t100), "sigma100_map_reads_cold_s":
         cold100_s, "build_s": build_s, "warm_profile": prof,
-        "align_batch": phases, "long_pairs": long_pairs}}))
+        "align_batch": phases, "long_pairs": long_pairs,
+        "sharded": sharded, "adaptive": adaptive}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,9 +11,10 @@ pair over the whole card (ops/wavefront.py).  Tasks "distance",
 every mode, at every alphabet size and length the reference takes: buckets
 past the per-lane kernels' alphabet cap or routing budget (dense
 equalities past 63 symbols, queries past 65,536 bp) take the bit-plane,
-eq-stream or score-stream kernels, as edlib_tpu routes them.  Only the
-``mesh=`` sharding of edlib_tpu.align_batch is not ported yet: it raises
-NotImplementedError.
+eq-stream or score-stream kernels, as edlib_tpu routes them.
+align_batch's ``backend="host"`` aligns pair by pair with ``align(...,
+device="cpu")``, and ``mesh=`` (a parallel.DeviceGrid) shards the sweeps
+over a grid of devices as edlib_tpu shards them over its mesh.
 
 One reference quirk is emulated exactly: edlib can report end location -1
 (query aligned entirely before the target, edlib.cpp:237-249).  With 64-bit
@@ -27,6 +28,7 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from edlib_tpu_torch import encode
 from edlib_tpu_torch.types import (STATUS_OK, AlignMode, AlignResult,
@@ -126,30 +128,50 @@ def _filter_locations(col_scores: np.ndarray, qlen: int, k_eff: float
 
 
 def align_batch(queries, targets, mode="NW", task="distance", k=-1,
-                additionalEqualities=None, device=None, mesh=None
-                ) -> List[dict]:
+                additionalEqualities=None, backend: str = "auto", mesh=None,
+                device=None) -> List[dict]:
     """Batched alignment on the card, equal to edlib_tpu.align_batch.
 
     queries/targets: sequences of str/bytes; pair i aligns queries[i] vs
     targets[i] (a single target is broadcast to all queries, and the
     sweeps then read that one target).  task="path" reconstructs each
     window on the card (the column-capture kernel) or, past the device
-    route's size bounds, on the host.  device: None (the card; raises
-    RuntimeError without one) or a torch device; "cpu" runs the kernels'
+    route's size bounds, on the host.
+
+    backend: "auto" and "jax" run the batched device path on `device`;
+    "host" aligns pair by pair with align(..., device="cpu"), the port's
+    stand-in for the JAX package's native host engines.  With mesh given,
+    backend is ignored, as in the JAX package.
+
+    mesh: a parallel.DeviceGrid: shared-target HW buckets go
+    sequence-parallel over its "sp" axis with halo slices, every other
+    bucket data-parallel over the whole grid, the locations merged on its
+    first device (parallel/dist.py); results equal the unsharded path's.
+
+    device: None (the card, or with a mesh the grid's first device; raises
+    RuntimeError without a card) or a torch device; "cpu" runs the kernels'
     plain PyTorch versions."""
+    grid = None
     if mesh is not None:
-        raise NotImplementedError(
-            "edlib_tpu_torch: align_batch(mesh=...) is not ported yet "
-            "(ROADMAP Queue A 13)")
-    dev = hw.resolve_device(device)
+        from edlib_tpu_torch.parallel.dist import check_grid
+        grid = check_grid(mesh)
+        dev = grid.first if device is None else hw.resolve_device(device)
+    elif backend == "host":
+        dev = torch.device("cpu")
+    else:
+        dev = hw.resolve_device(device)
     if isinstance(targets, (str, bytes, bytearray)):
         targets = [targets] * len(queries)
     if len(queries) != len(targets):
         raise ValueError("queries and targets must have equal length")
+    if backend == "host" and grid is None:
+        return [align(q, t, mode=mode, task=task, k=k,
+                      additionalEqualities=additionalEqualities, device=dev)
+                for q, t in zip(queries, targets)]
     from edlib_tpu_torch.batch import align_batch_device
     return align_batch_device(queries, targets, mode=mode, task=task, k=k,
                               additionalEqualities=additionalEqualities,
-                              device=dev)
+                              device=dev, mesh=grid)
 
 
 def align(query, target, mode="NW", task="distance", k=-1,

@@ -26,6 +26,11 @@ Routes, as the JAX package takes them with a device:
   the device.  No single-card route raises.
 * HW start locations: every (pair, end location) reversed-SHW re-run goes
   into one more bucketed reduce.
+* Under mesh= (a parallel.DeviceGrid), as the JAX package routes under its
+  mesh: NW skips the banded route and SHW the banded ladder; a shared-target
+  HW bucket goes sequence-parallel (halo slices over "sp", the minima merged
+  over the grid, its `last` the sentinel), every other bucket data-parallel
+  over the whole grid (_run_bucket_mesh).
 * PATH: the window of the first location pair of every pair within k is
   reconstructed.  Windows the JAX package sends to its device route (at
   most max_cells() DP cells, int16-sized, sigma+1 within the per-lane
@@ -336,6 +341,54 @@ def _run_bucket_past_cap(idxs, pairs, metas, sigma, eq, nw_b, t_scan, hin0,
                dev)
 
 
+def _run_bucket_mesh(grid, idxs, pairs, metas, sigma, eq, nw_b, t_scan,
+                     hin0, want_hits, shared, dev) -> List[PairSummary]:
+    """One bucket on a device grid (edlib_tpu/batch.py:169-247):
+    sequence-parallel halo slices of a shared HW target over "sp", the
+    locations merged over the grid; data-parallel over the whole grid
+    otherwise (parallel/dist.py)."""
+    from edlib_tpu_torch.parallel import dist
+
+    queries = [pairs[i][0] for i in idxs]
+    ws = np.array([metas[i][1] for i in idxs], np.int32)
+    peq = _bucket_profiles(queries, eq, sigma, nw_b, dev)
+    if shared and hin0 == 0:
+        # Sequence-parallel HW: halo-sliced shared target, the merge over
+        # the grid.  The halo is word-aligned so that the core start falls
+        # on a hit word (a bigger halo stays exact).
+        t_ids = pairs[idxs[0]][1]
+        w_max = int(ws.max())
+        halo = 2 * max(len(q) for q in queries) - 1
+        halo += (-(halo + w_max)) % 32
+        null = torch.zeros((len(idxs), 1, nw_b), dtype=torch.int32,
+                           device=dev)
+        slices, _ = dist.shard_target_slices(np.asarray(t_ids), sigma,
+                                             grid.shape["sp"], halo, w_max,
+                                             c_multiple=32)
+        best, pf, pl_, hits = dist.sharded_hw_locations(
+            grid, torch.cat([peq, null], 1), slices, halo, w_max,
+            len(t_ids), w_lanes=ws, want_hits=want_hits)
+        best, pf, pl_ = (x.cpu().numpy() for x in (best, pf, pl_))
+        cols = decode_hit_words(hits) if want_hits else None
+        out = []
+        for row in range(len(idxs)):
+            positions = None
+            if want_hits:
+                positions = cols[row] + (w_max - ws[row])
+                positions = positions[positions < len(t_ids)]
+            # Positions come merged (no W shift), and there is no final-
+            # column capture: NW never routes here.
+            out.append(PairSummary(int(best[row]), int(pf[row]),
+                                   int(pl_[row]), _BIG_SENTINEL, positions))
+        return out
+    # Data-parallel: per-pair targets, or a mode other than HW.
+    targets = _bucket_targets([pairs[i][1] for i in idxs], sigma, t_scan)
+    hi = ws + np.array([len(pairs[i][1]) for i in idxs], np.int32)
+    outs = dist.sharded_reduce_dp(grid, peq, targets, ws, hi, hin0,
+                                  want_hits=want_hits)
+    return _summaries(idxs, metas, outs, want_hits)
+
+
 def _shw_banded_bucket(sweeper, peq, targets, lo, hi, kb, k_user,
                        want_hits, shared):
     """Banded SHW bucket: k-doubling ladder over the sliding-window
@@ -412,15 +465,22 @@ def _is_shared(pairs, idxs) -> bool:
 def _run_bucketed_summary(pairs: List[Tuple[np.ndarray, np.ndarray]],
                           sigma: int, eq: np.ndarray, hin0: int,
                           want_hits: bool, dev, shw_kb=None,
-                          k_user: int = -1) -> List[PairSummary]:
+                          k_user: int = -1, mesh=None) -> List[PairSummary]:
     """Bucketed sweeps returning per-pair summaries (real position space):
     a reduction pass, plus (only when the all-minimal-locations list is
     needed) a packed hit-mask pass.  Buckets whose pairs all share one
-    target object read that one target."""
+    target object read that one target.  Under a device grid (mesh) every
+    bucket takes _run_bucket_mesh."""
     buckets, metas = _buckets(pairs)
     out: List[Optional[PairSummary]] = [None] * len(pairs)
     for (nw_b, t_scan), idxs in buckets.items():
         shared = _is_shared(pairs, idxs)
+        if mesh is not None:
+            for i, summ in zip(idxs, _run_bucket_mesh(
+                    mesh, idxs, pairs, metas, sigma, eq, nw_b, t_scan, hin0,
+                    want_hits, shared, dev)):
+                out[i] = summ
+            continue
         if not (shared or sigma + 1 <= ck.max_sigma1(nw_b, False)):
             for i, summ in zip(idxs, _run_bucket_past_cap(
                     idxs, pairs, metas, sigma, eq, nw_b, t_scan, hin0,
@@ -565,9 +625,11 @@ def _run_bucketed_nw_banded(pairs: List[Tuple[np.ndarray, np.ndarray]],
 
 
 def align_batch_device(queries, targets, mode="NW", task="distance", k=-1,
-                       additionalEqualities=None, device=None) -> List[dict]:
+                       additionalEqualities=None, device=None,
+                       mesh=None) -> List[dict]:
     """edlib_tpu.batch.align_batch_device on `device` (a torch.device: the
-    card, or the CPU for the plain versions)."""
+    card, or the CPU for the plain versions), the sweeps sharded over the
+    device grid `mesh` when one is given."""
     mode = AlignMode.parse(mode)
     task = AlignTask.parse(task)
     if k is None:
@@ -646,7 +708,7 @@ def align_batch_device(queries, targets, mode="NW", task="distance", k=-1,
             main_idx.append(i)
         results.append(res)
 
-    if main_idx and mode == AlignMode.NW:
+    if main_idx and mode == AlignMode.NW and mesh is None:
         dists = _run_bucketed_nw_banded([id_pairs[i] for i in main_idx],
                                         sigma, eq, k, device)
         for i, d in zip(main_idx, dists):
@@ -658,6 +720,9 @@ def align_batch_device(queries, targets, mode="NW", task="distance", k=-1,
                 res.num_locations = 1
     elif main_idx:
         hin0 = 0 if mode == AlignMode.HW else 1
+        # NW reaches here only under a grid: the final column of the full
+        # reduce, no hit pass.
+        want_hits = mode != AlignMode.NW
         sweep_pairs = [id_pairs[i] for i in main_idx]
         shw_kb = None
         if mode == AlignMode.SHW:
@@ -678,16 +743,25 @@ def align_batch_device(queries, targets, mode="NW", task="distance", k=-1,
                     t_ids = slice_cache[key]
                 trunc.append((q_ids, t_ids))
             sweep_pairs = trunc
+        if mode == AlignMode.SHW and mesh is None:
             # Guaranteed per-pair bounds on the SHW best: best <= d_NW <=
             # the hamming bound, and best <= Q, so the banded ladder capped
             # there always completes every lane.
             shw_kb = np.array(
                 [min(encode.nw_upper_bound(q, t, eq), max(len(q), 1))
                  for q, t in sweep_pairs], np.int64)
-        summaries = _run_bucketed_summary(sweep_pairs, sigma, eq, hin0, True,
-                                          device, shw_kb=shw_kb, k_user=k)
+        summaries = _run_bucketed_summary(sweep_pairs, sigma, eq, hin0,
+                                          want_hits, device, shw_kb=shw_kb,
+                                          k_user=k, mesh=mesh)
         for i, summ in zip(main_idx, summaries):
             res = results[i]
+            if mode == AlignMode.NW:
+                if summ.last_score <= k_eff:
+                    res.edit_distance = summ.last_score
+                    res.end_locations = np.array(
+                        [len(id_pairs[i][1]) - 1], np.int64)
+                    res.num_locations = 1
+                continue
             best, positions = _filter_best_positions(
                 summ.best, summ.positions, len(id_pairs[i][0]), k_eff)
             res.edit_distance = best
@@ -697,7 +771,7 @@ def align_batch_device(queries, targets, mode="NW", task="distance", k=-1,
 
     if task in (AlignTask.LOC, AlignTask.PATH):
         _fill_start_locations(results, id_pairs, main_idx, mode, sigma, eq,
-                              device)
+                              device, mesh)
     if task == AlignTask.PATH:
         _fill_paths(results, id_pairs, main_idx, sigma, eq, device)
     return [r.to_dict() for r in results]
@@ -752,8 +826,9 @@ def _fill_paths(results, id_pairs, main_idx, sigma, eq, dev):
 
 
 def _fill_start_locations(results, id_pairs, main_idx, mode, sigma, eq,
-                          dev):
-    """Start locations; HW batches every reversed-SHW re-run on the card."""
+                          dev, mesh=None):
+    """Start locations; HW batches every reversed-SHW re-run on the card
+    (over the device grid mesh when one is given)."""
     if mode != AlignMode.HW:
         for i in main_idx:
             res = results[i]
@@ -788,6 +863,6 @@ def _fill_start_locations(results, id_pairs, main_idx, mode, sigma, eq,
     # Only the LAST minimal SHW position is needed (edlib.cpp:258-260): the
     # reduce pass carries it directly, no hit pass.
     summaries = _run_bucketed_summary(sub_pairs, sigma, eq, hin0=1,
-                                      want_hits=False, dev=dev)
+                                      want_hits=False, dev=dev, mesh=mesh)
     for (i, j, e), summ in zip(sub_owner, summaries):
         results[i].start_locations[j] = e - summ.pos_last

@@ -1,12 +1,14 @@
 """Carry the JAX package's per-target state and operands into the port.
 
 The system has no weights: its state is the per-target q-gram index, the
-query profiles, and a long pair's wavefront state between segments.  These helpers take the JAX package's arrays as numpy (bit
-words as uint32, presence tables as bf16 or any 0/1 dtype) and return the
-port's tensors: bit words as int32 holding the same bit patterns, presence
-as 0/1 float32, symbols as int32.  The *_from_tiles helpers undo the TPU
-kernels' (8, 128) lane tiling, so their raw outputs compare with the port's
-flat ones.
+query profiles, a long pair's wavefront state between segments, and a
+resumable sweep's carried (Pv, Mv, score).  These helpers take the JAX
+package's arrays as numpy (bit words as uint32, presence tables as bf16 or
+any 0/1 dtype) and return the port's tensors: bit words as int32 holding the
+same bit patterns, presence as 0/1 float32, symbols as int32.  The
+*_from_tiles helpers undo the TPU kernels' (8, 128) lane tiling, so their
+raw outputs compare with the port's flat ones; grid_from_mesh gives a test's
+device mesh its DeviceGrid.
 """
 
 from __future__ import annotations
@@ -88,3 +90,42 @@ def wavefront_state_to_jax(state, symwin=None, peq_window=None) -> np.ndarray:
     if peq_window is not None:
         planes += list(np.asarray(peq_window, np.uint32))
     return np.stack(planes).reshape(len(planes), ns // 128, 128)
+
+
+def grid_from_mesh(mesh, devices):
+    """A DeviceGrid of the same (dp, sp) shape as the JAX package's
+    alignment mesh, over `devices` (torch devices or strings, e.g.
+    ["cpu"] * 8): the port's counterpart for a test's mesh."""
+    from edlib_tpu_torch.parallel import make_alignment_mesh
+    shape = dict(zip(mesh.axis_names, mesh.devices.shape))
+    return make_alignment_mesh(shape["dp"] * shape["sp"], dp=shape["dp"],
+                               sp=shape["sp"], devices=devices)
+
+
+def carry_from_jax(state, layout: str = "xla", device=None):
+    """A resumable sweep's state from the JAX package -> the port's (pv
+    int32 (B, NW), mv int32 (B, NW), score int32 (B,)).  layout "xla":
+    (Pv, Mv) uint32 (NW, B), as jax_engine.initial_state and
+    sweep_scores_resumable hold them; "kernel": (B, NW), as
+    pallas_kernel.reduce_resumable_flat_device does."""
+    pv, mv, score = (np.asarray(x) for x in state)
+    if layout == "xla":
+        pv, mv = pv.T, mv.T
+    elif layout != "kernel":
+        raise ValueError(f"unknown layout {layout!r} (xla | kernel)")
+    return (bit_words(np.ascontiguousarray(pv)).to(device),
+            bit_words(np.ascontiguousarray(mv)).to(device),
+            torch.from_numpy(np.array(score, dtype=np.int32)).to(device))
+
+
+def carry_to_jax(state, layout: str = "xla"):
+    """The port's (pv, mv, score) -> the JAX package's (Pv uint32, Mv
+    uint32, score int32) numpy arrays in `layout` (see carry_from_jax)."""
+    pv, mv, score = (np.asarray(torch.as_tensor(x).cpu()) for x in state)
+    pv, mv = pv.view(np.uint32), mv.view(np.uint32)
+    if layout == "xla":
+        pv, mv = pv.T, mv.T
+    elif layout != "kernel":
+        raise ValueError(f"unknown layout {layout!r} (xla | kernel)")
+    return (np.ascontiguousarray(pv), np.ascontiguousarray(mv),
+            score.astype(np.int32))

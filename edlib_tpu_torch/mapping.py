@@ -13,9 +13,18 @@ Routing, in the JAX package's order (as it routes with a device forced):
    _SEG_FB_B stragglers, then the shared sweep for any past those.
 4. Everything else: the shared-target sweep.
 
-Every route is exact; only speed differs.  EDLIB_TPU_QFILTER ("0" off,
-"1" forced on) and EDLIB_TPU_QFILTER_MAXC (candidate budget, skips the
-auto-tuner) mean what they mean to the JAX package.
+Under mesh= (a parallel.DeviceGrid), HW takes, as the JAX package under
+its mesh: on an all-CUDA grid the filter first, the reads sharded over every
+device of the grid and the target index on each (no merges), the stragglers
+on the shared sweep (no segmented fallback); then, or on a CPU grid at once,
+the sequence-parallel sweep (halo slices of the target over "sp", the
+minima merged; _map_reads_sharded).  SHW ignores the grid.  The port never
+builds a grid by itself (EDLIB_TPU_AUTO_MESH is not read).
+
+Every route is exact; only speed differs.  An empty read is (0, -1) before
+any routing (0 passes every k).  EDLIB_TPU_QFILTER ("0" off, "1" forced on)
+and EDLIB_TPU_QFILTER_MAXC (candidate budget, skips the auto-tuner) mean
+what they mean to the JAX package.
 """
 
 from __future__ import annotations
@@ -100,8 +109,8 @@ def _prep(reads: Sequence[bytes], target: bytes):
     return read_ids, t_ids, seen, flat, t_key
 
 
-def map_reads(reads: Sequence, target, mode="HW", k: int = -1, device=None
-              ) -> Tuple[np.ndarray, np.ndarray]:
+def map_reads(reads: Sequence, target, mode="HW", k: int = -1, device=None,
+              mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Best-hit mapping of reads against one shared target.
 
     Returns (best int64 (B,), end_pos int64 (B,)): best = minimal edit
@@ -109,10 +118,17 @@ def map_reads(reads: Sequence, target, mode="HW", k: int = -1, device=None
     = smallest end position reaching it.  best > k (when k >= 0) is
     reported as -1 with end_pos -1.
 
-    device: None (the card) or a torch device; without a card None raises
-    RuntimeError.  device="cpu" runs the plain PyTorch versions of the
-    kernels (slow; for tests)."""
-    dev = hw.resolve_device(device)
+    device: None (the card, or with a mesh the grid's first device) or a
+    torch device; without a card None raises RuntimeError.  device="cpu"
+    runs the plain PyTorch versions of the kernels (slow; for tests).
+    mesh: a parallel.DeviceGrid to shard HW mapping over (see the module
+    docstring)."""
+    grid = None
+    if mesh is not None:
+        from edlib_tpu_torch.parallel.dist import check_grid
+        grid = check_grid(mesh)
+    dev = (grid.first if grid is not None and device is None
+           else hw.resolve_device(device))
     mode = AlignMode.parse(mode)
     if mode == AlignMode.NW:
         raise ValueError("map_reads is for semiglobal modes (HW/SHW)")
@@ -132,9 +148,26 @@ def map_reads(reads: Sequence, target, mode="HW", k: int = -1, device=None
                     best[i] = len(r)
         return best, pos
 
+    qlens = np.fromiter((len(r) for r in read_ids), np.int64, B)
+    live = np.nonzero(qlens)[0]
+    # An empty read aligns at cost 0 before any routing: (0, -1), within
+    # every k.
+    best[qlens == 0] = 0
+    if len(live) == 0:
+        return best, pos
+    if len(live) < B:
+        read_ids = [read_ids[i] for i in live]
     if mode == AlignMode.SHW:
         raw = _map_reads_shw_pruned(read_ids, t_ids, t_key, sigma, k, dev)
-    elif B <= 64 and len(t_ids) >= 50_000:
+    elif grid is not None:
+        from edlib_tpu_torch.parallel import dist
+        raw = None
+        if dist._resolve_engine(grid, "auto") == "cuda":
+            raw = _map_reads_filtered(read_ids, t_ids, t_key, sigma, k, dev,
+                                      flat, grid=grid)
+        if raw is None:
+            raw = _map_reads_sharded(read_ids, t_ids, sigma, grid)
+    elif len(live) <= 64 and len(t_ids) >= 50_000:
         # Few reads vs a huge target: segment the target across lanes.
         raw = _map_reads_segmented(read_ids, t_ids, sigma, dev)
     else:
@@ -142,8 +175,35 @@ def map_reads(reads: Sequence, target, mode="HW", k: int = -1, device=None
                                   flat)
         if raw is None:
             raw = _sweep_reads_shared(read_ids, t_ids, t_key, sigma, 0, dev)
-    qlens = np.fromiter((len(r) for r in read_ids), np.int64, B)
-    return finish(raw[0], raw[1], qlens, k)
+    best[live], pos[live] = finish(raw[0], raw[1], qlens[live], k)
+    return best, pos
+
+
+def _map_reads_sharded(read_ids, t_ids, sigma, grid):
+    """dp x sp sharded HW best hits (edlib_tpu/mapping.py:234-267): halo
+    slices of the target over "sp", the reads over "dp", (best, first
+    position) merged over the grid (parallel/dist.sharded_hw_locations)."""
+    from edlib_tpu_torch.parallel import dist
+
+    dev = grid.first
+    qlens_np = np.fromiter((len(r) for r in read_ids), np.int32,
+                           len(read_ids))
+    qmax = int(qlens_np.max())
+    nw = encode.num_words(qmax)
+    w_max = nw * 32 - int(qlens_np.min())
+    halo = 2 * qmax - 1
+    q_np, _ = _reads_array(read_ids, None, qmax)
+    peq = ck.build_peq_device(torch.from_numpy(q_np).to(dev),
+                              torch.from_numpy(qlens_np).to(dev), sigma, nw)
+    null = torch.zeros((len(read_ids), 1, nw), dtype=torch.int32, device=dev)
+    slices, _ = dist.shard_target_slices(np.asarray(t_ids), sigma,
+                                         grid.shape["sp"], halo, w_max,
+                                         c_multiple=32)
+    b_, pf, _, _ = dist.sharded_hw_locations(
+        grid, torch.cat([peq, null], 1), slices, halo, w_max, len(t_ids),
+        w_lanes=nw * 32 - qlens_np, want_hits=False)
+    return (b_.cpu().numpy().astype(np.int64),
+            pf.cpu().numpy().astype(np.int64))
 
 
 def finish(raw_best, raw_pos, qlens: np.ndarray, k: int):
@@ -208,10 +268,14 @@ def _reads_array(read_ids, flat, qmax: int):
     return q_arr, qlens
 
 
-def _map_reads_filtered(read_ids, t_ids, t_key, sigma, k, dev, flat=None):
+def _map_reads_filtered(read_ids, t_ids, t_key, sigma, k, dev, flat=None,
+                        grid=None):
     """q-gram filter + windowed verification, then the straggler fallbacks
     (see the module docstring); None when the filter does not apply
-    (size, geometry, vocabulary, or the tuner rejects the target)."""
+    (size, geometry, vocabulary, or the tuner rejects the target).  grid:
+    the reads sharded over every device of a DeviceGrid, the target index
+    on each device, nothing merged (edlib_tpu/mapping.py:827-851); the
+    stragglers then all take the shared sweep."""
     flag = os.environ.get("EDLIB_TPU_QFILTER", "")
     if flag == "0":
         return None
@@ -252,14 +316,19 @@ def _map_reads_filtered(read_ids, t_ids, t_key, sigma, k, dev, flat=None):
     q_np, qlens_np = _reads_array(read_ids, flat, qmax)
     q_arr = torch.from_numpy(q_np).to(dev)
     qlens = torch.from_numpy(qlens_np).to(dev)
-    gb, gp, resolved = qf.filter_verify_batch(
-        q_arr, qlens, win_pres, win_syms, sigma=sigma, q=q, L=L,
-        stride=stride, tlen=tlen, k=rung, maxc=maxc, nw=n_words)
+    if grid is not None:
+        gb, gp, resolved = _filter_over_grid(
+            grid, q_np, qlens_np, t_ids, t_key, sigma, q, L, stride, n_win,
+            Lv, tlen, rung, maxc, n_words, dev)
+    else:
+        gb, gp, resolved = qf.filter_verify_batch(
+            q_arr, qlens, win_pres, win_syms, sigma=sigma, q=q, L=L,
+            stride=stride, tlen=tlen, k=rung, maxc=maxc, nw=n_words)
     # resolved & gb > rung == k proves best > k (the post-pass reports -1);
     # with no user cap every such read needs its true best.
     need = ~resolved if k >= 0 else (~resolved) | (gb > rung)
     idxs = torch.nonzero(need).flatten()
-    FB = min(_SEG_FB_B, B)
+    FB = min(_SEG_FB_B, B) if grid is None else 0
     gb = gb.cpu().numpy().astype(np.int64)
     gp = gp.cpu().numpy().astype(np.int64)
     granted, rest = idxs[:FB], idxs[FB:].cpu().numpy()
@@ -276,6 +345,25 @@ def _map_reads_filtered(read_ids, t_ids, t_key, sigma, k, dev, flat=None):
         gb[rest], gp[rest] = _sweep_reads_shared(
             [read_ids[i] for i in rest], t_ids, t_key, sigma, 0, dev)
     return gb, gp
+
+
+def _filter_over_grid(grid, q_np, qlens_np, t_ids, t_key, sigma, q, L,
+                      stride, n_win, Lv, tlen, rung, maxc, n_words, dev):
+    """The filter and verification with the reads sharded over every
+    device of the grid and the target index cached on each; (best, pos,
+    resolved) gathered on dev.  Reads are independent: nothing is merged."""
+    from edlib_tpu_torch.parallel.dist import over_devices
+
+    parts = []
+    for shard_dev, (a, b) in over_devices(grid, len(q_np)):
+        win_pres, win_syms = _target_index_cached(
+            t_ids, t_key, sigma, q, L, stride, n_win, Lv, shard_dev)
+        parts.append(qf.filter_verify_batch(
+            torch.from_numpy(q_np[a:b]).to(shard_dev),
+            torch.from_numpy(qlens_np[a:b]).to(shard_dev), win_pres,
+            win_syms, sigma=sigma, q=q, L=L, stride=stride, tlen=tlen,
+            k=rung, maxc=maxc, nw=n_words))
+    return tuple(torch.cat([p[j].to(dev) for p in parts]) for j in range(3))
 
 
 def _segmented_fallback(q_arr, qlens, t_ids, t_key, sigma, qmax, qmin,

@@ -51,7 +51,11 @@ SIGNATURES = {
                               _P, _P, _P, _I, _P, _P, _I, _P, _P],
     "myers_capture": [_I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "myers_sweep_scores": [_I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P,
-                           _P],
+                           _P, _P, _P, _P, _P, _P, _P],
+    "myers_reduce_resume": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "myers_hw_adaptive": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "myers_reduce_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                               _P, _P, _P],
     "myers_hits_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _P,

@@ -3,9 +3,9 @@
 // the stream arrive as void*, every function returns the cudaError_t of its
 // launch (0 = cudaSuccess) and never synchronises or allocates.
 //
-// Twelve kernels, one thread per alignment lane (or a block, in the wave
-// form below).  Each replaces a kernel of
-// edlib_tpu/ops/pallas_kernel.py:
+// Fourteen kernels, one thread per alignment lane (or a block, in the wave
+// form below; a block per 1,024-lane tile for myers_hw_adaptive).  Each
+// replaces a kernel of edlib_tpu/ops/pallas_kernel.py:
 //
 //   myers_reduce_lanes     _reduce_kernel (:434), per-lane form, launched by
 //                          _sweep_reduce_call (:580, pallas_call :605); its
@@ -41,6 +41,22 @@
 //   myers_hits_eqstream    _hits_kernel with eq_stream=True, launched by
 //                          _sweep_hits_eqstream_call (:1891, pallas_call
 //                          :1905).
+//   myers_reduce_resume    _reduce_kernel with resume=True (:434), launched
+//                          by _sweep_reduce_resumable_call (:649,
+//                          pallas_call :679) through
+//                          reduce_resumable_flat_device (:716): the reduce
+//                          of one target segment from a carried (Pv, Mv,
+//                          score), with the exit state written out.  It
+//                          sweeps exactly the segment's columns (the TPU
+//                          wrapper asserts T % chunk == 0, since swept pad
+//                          columns would corrupt the carry).
+//   myers_hw_adaptive      _hw_adaptive_kernel (:1469), launched by
+//                          sweep_hw_adaptive_pallas (:1636, pallas_call
+//                          :1669): the value-adaptive banded HW/SHW reduce,
+//                          its live word band shared by a 1,024-lane tile.
+// myers_sweep_scores also takes an optional carry in and out (the resumable
+// score stream, jax_engine.sweep_scores_resumable, which the JAX package
+// leaves to XLA).
 //
 // What bounds them on this card: integer issue.  advance_word below is 20
 // two-input operations as written, 13 as Hopper issues them (a logic function
@@ -102,6 +118,10 @@
 //   mask has bit c%32 of word c/32 set where score == best; the score
 //   stream holds the score after every column c < T.
 //   Columns past the row length are not scanned (callers keep hi <= T).
+//   A carried state (Pv, Mv words (lanes, NW), score (lanes,)) replaces the
+//   fresh start where a kernel takes one; the resumable reduce and the
+//   carry form of the score stream sweep every column of the row and write
+//   the state after the last one.
 // The banded kernels advance only the window of n_win words whose top word
 // for column c is woff[c / chunk] (nondecreasing).  Words below the window
 // keep the reset state (Pv = ~0, Mv = 0), which is the band's ramp init, so
@@ -155,6 +175,37 @@ __device__ __forceinline__ void advance_word(uint32_t& pv, uint32_t& mv,
   advance_word_h(pv, mv, eq, hneg, hpos, ph, mh);
 }
 
+// One lane's carried state: words (nw,) and the score in, the same out after
+// the last column.  A null pv0 starts fresh (Pv = ~0, Mv = 0, score =
+// nw*32); a null pv1 keeps nothing.
+struct LaneCarry {
+  const uint32_t* pv0 = nullptr;
+  const uint32_t* mv0 = nullptr;
+  const int32_t* s0 = nullptr;
+  uint32_t* pv1 = nullptr;
+  uint32_t* mv1 = nullptr;
+  int32_t* s1 = nullptr;
+
+  __device__ __forceinline__ uint32_t pv(int w) const {
+    return pv0 ? pv0[w] : ~0u;
+  }
+  __device__ __forceinline__ uint32_t mv(int w) const {
+    return pv0 ? mv0[w] : 0u;
+  }
+  __device__ __forceinline__ int32_t score(int nw) const {
+    return pv0 ? *s0 : nw * 32;
+  }
+  __device__ __forceinline__ void keep(int w, uint32_t p, uint32_t m) const {
+    if (pv1) {
+      pv1[w] = p;
+      mv1[w] = m;
+    }
+  }
+  __device__ __forceinline__ void keep_score(int32_t score) const {
+    if (pv1) *s1 = score;
+  }
+};
+
 // Visitors: a sweep calls update(score, c, live) for every scanned column
 // c < min(hi, n_cols) and finish(end) after the last one.  live is false
 // where a banded window has not reached the bottom word.
@@ -176,6 +227,14 @@ struct Reduction {
     if (c == hi - 1) last = score;
   }
   __device__ __forceinline__ void finish(int) {}
+};
+
+// Reduction over [lo, hi) of a sweep that runs past hi (the resumable
+// reduce sweeps its whole segment, for the exit state).
+struct WindowReduction : Reduction {
+  __device__ __forceinline__ void update(int32_t score, int c, bool live) {
+    if (c < hi) Reduction::update(score, c, live);
+  }
 };
 
 // last = score at hi-1 only (the banded NW readout).
@@ -290,7 +349,8 @@ struct StreamEq {
 // the visitor.  Every thread of the block must call this.
 template <class Eq, class Visit>
 __device__ __forceinline__ void sweep_wave(Eq eq, int nw, int end,
-                                           uint32_t hin_pos, Visit& v) {
+                                           uint32_t hin_pos,
+                                           const LaneCarry& cr, Visit& v) {
   __shared__ uint32_t carry[2][2][kWaveThreads];  // [buffer][neg, pos][t]
   const int t = threadIdx.x;
   const int last = blockDim.x - 1;
@@ -299,8 +359,8 @@ __device__ __forceinline__ void sweep_wave(Eq eq, int nw, int end,
   uint32_t pv[kWaveWords], mv[kWaveWords], e[kWaveWords], en[kWaveWords];
 #pragma unroll
   for (int i = 0; i < kWaveWords; ++i) {
-    pv[i] = ~0u;
-    mv[i] = 0u;
+    pv[i] = i < n ? cr.pv(w0 + i) : ~0u;
+    mv[i] = i < n ? cr.mv(w0 + i) : 0u;
   }
   if (end > 0) {
     eq.at(0);
@@ -308,7 +368,7 @@ __device__ __forceinline__ void sweep_wave(Eq eq, int nw, int end,
     for (int i = 0; i < kWaveWords; ++i)
       if (i < n) e[i] = eq.word(w0 + i);
   }
-  int32_t score = nw * 32;
+  int32_t score = cr.score(nw);
   for (int d = 0; d < end + last; ++d) {
     const int c = d - t;
     const int buf = d & 1;
@@ -341,32 +401,41 @@ __device__ __forceinline__ void sweep_wave(Eq eq, int nw, int end,
     }
     __syncthreads();
   }
-  if (t == last && end > 0) v.finish(end);
+#pragma unroll
+  for (int i = 0; i < kWaveWords; ++i)
+    if (i < n) cr.keep(w0 + i, pv[i], mv[i]);
+  if (t == last) {
+    cr.keep_score(score);
+    if (end > 0) v.finish(end);
+  }
 }
 
-// Sweep one lane over columns [0, min(hi, n_cols)).  NW > 0: the word count,
-// state in registers.  NW == 0: nw words, either the wave form (wave: the
-// block is the lane) or one thread with its state in scratch (stride apart).
+// Sweep one lane over columns [0, min(hi, n_cols)) from the carried state
+// cr (a fresh start when it has none), keeping the exit state where cr asks
+// for it.  NW > 0: the word count, state in registers.  NW == 0: nw words,
+// either the wave form (wave: the block is the lane) or one thread with its
+// state in scratch (stride apart).
 template <int NW, class Eq, class Visit>
 __device__ __forceinline__ void sweep_lane(Eq eq, int nw, int n_cols, int hi,
                                            uint32_t hin_pos, uint32_t* spv,
                                            uint32_t* smv, size_t stride,
-                                           bool wave, Visit& v) {
+                                           bool wave, const LaneCarry& cr,
+                                           Visit& v) {
   const int end = min(hi, n_cols);
   if constexpr (NW == 0) {
     if (wave) {
-      sweep_wave(eq, nw, end, hin_pos, v);
+      sweep_wave(eq, nw, end, hin_pos, cr, v);
       return;
     }
   }
+  int32_t score = cr.score(nw);
   if constexpr (NW > 0) {
     uint32_t pv[NW], mv[NW];
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      pv[w] = ~0u;
-      mv[w] = 0u;
+      pv[w] = cr.pv(w);
+      mv[w] = cr.mv(w);
     }
-    int32_t score = NW * 32;
     for (int c = 0; c < end; ++c) {
       eq.at(c);
       uint32_t hneg = 0u, hpos = hin_pos;
@@ -375,12 +444,13 @@ __device__ __forceinline__ void sweep_lane(Eq eq, int nw, int n_cols, int hi,
       score += static_cast<int32_t>(hpos) - static_cast<int32_t>(hneg);
       v.update(score, c, true);
     }
+#pragma unroll
+    for (int w = 0; w < NW; ++w) cr.keep(w, pv[w], mv[w]);
   } else {
     for (int w = 0; w < nw; ++w) {
-      spv[w * stride] = ~0u;
-      smv[w * stride] = 0u;
+      spv[w * stride] = cr.pv(w);
+      smv[w * stride] = cr.mv(w);
     }
-    int32_t score = nw * 32;
     for (int c = 0; c < end; ++c) {
       eq.at(c);
       uint32_t hneg = 0u, hpos = hin_pos;
@@ -393,7 +463,9 @@ __device__ __forceinline__ void sweep_lane(Eq eq, int nw, int n_cols, int hi,
       score += static_cast<int32_t>(hpos) - static_cast<int32_t>(hneg);
       v.update(score, c, true);
     }
+    for (int w = 0; w < nw; ++w) cr.keep(w, spv[w * stride], smv[w * stride]);
   }
+  cr.keep_score(score);
   if (end > 0) v.finish(end);
 }
 
@@ -494,7 +566,33 @@ struct LaneArgs {
   const int32_t* want;     // hit kernels: the best each lane's mask marks
   int32_t* hits;           // hit kernels: (n_lanes, n_out) words, zeroed
   int n_out;
+  // Carried state (resumable kernels): Pv, Mv (n_lanes, nw) and the score
+  // (n_lanes,) in and out; null in-pointers start fresh, null out-pointers
+  // keep nothing.
+  const uint32_t* pv0;
+  const uint32_t* mv0;
+  const int32_t* s0;
+  uint32_t* pv1;
+  uint32_t* mv1;
+  int32_t* s1;
 };
+
+__device__ __forceinline__ LaneCarry lane_carry(const LaneArgs& a, int nw,
+                                                int lane) {
+  LaneCarry c;
+  const size_t at = (size_t)lane * nw;
+  if (a.pv0) {
+    c.pv0 = a.pv0 + at;
+    c.mv0 = a.mv0 + at;
+    c.s0 = a.s0 + lane;
+  }
+  if (a.pv1) {
+    c.pv1 = a.pv1 + at;
+    c.mv1 = a.mv1 + at;
+    c.s1 = a.s1 + lane;
+  }
+  return c;
+}
 
 __device__ __forceinline__ void store(const LaneArgs& a, int lane,
                                       const Reduction& r) {
@@ -552,7 +650,7 @@ reduce_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a
   Reduction r{a.lo[lane], a.hi[lane]};
   sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, r.hi, a.hin_pos,
                  scratch_pv(a, lane), scratch_mv(a, nw, lane),
-                 (size_t)a.n_lanes, a.wave, r);
+                 (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), r);
   if (lane_owner(a)) store(a, lane, r);
 }
 
@@ -566,7 +664,7 @@ reduce_bitplane_kernel(const uint32_t* __restrict__ planes,
   Reduction r{a.lo[lane], a.hi[lane]};
   sweep_lane<NW>(bitplane_eq(planes, pad, nw, nb, n_alts, wildcard, a, lane),
                  nw, a.n_cols, r.hi, a.hin_pos, scratch_pv(a, lane),
-                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, a.wave, r);
+                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), r);
   if (lane_owner(a)) store(a, lane, r);
 }
 
@@ -578,7 +676,7 @@ hits_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a) 
   HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
   sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, a.hi[lane],
                  a.hin_pos, scratch_pv(a, lane), scratch_mv(a, nw, lane),
-                 (size_t)a.n_lanes, a.wave, h);
+                 (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), h);
 }
 
 template <int NW>
@@ -591,7 +689,7 @@ hits_bitplane_kernel(const uint32_t* __restrict__ planes,
   HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
   sweep_lane<NW>(bitplane_eq(planes, pad, nw, nb, n_alts, wildcard, a, lane),
                  nw, a.n_cols, a.hi[lane], a.hin_pos, scratch_pv(a, lane),
-                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, a.wave, h);
+                 scratch_mv(a, nw, lane), (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), h);
 }
 
 // Every column of every lane; out (n_cols, n_lanes).
@@ -604,7 +702,24 @@ sweep_scores_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
   ScoreStream s{out + lane, (size_t)a.n_lanes};
   sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, a.n_cols,
                  a.hin_pos, scratch_pv(a, lane), scratch_mv(a, nw, lane),
-                 (size_t)a.n_lanes, a.wave, s);
+                 (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), s);
+}
+
+// The resumable reduce: every column of the lane's target row from the
+// carried state, the reduction over [lo, hi) of those columns.
+template <int NW>
+__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+reduce_resume_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
+                     LaneArgs a) {
+  const int lane = lane_index(a);
+  if (lane >= a.n_lanes) return;
+  WindowReduction r;
+  r.lo = a.lo[lane];
+  r.hi = a.hi[lane];
+  sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, a.n_cols,
+                 a.hin_pos, scratch_pv(a, lane), scratch_mv(a, nw, lane),
+                 (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), r);
+  if (lane_owner(a)) store(a, lane, r);
 }
 
 __device__ __forceinline__ StreamEq stream_eq(const uint32_t* eq, int nw,
@@ -620,7 +735,7 @@ reduce_eqstream_kernel(const uint32_t* __restrict__ eq, int nw, LaneArgs a) {
   Reduction r{a.lo[lane], a.hi[lane]};
   sweep_lane<NW>(stream_eq(eq, nw, a, lane), nw, a.n_cols, r.hi, a.hin_pos,
                  scratch_pv(a, lane), scratch_mv(a, nw, lane),
-                 (size_t)a.n_lanes, a.wave, r);
+                 (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), r);
   if (lane_owner(a)) store(a, lane, r);
 }
 
@@ -632,7 +747,7 @@ hits_eqstream_kernel(const uint32_t* __restrict__ eq, int nw, LaneArgs a) {
   HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
   sweep_lane<NW>(stream_eq(eq, nw, a, lane), nw, a.n_cols, a.hi[lane],
                  a.hin_pos, scratch_pv(a, lane), scratch_mv(a, nw, lane),
-                 (size_t)a.n_lanes, a.wave, h);
+                 (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), h);
 }
 
 template <int NWIN>
@@ -796,6 +911,176 @@ capture_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
   }
 }
 
+// The value-adaptive banded reduce (pallas_kernel._hw_adaptive_kernel).  A
+// block is one 1,024-lane tile of the TPU kernel, one thread a lane, and the
+// tile shares one live word band [0, whi): the TPU kernel's jnp.min reduces
+// over its whole (8, 128) tile, so its raw outputs (overestimates above k
+// included) are those of 1,024 lanes in lockstep.  Every `group` columns the
+// band moves by the reference's rules at group granularity (edlib.cpp:
+// 601-642, see pallas_kernel.py:1374-1430): shrink to the last word whose
+// tile-wide min bottom - keff is below 32 + group, grow past the last live
+// word while its min is within group, and every strong_every groups an exact
+// min-cell strong reduce; whi rounds up to a width class, and rejoining
+// words restart on the ramp below the last live word.  keff = min(k, the
+// lane's best so far).  The columns of a lane are scored only while the band
+// reaches the bottom word.
+//
+// What bounds it: integer issue, 13 operations a live word-column, as the
+// per-lane sweeps.  What this first design does about it: little.  A block
+// of 1,024 threads leaves each 64 registers, and 32 words of (Pv, Mv,
+// bottom) for 1,024 lanes are 393 KB, past a block's shared memory, so every
+// word's state lives in a global scratch buffer, (tile, plane, word, lane),
+// a warp's accesses one 128-byte line, which L1/L2 keep; the tile-wide mins
+// are warp reductions and one pass over 32 partials in shared memory, two
+// barriers a group.  Dead words cost nothing: a rejoining word is reset, so
+// their state is never read.
+constexpr int kTile = 1024;
+constexpr int kTileWarps = kTile / 32;
+constexpr int kAdaptiveMaxWords = 128;
+
+// Exact minimum cell value of one word from its bit deltas
+// (pallas_kernel._min_cells_exact): the bottom minus the largest suffix sum
+// of (Pv bit - Mv bit) taken from bit 31 down to bit 0, the empty suffix
+// included.
+__device__ __forceinline__ int32_t min_cells_exact(uint32_t pv, uint32_t mv,
+                                                   int32_t bottom) {
+  int32_t total = 0, best = 0;
+#pragma unroll
+  for (int i = 31; i >= 0; --i) {
+    total += static_cast<int32_t>((pv >> i) & 1u) -
+             static_cast<int32_t>((mv >> i) & 1u);
+    best = max(best, total);
+  }
+  return bottom - best;
+}
+
+// The smallest width class >= raw (classes ascending, the last = nw).
+__device__ __forceinline__ int class_at_least(const int32_t* classes,
+                                              int n_classes, int raw) {
+  for (int i = 0; i + 1 < n_classes; ++i)
+    if (raw <= classes[i]) return classes[i];
+  return classes[n_classes - 1];
+}
+
+__global__ void __launch_bounds__(kTile)
+hw_adaptive_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
+                   LaneArgs a, int k, int group, int strong_every,
+                   const int32_t* __restrict__ classes_in, int n_classes,
+                   long long* live_out) {
+  // [0]: min over a warp of bottom - keff, [1]: of the exact min cell -
+  // keff; then the tile's mins per word.
+  __shared__ int32_t part[2][kTileWarps][kAdaptiveMaxWords];
+  __shared__ int32_t mins[2][kAdaptiveMaxWords];
+  __shared__ int32_t classes[kAdaptiveMaxWords];
+  __shared__ int32_t warp_end[kTileWarps];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = blockIdx.x * kTile + tid;
+  if (tid < n_classes) classes[tid] = classes_in[tid];
+  const int lo = a.lo[lane], hi = a.hi[lane];
+  // The tile's last column: the furthest window end of its lanes.
+  const int e = __reduce_max_sync(~0u, min(hi, a.n_cols));
+  if ((tid & 31) == 0) warp_end[warp] = e;
+  uint32_t* spv = a.scratch + (size_t)blockIdx.x * 3 * nw * kTile + tid;
+  uint32_t* smv = spv + (size_t)nw * kTile;
+  int32_t* ssw = reinterpret_cast<int32_t*>(smv + (size_t)nw * kTile);
+  for (int w = 0; w < nw; ++w) {
+    spv[w * kTile] = ~0u;
+    smv[w * kTile] = 0u;
+    ssw[w * kTile] = 32 * (w + 1);
+  }
+  __syncthreads();
+  int end = 0;
+  for (int i = 0; i < kTileWarps; ++i) end = max(end, warp_end[i]);
+  const uint32_t* prof = peq + (size_t)a.prow[lane] * s1 * nw;
+  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
+  int32_t rb = kBig, rpf = -1, rpl = -1;
+  // Initial band: ceil((k+1)/32) words (edlib.cpp:562), up to a class.
+  int whi = class_at_least(classes, n_classes, min(max((k + 32) / 32, 1), nw));
+  long long live = 0;  // word-columns the tile swept
+  for (int g = 0, c0 = 0; c0 < end; ++g, c0 += group) {
+    const int cw = whi;
+    const int c1 = min(c0 + group, end);
+    live += (long long)cw * (c1 - c0);
+    for (int c = c0; c < c1; ++c) {
+      const uint32_t* row = prof + (size_t)tg[c] * nw;
+      uint32_t hneg = 0u, hpos = a.hin_pos;
+      int32_t bottom = 0;
+      for (int w = 0; w < cw; ++w) {
+        uint32_t p = spv[w * kTile], m = smv[w * kTile];
+        advance_word(p, m, row[w], hneg, hpos);
+        spv[w * kTile] = p;
+        smv[w * kTile] = m;
+        bottom = ssw[w * kTile] + static_cast<int32_t>(hpos) -
+                 static_cast<int32_t>(hneg);
+        ssw[w * kTile] = bottom;
+      }
+      if (cw == nw && c >= lo && c < hi) {
+        if (bottom <= rb) rpl = c;
+        if (bottom < rb) {
+          rb = bottom;
+          rpf = c;
+        }
+      }
+    }
+    if (c1 >= end) break;
+    // The band for the next group, from the tile-wide minima of the live
+    // words (dead words' state is stale and never read).
+    const int32_t keff = min(k, rb);
+    const bool strong = strong_every > 0 && (g + 1) % strong_every == 0;
+    for (int w = 0; w < whi; ++w) {
+      const int32_t v = __reduce_min_sync(~0u, ssw[w * kTile] - keff);
+      if ((tid & 31) == 0) part[0][warp][w] = v;
+      if (strong && w > 0) {
+        const int32_t mc = __reduce_min_sync(
+            ~0u, min_cells_exact(spv[w * kTile], smv[w * kTile],
+                                 ssw[w * kTile]) - keff);
+        if ((tid & 31) == 0) part[1][warp][w] = mc;
+      }
+    }
+    __syncthreads();
+    if (tid < whi) {
+      int32_t m = part[0][0][tid], mc = part[1][0][tid];
+      for (int i = 1; i < kTileWarps; ++i) {
+        m = min(m, part[0][i][tid]);
+        mc = min(mc, part[1][i][tid]);
+      }
+      mins[0][tid] = m;
+      mins[1][tid] = mc;
+    }
+    __syncthreads();
+    const int32_t mlast = mins[0][whi - 1];
+    const bool grow = mlast <= group;
+    const int grown = min(nw, whi + (grow ? (group - mlast) / 32 + 1 : 0));
+    int keep_hi = 1;
+    for (int w = 1; w < whi; ++w)
+      if (mins[0][w] < 32 + group) keep_hi = w + 1;
+    int raw = grow ? grown : keep_hi;
+    if (strong) {
+      int kh = 1;
+      for (int w = 1; w < whi; ++w)
+        if (mins[1][w] <= group) kh = w + 1;
+      raw = min(raw, max(kh, grow ? grown : 1));
+    }
+    const int whi_new = class_at_least(classes, n_classes, raw);
+    if (whi_new > whi) {
+      // Rejoining words restart on the ramp below the last live word (an
+      // upper bound, edlib.cpp:606-608).
+      const int32_t last_bot = ssw[(whi - 1) * kTile];
+      for (int w = whi; w < whi_new; ++w) {
+        spv[w * kTile] = ~0u;
+        smv[w * kTile] = 0u;
+        ssw[w * kTile] = last_bot + 32 * (w - whi + 1);
+      }
+    }
+    whi = whi_new;
+  }
+  a.best[lane] = rb;
+  a.pfirst[lane] = rpf;
+  a.plast[lane] = rpl;
+  if (live_out && tid == 0) live_out[blockIdx.x] = live;
+}
+
 int blocks_for(int n_lanes) { return (n_lanes + kThreads - 1) / kThreads; }
 
 struct Config {
@@ -841,6 +1126,16 @@ void set_hits(LaneArgs& a, const void* want, void* hits, int n_out) {
   a.want = static_cast<const int32_t*>(want);
   a.hits = static_cast<int32_t*>(hits);
   a.n_out = n_out;
+}
+
+void set_carry(LaneArgs& a, const void* pv0, const void* mv0, const void* s0,
+               void* pv1, void* mv1, void* s1) {
+  a.pv0 = static_cast<const uint32_t*>(pv0);
+  a.mv0 = static_cast<const uint32_t*>(mv0);
+  a.s0 = static_cast<const int32_t*>(s0);
+  a.pv1 = static_cast<uint32_t*>(pv1);
+  a.mv1 = static_cast<uint32_t*>(mv1);
+  a.s1 = static_cast<int32_t*>(s1);
 }
 
 }  // namespace
@@ -1118,20 +1413,58 @@ int myers_capture(int device, const void* peq, int s1, int nw,
 
 // peq, targets, prow, trow as myers_reduce_lanes; every lane sweeps all
 // n_cols columns.  out int32 (n_cols, n_lanes): lane b's score after column
-// c at c * n_lanes + b.
+// c at c * n_lanes + b.  pv0, mv0 uint32 (n_lanes, nw) and sc0 int32
+// (n_lanes,): the carried state to start from (null: a fresh start); pv1,
+// mv1, sc1 the same shapes: the state after the last column (null: not
+// kept).  pv0/mv0/sc0 and pv1/mv1/sc1 are each all null or all set.
 int myers_sweep_scores(int device, const void* peq, int s1, int nw,
                        const void* targets, int n_cols, const void* prow,
                        const void* trow, int n_lanes, int hin0, void* out,
-                       void* scratch, void* stream) {
+                       const void* pv0, const void* mv0, const void* sc0,
+                       void* pv1, void* mv1, void* sc1, void* scratch,
+                       void* stream) {
   if (n_lanes <= 0 || n_cols <= 0) return 0;
-  if (nw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nw < 1 || (pv0 == nullptr) != (mv0 == nullptr) ||
+      (pv0 == nullptr) != (sc0 == nullptr) ||
+      (pv1 == nullptr) != (mv1 == nullptr) ||
+      (pv1 == nullptr) != (sc1 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   LaneArgs a = lane_args(targets, n_cols, nullptr, nullptr, prow, trow,
                          n_lanes, hin0, scratch);
+  set_carry(a, pv0, mv0, sc0, pv1, mv1, sc1);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
   int32_t* o = static_cast<int32_t*>(out);
 #define LAUNCH(N) LANE_LAUNCH(N, sweep_scores_kernel, p, s1, nw, a, o)
+  MYERS_DISPATCH_NW(nw, LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resumable reduce: peq, targets, lo, hi, prow, trow and the reduction
+// outputs as myers_reduce_lanes, but every lane sweeps all n_cols columns
+// of its row (the reduction still covers [lo, hi) only) from the carried
+// state pv0, mv0 uint32 (n_lanes, nw), sc0 int32 (n_lanes,), and writes the
+// state after the last column to pv1, mv1, sc1 (the same shapes).
+int myers_reduce_resume(int device, const void* peq, int s1, int nw,
+                        const void* targets, int n_cols, const void* lo,
+                        const void* hi, const void* prow, const void* trow,
+                        int n_lanes, int hin0, const void* pv0,
+                        const void* mv0, const void* sc0, void* best,
+                        void* pfirst, void* plast, void* last, void* pv1,
+                        void* mv1, void* sc1, void* scratch, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (nw < 1 || !pv0 || !mv0 || !sc0 || !pv1 || !mv1 || !sc1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
+                         scratch);
+  set_reduction(a, best, pfirst, plast, last);
+  set_carry(a, pv0, mv0, sc0, pv1, mv1, sc1);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* p = static_cast<const uint32_t*>(peq);
+#define LAUNCH(N) LANE_LAUNCH(N, reduce_resume_kernel, p, s1, nw, a)
   MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
@@ -1173,6 +1506,37 @@ int myers_hits_eqstream(int device, const void* eq, int nw, int n_cols,
 #define LAUNCH(N) LANE_LAUNCH(N, hits_eqstream_kernel, q, nw, a)
   MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The value-adaptive banded reduce: peq, targets, lo, hi, prow, trow as
+// myers_reduce_lanes, with n_lanes a multiple of 1,024 (each 1,024 lanes
+// share one band; pad lanes take part in its minima); k >= 0 the band's
+// threshold; group columns between band updates; strong_every groups
+// between strong reduces (0: none); classes int32 (n_classes,) the
+// ascending width classes, the last nw; best, pfirst, plast int32
+// (n_lanes,); scratch 3 * nw * n_lanes words; live int64 (n_lanes / 1024,)
+// or null: the word-columns each tile swept.  nw <= 128.
+int myers_hw_adaptive(int device, const void* peq, int s1, int nw,
+                      const void* targets, int n_cols, const void* lo,
+                      const void* hi, const void* prow, const void* trow,
+                      int n_lanes, int k, int hin0, int group,
+                      int strong_every, const void* classes, int n_classes,
+                      void* best, void* pfirst, void* plast, void* live,
+                      void* scratch, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (n_lanes % kTile || nw < 1 || nw > kAdaptiveMaxWords || group < 1 ||
+      k < 0 || strong_every < 0 || n_classes < 1 || n_classes > nw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
+                         scratch);
+  set_reduction(a, best, pfirst, plast, nullptr);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  hw_adaptive_kernel<<<n_lanes / kTile, kTile, 0, st>>>(
+      static_cast<const uint32_t*>(peq), s1, nw, a, k, group, strong_every,
+      static_cast<const int32_t*>(classes), n_classes,
+      static_cast<long long*>(live));
   return static_cast<int>(cudaGetLastError());
 }
 

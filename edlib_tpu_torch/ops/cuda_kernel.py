@@ -2,8 +2,9 @@
 plain PyTorch versions.
 
 Port of the sweeps of edlib_tpu/ops/pallas_kernel.py and
-edlib_tpu/ops/wavefront.py.  Fourteen kernels, in csrc/myers.cu and
-csrc/wavefront.cu (their headers say what bounds them):
+edlib_tpu/ops/wavefront.py.  Sixteen kernels, in csrc/myers.cu and
+csrc/wavefront.cu (their headers say what bounds them), and a carry form of
+one of them:
 
   reduce_lanes     per-lane target rows, Eq from each lane's query profile
                    (pallas_kernel._reduce_kernel, per-lane form; with one
@@ -26,6 +27,14 @@ csrc/wavefront.cu (their headers say what bounds them):
                    the launch (eqstream_gather; _reduce_kernel, eq-stream
                    form), for dense equalities past the per-lane cap;
   hits_eqstream    hits_lanes on the same stream (_hits_kernel, eq-stream);
+  reduce_resume    reduce_lanes over one whole target segment from a
+                   carried (Pv, Mv, score), the exit state written out
+                   (_reduce_kernel, resume form), for the sharded pipelines;
+  sweep_scores_resume  sweep_scores from and to a carried state
+                   (jax_engine.sweep_scores_resumable, which the JAX package
+                   leaves to XLA), for sharded_nw_pipeline;
+  hw_adaptive      the value-adaptive banded HW/SHW reduce, one live word
+                   band a 1,024-lane tile (_hw_adaptive_kernel);
   wavefront        ONE pair, every query word of it (or a fixed word
                    window) an anti-diagonal a step (wavefront._wf_kernel);
   wavefront_banded the same over a window of word slots sliding along the
@@ -67,7 +76,8 @@ _LAUNCHES = {"reduce_lanes": 0, "reduce_bitplane": 0, "sweep_shared": 0,
              "hits_lanes": 0, "hits_bitplane": 0, "nw_banded": 0,
              "shw_banded": 0, "shw_banded_hits": 0, "capture": 0,
              "wavefront": 0, "wavefront_banded": 0, "sweep_scores": 0,
-             "reduce_eqstream": 0, "hits_eqstream": 0}
+             "reduce_eqstream": 0, "hits_eqstream": 0, "reduce_resume": 0,
+             "sweep_scores_resume": 0, "hw_adaptive": 0}
 
 # ---------------------------------------------------------------------------
 # Routing constants and the band schedule, as the JAX package computes them.
@@ -112,6 +122,22 @@ def eqstream_ok(n_pairs: int, n_words: int, t_scan: int, sigma: int) -> bool:
     stream = b_pad * t_scan * n_words * 4 * 2
     onehot = b_pad * t_scan * (sigma + 1) * 2
     return stream + onehot <= cap
+
+
+def adaptive_classes(n_words: int):
+    """The adaptive reduce's live-width classes, ascending and ending at
+    n_words (pallas_kernel.adaptive_classes): fine at the bottom, where
+    mapping spends its steady state, coarse above."""
+    if n_words <= 4:
+        return list(range(1, n_words + 1))
+    cs = [1, 2, 4]
+    step = max(2, n_words // 4)
+    w = 4 + step
+    while w < n_words:
+        cs.append(w)
+        w += step
+    cs.append(n_words)
+    return sorted(set(c for c in cs if c <= n_words))
 
 
 def nw_band_schedule(n_words: int, n_chunks: int, chunk: int,
@@ -276,13 +302,19 @@ def _columns_end(n_cols: int, hi) -> int:
 
 
 def _sweep_plain(eq_at, end: int, n_words: int, n_lanes: int, dev,
-                 hin0: int):
+                 hin0: int, carry=None, exit_state=None):
     """Advance every lane over columns [0, end); eq_at(c) returns the
-    column's Eq words, a list of NW int32 (B,) tensors."""
-    pv = [torch.full((n_lanes,), -1, dtype=_I32, device=dev)] * n_words
-    mv = [torch.zeros(n_lanes, dtype=_I32, device=dev)] * n_words
-    score = torch.full((n_lanes,), n_words * WORD_SIZE, dtype=_I32,
-                       device=dev)
+    column's Eq words, a list of NW int32 (B,) tensors.  carry: (pv (B, NW),
+    mv (B, NW), score (B,)) to start from instead of a fresh start;
+    exit_state: a list that receives the state after the last column."""
+    if carry is None:
+        pv = [torch.full((n_lanes,), -1, dtype=_I32, device=dev)] * n_words
+        mv = [torch.zeros(n_lanes, dtype=_I32, device=dev)] * n_words
+        score = torch.full((n_lanes,), n_words * WORD_SIZE, dtype=_I32,
+                           device=dev)
+    else:
+        pv, mv = list(carry[0].unbind(1)), list(carry[1].unbind(1))
+        score = carry[2]
     zero = torch.zeros(n_lanes, dtype=_I32, device=dev)
     hpos0 = torch.full((n_lanes,), hin0, dtype=_I32, device=dev)
     for c in range(end):
@@ -293,6 +325,8 @@ def _sweep_plain(eq_at, end: int, n_words: int, n_lanes: int, dev,
                                                      hneg, hpos)
         score = score + hpos - hneg
         yield c, score, True
+    if exit_state is not None:
+        exit_state.extend([torch.stack(pv, 1), torch.stack(mv, 1), score])
 
 
 def _sweep_banded_plain(words_at, end: int, n_words: int, n_lanes: int, dev,
@@ -353,10 +387,13 @@ def _hit_words(columns, lo, hi, best, n_cols: int):
     return out
 
 
-def _peq_columns(peq, targets, hi, prow, trow, hin0):
-    """Plain sweep of per-lane profiles over per-lane target rows."""
+def _peq_columns(peq, targets, hi, prow, trow, hin0, carry=None,
+                 exit_state=None):
+    """Plain sweep of per-lane profiles over per-lane target rows: up to
+    the furthest hi, or, resuming from a carry, every column."""
     n_words = peq.shape[2]
-    end = _columns_end(targets.shape[1], hi)
+    end = (targets.shape[1] if carry is not None
+           else _columns_end(targets.shape[1], hi))
     prof = peq[prow.long()]                               # (B, S1, NW)
     tg = targets[trow.long(), :end]                       # (B, end)
     lanes = torch.arange(hi.shape[0], device=hi.device)
@@ -365,7 +402,8 @@ def _peq_columns(peq, targets, hi, prow, trow, hin0):
         words = prof[lanes, tg[:, c].long()]              # (B, NW)
         return [words[:, w] for w in range(n_words)]
 
-    return _sweep_plain(eq_at, end, n_words, hi.shape[0], hi.device, hin0)
+    return _sweep_plain(eq_at, end, n_words, hi.shape[0], hi.device, hin0,
+                        carry, exit_state)
 
 
 def _bitplane_columns(planes, pad, targets, hi, prow, trow, hin0, nb,
@@ -448,6 +486,141 @@ def sweep_scores_plain(peq, targets, prow, trow, hin0: int):
     for c, score, _ in _peq_columns(peq, targets, hi, prow, trow, hin0):
         out[c] = score
     return out.t()
+
+
+def sweep_scores_resume_plain(peq, targets, prow, trow, pv0, mv0, s0,
+                              hin0: int):
+    """Plain version of sweep_scores_resume (same operands and outputs)."""
+    T, n = targets.shape[1], prow.shape[0]
+    out = torch.empty((T, n), dtype=_I32, device=prow.device)
+    hi = torch.full((n,), T, dtype=_I32, device=prow.device)
+    state = []
+    for c, score, _ in _peq_columns(peq, targets, hi, prow, trow, hin0,
+                                    (pv0, mv0, s0), state):
+        out[c] = score
+    return (out.t(),) + tuple(state)
+
+
+def reduce_resume_plain(peq, targets, lo, hi, prow, trow, pv0, mv0, s0,
+                        hin0: int):
+    """Plain version of reduce_resume (same operands and outputs)."""
+    state = []
+    red = _reduction(_peq_columns(peq, targets, hi, prow, trow, hin0,
+                                  (pv0, mv0, s0), state), lo, hi)
+    return red + tuple(state)
+
+
+def _min_cells_exact(pv, mv, bottom):
+    """Exact minimum cell of one word per lane (pallas_kernel.
+    _min_cells_exact): bottom minus the largest suffix sum of the bit
+    deltas from bit 31 down to bit 0, the empty suffix included."""
+    total = torch.zeros_like(bottom)
+    best = torch.zeros_like(bottom)
+    for i in range(WORD_SIZE - 1, -1, -1):
+        total = total + ((pv >> i) & 1) - ((mv >> i) & 1)
+        best = torch.maximum(best, total)
+    return bottom - best
+
+
+def hw_adaptive_plain(peq, targets, lo, hi, prow, trow, k: int, hin0: int,
+                      group: int, strong_every: int, live=None):
+    """Plain version of hw_adaptive (same operands and outputs), every
+    1,024-lane tile with its own band, vectorised over tiles."""
+    n, nw = lo.shape[0], peq.shape[2]
+    dev = lo.device
+    n_tiles = n // _TILE_LANES
+    classes = adaptive_classes(nw)
+
+    def class_at_least(raw):
+        out = torch.full_like(raw, classes[-1])
+        for c in reversed(classes[:-1]):
+            out = torch.where(raw <= c, c, out)
+        return out
+
+    def tile_min(x):
+        return x.view(n_tiles, _TILE_LANES).amin(1)
+
+    def per_lane(x):
+        return x.repeat_interleave(_TILE_LANES)
+
+    T = targets.shape[1]
+    end = int(hi.clamp(max=T).max()) if n else 0
+    tile_end = hi.clamp(max=T).view(n_tiles, _TILE_LANES).amax(1)
+    if live is not None:
+        live.zero_()
+    prof = peq[prow.long()]                               # (n, S1, NW)
+    trows = trow.long()
+    lanes = torch.arange(n, device=dev)
+    pv = [torch.full((n,), -1, dtype=_I32, device=dev)] * nw
+    mv = [torch.zeros(n, dtype=_I32, device=dev)] * nw
+    sw = [torch.full((n,), WORD_SIZE * (w + 1), dtype=_I32, device=dev)
+          for w in range(nw)]
+    best = torch.full((n,), _BIG, dtype=_I32, device=dev)
+    pfirst = torch.full((n,), -1, dtype=_I32, device=dev)
+    plast = pfirst.clone()
+    zero = torch.zeros(n, dtype=_I32, device=dev)
+    hpos0 = torch.full((n,), hin0, dtype=_I32, device=dev)
+    whi = class_at_least(torch.full((n_tiles,), min(max((k + 32) // 32, 1),
+                                                    nw), dtype=_I32,
+                                    device=dev))
+    for g, c0 in enumerate(range(0, end, group)):
+        cw = per_lane(whi)
+        full = cw == nw
+        n_live = int(whi.max())
+        c1 = min(c0 + group, end)
+        if live is not None:
+            live += (whi.long() * (torch.clamp(tile_end, max=c1) - c0)
+                     .clamp(min=0))
+        for c in range(c0, c1):
+            words = prof[lanes, targets[trows, c].long()]     # (n, NW)
+            hneg, hpos = zero, hpos0
+            for w in range(n_live):
+                in_band = cw > w
+                p2, m2, hneg, hpos = _advance_word(pv[w], mv[w],
+                                                   words[:, w], hneg, hpos)
+                pv[w] = torch.where(in_band, p2, pv[w])
+                mv[w] = torch.where(in_band, m2, mv[w])
+                sw[w] = torch.where(in_band, sw[w] + hpos - hneg, sw[w])
+            score = sw[nw - 1]
+            in_win = full & (lo <= c) & (hi > c)
+            upd = (score < best) & in_win
+            pfirst = torch.where(upd, c, pfirst)
+            plast = torch.where((score <= best) & in_win, c, plast)
+            best = torch.where(upd, score, best)
+        if c1 >= end:
+            break
+        # The band for the next group (dead words' stale mins are masked).
+        keff = torch.clamp(best, max=k)
+        m = [tile_min(sw[w] - keff) for w in range(nw)]
+        ms = torch.stack(m)                                   # (NW, tiles)
+        tiles = torch.arange(n_tiles, device=dev)
+        mlast = ms[(whi - 1).long(), tiles]
+        grow = mlast <= group
+        n_grow = torch.where(grow, (group - mlast) // 32 + 1, 0)
+        grown = torch.clamp(whi + n_grow, max=nw)
+        keep_hi = torch.ones_like(whi)
+        for w in range(1, nw):
+            keep_hi = torch.where((w < whi) & (m[w] < 32 + group), w + 1,
+                                  keep_hi)
+        raw = torch.where(grow, grown, keep_hi)
+        if strong_every > 0 and (g + 1) % strong_every == 0:
+            kh = torch.ones_like(whi)
+            for w in range(1, nw):
+                mc = tile_min(_min_cells_exact(pv[w], mv[w], sw[w]) - keff)
+                kh = torch.where((w < whi) & (mc <= group), w + 1, kh)
+            raw = torch.minimum(raw, torch.maximum(
+                kh, torch.where(grow, grown, 1)))
+        whi_new = class_at_least(raw)
+        # Rejoining words restart on the ramp below the last live word.
+        wl, wnl = per_lane(whi), per_lane(whi_new)
+        last_bot = torch.stack(sw)[(wl - 1).long(), lanes]
+        for w in range(1, nw):
+            rejoin = (w >= wl) & (w < wnl)
+            pv[w] = torch.where(rejoin, -1, pv[w])
+            mv[w] = torch.where(rejoin, 0, mv[w])
+            sw[w] = torch.where(rejoin, last_bot + 32 * (w - wl + 1), sw[w])
+        whi = whi_new
+    return best, pfirst, plast
 
 
 def reduce_eqstream_plain(eq_t, lo, hi, hin0: int):
@@ -989,8 +1162,134 @@ def sweep_scores(peq, targets, prow, trow, hin0: int):
     if n and T:
         _launch(name, "myers_sweep_scores", dev.index, peq.data_ptr(), s1, nw,
                 targets.data_ptr(), T, *_ptrs(prow, trow), n, int(hin0),
-                out.data_ptr(), _scratch(nw, n, dev).data_ptr(), _stream(dev))
+                out.data_ptr(), *[None] * 6, _scratch(nw, n, dev).data_ptr(),
+                _stream(dev))
     return out.t()
+
+
+def _check_carry(name, pv0, mv0, s0, n: int, nw: int) -> None:
+    _check(name, pv0, "pv0", 2)
+    _check(name, mv0, "mv0", 2)
+    _check(name, s0, "s0", 1)
+    if (tuple(pv0.shape) != (n, nw) or tuple(mv0.shape) != (n, nw)
+            or s0.shape[0] != n):
+        raise ValueError(f"{name}: carry pv0 {tuple(pv0.shape)}, mv0 "
+                         f"{tuple(mv0.shape)}, s0 {tuple(s0.shape)} do not "
+                         f"match {n} lanes of {nw} words")
+
+
+def _carry_out(n: int, nw: int, dev):
+    return (torch.empty((n, nw), dtype=_I32, device=dev),
+            torch.empty((n, nw), dtype=_I32, device=dev),
+            torch.empty(n, dtype=_I32, device=dev))
+
+
+def sweep_scores_resume(peq, targets, prow, trow, pv0, mv0, s0, hin0: int):
+    """sweep_scores from a carried state (the carry form of the
+    score-stream kernel): operands as sweep_scores plus pv0, mv0 int32
+    (B, NW) and s0 int32 (B,), the state after the column before this
+    segment.  Returns (scores as sweep_scores, pv, mv, score): the state
+    after the last column, so segments chained through it equal one sweep
+    of their concatenation (jax_engine.sweep_scores_resumable)."""
+    name = "sweep_scores_resume"
+    _check(name, peq, "peq", 3)
+    _check(name, targets, "targets", 2)
+    n = _check_lanes(name, dict(prow=prow, trow=trow))
+    _check_carry(name, pv0, mv0, s0, n, peq.shape[2])
+    if not _on_cuda(name, peq, targets, prow, trow, pv0, mv0, s0):
+        return sweep_scores_resume_plain(peq, targets, prow, trow, pv0, mv0,
+                                         s0, hin0)
+    s1, nw = peq.shape[1], peq.shape[2]
+    T = targets.shape[1]
+    dev = peq.device
+    out = torch.empty((T, n), dtype=_I32, device=dev)
+    if not (n and T):
+        return out.t(), pv0.clone(), mv0.clone(), s0.clone()
+    state = _carry_out(n, nw, dev)
+    _launch(name, "myers_sweep_scores", dev.index, peq.data_ptr(), s1, nw,
+            targets.data_ptr(), T, *_ptrs(prow, trow), n, int(hin0),
+            out.data_ptr(), *_ptrs(pv0, mv0, s0, *state),
+            _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return (out.t(),) + state
+
+
+def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int):
+    """The resumable reduce (kernel reduce_resume): every lane sweeps ALL
+    T columns of its target row from the carried state pv0, mv0 int32
+    (B, NW), s0 int32 (B,), and reduces the columns in [lo, hi) as
+    reduce_lanes does (last: the score at hi-1, _BIG when hi-1 is not a
+    column of this segment).  Returns (best, pfirst, plast, last, pv, mv,
+    score), the last three the state after column T-1: segments chained
+    through it equal one sweep of their concatenation.  A fresh start is
+    pv0 = -1 (all ones), mv0 = 0, s0 = NW * 32."""
+    name = "reduce_resume"
+    _check(name, peq, "peq", 3)
+    _check(name, targets, "targets", 2)
+    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
+    _check_carry(name, pv0, mv0, s0, n, peq.shape[2])
+    if not _on_cuda(name, peq, targets, lo, hi, prow, trow, pv0, mv0, s0):
+        return reduce_resume_plain(peq, targets, lo, hi, prow, trow, pv0, mv0,
+                                   s0, hin0)
+    s1, nw = peq.shape[1], peq.shape[2]
+    dev = peq.device
+    out = _lane_outputs(n, dev)
+    state = _carry_out(n, nw, dev)
+    if n == 0:
+        return tuple(out) + state
+    _launch(name, "myers_reduce_resume", dev.index, peq.data_ptr(), s1, nw,
+            targets.data_ptr(), targets.shape[1],
+            *_ptrs(lo, hi, prow, trow), n, int(hin0),
+            *_ptrs(pv0, mv0, s0, *out, *state),
+            _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return tuple(out) + state
+
+
+_ADAPTIVE_MAX_WORDS = 128   # csrc/myers.cu kAdaptiveMaxWords
+
+
+def hw_adaptive(peq, targets, lo, hi, prow, trow, k: int, hin0: int,
+                group: int = 8, strong_every: int = 64, live=None):
+    """The value-adaptive banded reduce (kernel hw_adaptive): operands as
+    reduce_lanes with B a multiple of 1,024.  Each 1,024 lanes (a tile, the
+    TPU kernel's (8, 128)) share one live word band, updated every `group`
+    columns from the tile's minima and, every strong_every groups (0:
+    never), from an exact min-cell strong reduce; k >= 0 is the band's
+    threshold.  Returns (best, pfirst, plast) int32 (B,) over [lo, hi),
+    exact for lanes whose best is <= k, above k otherwise (the TPU kernel's
+    raw outputs, overestimates included).  live: an int64 (B // 1024,)
+    tensor or None; the word-columns each tile swept are written there."""
+    name = "hw_adaptive"
+    _check(name, peq, "peq", 3)
+    _check(name, targets, "targets", 2)
+    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
+    nw = peq.shape[2]
+    if n % _TILE_LANES or k < 0 or group < 1 or strong_every < 0:
+        raise ValueError(f"{name}: lanes {n} (a multiple of {_TILE_LANES}), "
+                         f"k={k} (>= 0), group={group} (>= 1), "
+                         f"strong_every={strong_every} (>= 0)")
+    if live is not None and (live.dtype != torch.int64
+                             or live.shape != (n // _TILE_LANES,)):
+        raise ValueError(f"{name}: live must be int64 ({n // _TILE_LANES},)")
+    if not _on_cuda(name, peq, targets, lo, hi, prow, trow,
+                    *([] if live is None else [live])):
+        return hw_adaptive_plain(peq, targets, lo, hi, prow, trow, k, hin0,
+                                 group, strong_every, live)
+    if nw > _ADAPTIVE_MAX_WORDS:
+        raise ValueError(f"{name}: the kernel takes at most "
+                         f"{_ADAPTIVE_MAX_WORDS} words, got {nw}")
+    dev = peq.device
+    out = _lane_outputs(n, dev, 3)
+    if n == 0:
+        return tuple(out)
+    classes = torch.tensor(adaptive_classes(nw), dtype=_I32, device=dev)
+    scratch = torch.empty(3 * nw * n, dtype=_I32, device=dev)
+    _launch(name, "myers_hw_adaptive", dev.index, peq.data_ptr(),
+            peq.shape[1], nw, targets.data_ptr(), targets.shape[1],
+            *_ptrs(lo, hi, prow, trow), n, int(k), int(hin0), int(group),
+            int(strong_every), classes.data_ptr(), classes.shape[0],
+            *_ptrs(*out), None if live is None else live.data_ptr(),
+            scratch.data_ptr(), _stream(dev))
+    return tuple(out)
 
 
 def _check_stream(name, eq_t) -> None:
@@ -1128,7 +1427,7 @@ def wavefront_banded(t, peq, state, d_base: int, n_steps: int, n_words: int,
 KERNELS = (reduce_lanes, reduce_bitplane, sweep_shared, hits_lanes,
            hits_bitplane, nw_banded, shw_banded, shw_banded_hits, capture,
            wavefront, wavefront_banded, sweep_scores, reduce_eqstream,
-           hits_eqstream)
+           hits_eqstream, reduce_resume, sweep_scores_resume, hw_adaptive)
 
 
 def launch_counts() -> dict:
@@ -1218,16 +1517,34 @@ def sweep_flat_device(peq, targets, hin0: int):
     return sweep_scores(peq, targets, rows, rows, hin0)
 
 
+def _shared_row(target_scan, fill_sym: int, chunk: int):
+    """One shared target (L,) padded with fill_sym to whole chunks, as a
+    single target row (1, Lp)."""
+    L = target_scan.shape[0]
+    tg = target_scan.new_full((1, -(-L // chunk) * chunk), fill_sym)
+    tg[0, :L] = target_scan
+    return tg
+
+
+def reduce_flat_device_shared(peq, target_scan, lo, hi, hin0: int,
+                              fill_sym: int, chunk: int = 256):
+    """pallas_kernel.reduce_flat_device_shared: every lane against the one
+    target_scan (L,), padded with fill_sym to whole chunks; returns (best,
+    pfirst, plast, last) (B,) int32 as reduce_lanes."""
+    B = lo.shape[0]
+    return reduce_lanes(peq, _shared_row(target_scan, fill_sym, chunk), lo,
+                        hi, _identity_rows(B, lo.device),
+                        torch.zeros(B, dtype=_I32, device=lo.device), hin0)
+
+
 def hits_flat_device_shared(peq, target_scan, lo, hi, best, hin0: int,
                             fill_sym: int, chunk: int = 256):
     """pallas_kernel.hits_flat_device_shared: every lane against the one
     target_scan (L,), padded with fill_sym to whole chunks; returns the hit
     words int32 (B, ceil(L/chunk) * chunk / 32)."""
-    L = target_scan.shape[0]
-    tg = target_scan.new_full((-(-L // chunk) * chunk,), fill_sym)
-    tg[:L] = target_scan
     B = lo.shape[0]
-    return hits_lanes(peq, tg[None], lo, hi, _identity_rows(B, lo.device),
+    return hits_lanes(peq, _shared_row(target_scan, fill_sym, chunk), lo, hi,
+                      _identity_rows(B, lo.device),
                       torch.zeros(B, dtype=_I32, device=lo.device), best,
                       hin0)
 
@@ -1260,3 +1577,44 @@ def capture_flat_device(peq, targets, hin0: int, chunk: int = 128,
     (B, Tp, NW) holding the JAX wrapper's uint32 words."""
     return capture(peq, _pad_cols(targets, peq.shape[1] - 1, chunk), hin0,
                    want_h)
+
+
+def reduce_resumable_flat_device(peq, targets, lo, hi, pv0, mv0, s0,
+                                 hin0: int):
+    """pallas_kernel.reduce_resumable_flat_device on flat operands: peq
+    (B, S1, NW), targets (B, T) one row per lane or (T,) one shared row,
+    lo/hi (B,) windows in this segment's columns, the carried state pv0,
+    mv0 (B, NW) and s0 (B,).  Returns (best, pfirst, plast, last, pv, mv,
+    s).  Exactly the segment's T columns are swept, so T need not be a
+    multiple of the TPU wrapper's chunk."""
+    n = lo.shape[0]
+    rows = _identity_rows(n, lo.device)
+    if targets.dim() == 1:
+        targets = targets[None]
+        trow = torch.zeros(n, dtype=_I32, device=lo.device)
+    else:
+        trow = rows
+    return reduce_resume(peq, targets, lo, hi, rows, trow, pv0, mv0, s0,
+                         hin0)
+
+
+def hw_adaptive_padded(peq, targets, lo, hi, prow, trow, k: int, hin0: int,
+                       group: int = 8, strong_every: int = 64):
+    """hw_adaptive on any number of lanes: padded to whole tiles of 1,024
+    as PallasSweeper.pack_peq and pack_lanes pad them (all-ones profiles,
+    lo = hi = 0; the pads take part in their tile's band), outputs for the
+    given lanes only."""
+    n = lo.shape[0]
+    n_pad = -(-n // _TILE_LANES) * _TILE_LANES - n
+    if n_pad:
+        dev = lo.device
+        ones = torch.full((1,) + tuple(peq.shape[1:]), -1, dtype=_I32,
+                          device=dev)
+        peq = torch.cat([peq, ones])
+        zeros = torch.zeros(n_pad, dtype=_I32, device=dev)
+        lo, hi = torch.cat([lo, zeros]), torch.cat([hi, zeros])
+        prow = torch.cat([prow, zeros + (peq.shape[0] - 1)])
+        trow = torch.cat([trow, zeros])
+    out = hw_adaptive(peq, targets, lo, hi, prow, trow, k, hin0, group,
+                      strong_every)
+    return tuple(o[:n] for o in out)

@@ -1,7 +1,7 @@
 """One bucket's sweeps on the card: the port's PallasSweeper.
 
-Counterpart of PallasSweeper's full sweep, two-phase and banded methods
-(edlib_tpu/ops/pallas_kernel.py:2286-2512) on flat tensors.  A bucket is its
+Counterpart of PallasSweeper's full sweep, two-phase, banded and adaptive
+methods (edlib_tpu/ops/pallas_kernel.py:2286-2512) on flat tensors.  A bucket is its
 query profiles (B, S1, NW) and its targets: one row per lane, or, when
 shared, ONE target row that every lane reads (trow = 0).  So the TPU
 kernels' shared forms are the per-lane kernels here, with one target row.
@@ -19,6 +19,9 @@ import torch
 
 from edlib_tpu_torch.encode import WORD_SIZE
 from edlib_tpu_torch.ops import cuda_kernel as ck
+from edlib_tpu_torch.ops.cuda_kernel import adaptive_classes
+
+__all__ = ["Sweeper", "adaptive_classes", "decode_hit_words"]
 
 
 def decode_hit_words(words: torch.Tensor) -> List[np.ndarray]:
@@ -151,3 +154,18 @@ class Sweeper:
         return decode_hit_words(ck.shw_banded_hits(
             peq, tg, woff, lo_t, hi_t, prow, trow, best_t, n_win,
             self.chunk))
+
+    def reduce_hw_adaptive(self, peq, targets, lo, hi, k: int, hin0: int = 0,
+                           group: int = 8, strong_every: int = 64,
+                           shared: bool = False):
+        """Value-adaptive banded semiglobal reduce: (best, pos_first,
+        pos_last) each (B,) int64 in scan-column space
+        (PallasSweeper.reduce_hw_adaptive).  Exact for lanes whose true best
+        is <= k; others get some value above k (the caller ladders k).  Each
+        1,024 lanes share one band, the bucket padded to whole tiles as the
+        TPU kernel pads it; k < 0 is taken as 0."""
+        peq, tg, prow, trow, _ = self._packed(peq, targets, hi, shared)
+        lo_t, hi_t = self._lanes(lo, hi)
+        return tuple(_np64(o) for o in ck.hw_adaptive_padded(
+            peq, tg, lo_t, hi_t, prow, trow, max(0, int(k)), hin0, group,
+            strong_every))

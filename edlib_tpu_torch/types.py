@@ -4,12 +4,13 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 # Status codes (edlib.h:30-31).
 STATUS_OK = 0
+STATUS_ERROR = 1
 
 
 # Edit operations (edlib.h:84-87).
@@ -72,6 +73,37 @@ class CigarFormat(enum.IntEnum):
 
     STANDARD = 0  # M / I / D
     EXTENDED = 1  # = / I / D / X
+
+
+@dataclass(frozen=True)
+class AlignConfig:
+    """Alignment configuration (edlib.h:100-140).
+
+    k: non-negative => edit distance searched only up to k (result -1 beyond);
+       negative => unbounded (auto-adjust, edlib.cpp:199-217).
+    additional_equalities: extra symmetric symbol equivalences, as pairs of
+       single characters / bytes / hashables (edlib.h:126-139).
+    """
+
+    k: int = -1
+    mode: AlignMode = AlignMode.NW
+    task: AlignTask = AlignTask.DISTANCE
+    additional_equalities: Optional[Sequence[Tuple]] = None
+
+
+def new_align_config(k: int = -1,
+                     mode=AlignMode.NW,
+                     task=AlignTask.DISTANCE,
+                     additional_equalities=None) -> AlignConfig:
+    """Parity helper for edlibNewAlignConfig (edlib.cpp:1465-1475)."""
+    return AlignConfig(k=k, mode=AlignMode.parse(mode),
+                       task=AlignTask.parse(task),
+                       additional_equalities=additional_equalities)
+
+
+def default_align_config() -> AlignConfig:
+    """Defaults per edlibDefaultAlignConfig (edlib.cpp:1477-1479)."""
+    return AlignConfig()
 
 
 @dataclass

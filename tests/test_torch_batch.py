@@ -16,6 +16,7 @@ import torch
 
 import edlib_tpu
 import edlib_tpu_torch
+import edlib_tpu_torch.parallel as tpar
 from edlib_tpu import batch as jbatch
 from edlib_tpu import encode as jenc
 from edlib_tpu.align import _filter_locations as jfilter_locations
@@ -297,7 +298,8 @@ def test_align_batch_hashable_fallback_and_edges():
 
 
 def test_unported_routes_raise(rng):
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
+    # mesh= is ported: it takes a parallel.DeviceGrid and nothing else.
+    with pytest.raises(TypeError, match="DeviceGrid"):
         edlib_tpu_torch.align_batch([b"ACG"], b"ACGT", mesh=object(),
                                     device="cpu")
     # sigma+1 > 64 per-lane with a symbol equal to six others: the eq-stream
@@ -320,3 +322,42 @@ def test_device_none_needs_a_card(monkeypatch):
         edlib_tpu_torch.align_batch([b"ACG"], b"ACGT")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         edlib_tpu_torch.align(b"ACG", b"ACGT")
+
+
+def test_public_names_cover_jax():
+    """Every public name of edlib_tpu has its counterpart (AlignConfig,
+    AlignResult, the config helpers and both status codes included)."""
+    assert set(edlib_tpu.__all__) <= set(edlib_tpu_torch.__all__)
+    assert edlib_tpu_torch.STATUS_ERROR == edlib_tpu.STATUS_ERROR
+    assert edlib_tpu_torch.STATUS_OK == edlib_tpu.STATUS_OK
+    got = edlib_tpu_torch.new_align_config(5, "HW", "path", [("a", "b")])
+    want = edlib_tpu.new_align_config(5, "HW", "path", [("a", "b")])
+    assert (got.k, int(got.mode), int(got.task),
+            got.additional_equalities) == (want.k, int(want.mode),
+                                           int(want.task),
+                                           want.additional_equalities)
+    d, w = (edlib_tpu_torch.default_align_config(),
+            edlib_tpu.default_align_config())
+    assert (d.k, int(d.mode), int(d.task)) == (w.k, int(w.mode), int(w.task))
+    assert edlib_tpu_torch.AlignResult().to_dict() == \
+        edlib_tpu.AlignResult().to_dict()
+
+
+@pytest.mark.parametrize("mode", ["NW", "SHW", "HW"])
+def test_align_batch_backend_values_agree(rng, mode):
+    """backend "auto", "jax" and "host" (pair by pair, align on the CPU)
+    give one result, as in the JAX package; with mesh= backend is
+    ignored."""
+    qs, ts = _batch(rng, 4)
+    got = {b: edlib_tpu_torch.align_batch(qs, ts, mode=mode,
+                                          task="locations", backend=b,
+                                          device="cpu")
+           for b in ("auto", "jax", "host")}
+    assert got["auto"] == got["jax"] == got["host"]
+    assert got["host"] == edlib_tpu.align_batch(qs, ts, mode=mode,
+                                                task="locations",
+                                                backend="host")
+    grid = tpar.make_alignment_mesh(devices=["cpu"] * 2)
+    assert edlib_tpu_torch.align_batch(qs, ts, mode=mode, task="locations",
+                                       backend="host", mesh=grid) \
+        == got["auto"]

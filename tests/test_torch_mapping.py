@@ -75,6 +75,26 @@ def test_map_reads_matches_jax(rng, mode):
     _check(reads, target, mode, ks=(-1, 5))
 
 
+@pytest.mark.parametrize("mode", ["HW", "SHW"])
+def test_map_reads_empty_read(rng, mode):
+    """An empty read is (0, -1) for every k, as edlib_tpu.map_reads on its
+    host route and edlib_tpu.align("", t) give it."""
+    target = _target(rng, 300)
+    reads = [b"", b"A", target[10:60], target[100:190]]
+    ref = edlib_tpu.align(b"", target, mode=mode)
+    assert (ref["editDistance"], ref["locations"][0][1]) == (0, -1)
+    for k in (-1, 0, 5):
+        got = edlib_tpu_torch.map_reads(reads, target, mode=mode, k=k,
+                                        device="cpu")
+        want = edlib_tpu.map_reads(reads, target, mode=mode, k=k)
+        assert (got[0][0], got[1][0]) == (0, -1)
+        np.testing.assert_array_equal(got[0], want[0], err_msg=f"k={k}")
+        np.testing.assert_array_equal(got[1], want[1], err_msg=f"k={k}")
+    got = edlib_tpu_torch.map_reads([b"", b""], target, mode=mode,
+                                    device="cpu")
+    assert got[0].tolist() == [0, 0] and got[1].tolist() == [-1, -1]
+
+
 def test_map_reads_edges():
     best, pos = edlib_tpu_torch.map_reads([], b"ACGT", device="cpu")
     assert best.shape == (0,) and pos.shape == (0,)
