@@ -18,7 +18,11 @@ Phases, each of which exits non-zero on any failure:
    random state, two chained segments equal to one reduce_lanes /
    sweep_scores sweep; and hw_adaptive at NW 1, 4 and 32 over two tiles of
    1,024 lanes, with and without the strong reduce (raw outputs and the
-   word-columns each tile swept).
+   word-columns each tile swept); K1 and K2 with forced cores of 1-40
+   columns (the split-lane schedule) at NW 1 and 4, both hin0 (hin0 = 1
+   keeps one core a lane), 300 lanes of ragged spans with the edge lanes
+   (hi = 0, hi - 1 < lo, lo past hi, hi past the row), and at NW 9 (the
+   scratch form, one thread a lane, whatever the forced core).
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -37,7 +41,9 @@ Phases, each of which exits non-zero on any failure:
    and its output held against its plain version's on the same operands,
    over at most the first SHARED_PLAIN_COLS columns.  Beside each: the plain
    version's time over the columns it ran, and the least time the card
-   could take.
+   could take.  Every K1 and K2 call (phase 3's overflow sweep, phase 7's
+   shared row) is also held exactly against the same kernel with one core
+   a lane, and timed so (whole_ms).
 
 7-10. align_batch at full width, one phase per path, each with its launch
    counts zeroed just before and read just after the call, a warm repeat
@@ -797,6 +803,52 @@ def check_adaptive_kernel(rng, dev, ck):
                     list(got) + [live], list(want) + [live_plain])
 
 
+def check_split_kernels(rng, dev, ck):
+    """K1 and K2 with forced small cores (the split-lane schedule) == their
+    plain versions and the schedule's plain emulation: NW 1 and 4, both
+    hin0 (hin0 = 1 must keep one core a lane), 300 lanes of ragged spans
+    with the edge lanes (hi = 0, hi - 1 < lo, lo past hi, hi past the row);
+    and at NW 9, where a forced core leaves the scratch form one thread a
+    lane."""
+    import torch
+    T = 251
+    for nw in (1, 4, 9):
+        for hin0 in (0, 1):
+            whole = ck.split_core(300, T, nw, hin0, core=3) == T
+            if whole != (hin0 == 1 or nw > 8):
+                fail(f"split_core nw={nw} hin0={hin0}: core=3 gives "
+                     f"{ck.split_core(300, T, nw, hin0, core=3)}")
+            peq, targets, lo, hi, prow, trow = lane_operands(
+                rng, dev, n_lanes=300, n_rows=6, T=T, s1=5, nw=nw)
+            hi[1::7] = lo[1::7]                   # empty window
+            lo[2::7] = hi[2::7] + 3               # lo past hi
+            hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
+            lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+            ops = (peq, targets, lo, hi, prow, trow, hin0)
+            want = ck.reduce_lanes_plain(*ops)
+            for core in (1, 2, 5, 17, 40):
+                check_equal(f"reduce_lanes nw={nw} hin0={hin0} core={core}",
+                            ck.reduce_lanes(*ops, core=core), want)
+            check_equal(f"split_reduce_plain nw={nw} hin0={hin0}",
+                        ck.split_reduce_plain(*ops, core=7), want)
+            peq_t = torch.from_numpy(rng.randint(
+                0, 1 << 32, (5, nw, 300), dtype=np.uint64).astype(
+                    np.uint32).view(np.int32)).to(dev)
+            target = torch.cat([targets[0], targets[0]]).contiguous()
+            for col_lo, col_hi in ((0, 2 * T), (17, 390), (300, 3 * T)):
+                want = ck.sweep_shared_plain(peq_t, target, hin0, col_lo,
+                                             col_hi)
+                for core in (1, 6, 40):
+                    check_equal(f"sweep_shared nw={nw} hin0={hin0} "
+                                f"[{col_lo}, {col_hi}) core={core}",
+                                ck.sweep_shared(peq_t, target, hin0, col_lo,
+                                                col_hi, core=core), want)
+                check_equal(f"split_shared_plain nw={nw} hin0={hin0}",
+                            ck.split_shared_plain(peq_t, target, hin0,
+                                                  col_lo, col_hi, core=4),
+                            want)
+
+
 def wavefront_work(ck, name, args):
     """(bytes, ops) one wavefront call needs: 13 operations (OPS_PER_WORD)
     per advanced word-step, the word-steps counted from the call's own
@@ -892,10 +944,10 @@ class Recorder:
 
     def _wrap(self, name, fn):
         @functools.wraps(fn)
-        def call(*args):
+        def call(*args, **kw):
             if self.on:
                 self.calls[name].append(args)
-            return fn(*args)
+            return fn(*args, **kw)
         return call
 
     def take(self):
@@ -1107,6 +1159,29 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def split_vs_whole(ck, name, args, reps):
+    """K1's or K2's split-lane launch on a recorded call's operands held
+    exactly against the same kernel with one core a lane (core = the row
+    length), and the plan and time of both."""
+    import torch
+    kernel = getattr(ck, name)
+    n_cols = args[1].shape[-1]
+    whole = lambda: kernel(*args, core=n_cols)
+    check_equal(f"{name}: the split launch against one core a lane",
+                kernel(*args), whole())
+    if name == "reduce_lanes":
+        peq, targets, lo, hi, _, _, hin0 = args
+        core = ck.split_core(lo.shape[0], n_cols, peq.shape[2], hin0)
+        threads = int(ck.split_cores(lo, hi, n_cols, core)[2].sum())
+    else:
+        peq_t, target, hin0, col_lo, col_hi = args
+        span = ck._shared_span(n_cols, col_lo, col_hi)
+        core = ck.split_core(peq_t.shape[2], span, peq_t.shape[1], hin0)
+        threads = peq_t.shape[2] * -(-span // core)
+    return dict(core=core, threads=threads,
+                whole_ms=time_ms(whole, reps))
+
+
 def measure(ck, name, calls):
     """Kernel time, plain time and bound summed over a path's calls of one
     kernel, the first, middle and last calls' outputs held against their
@@ -1147,12 +1222,17 @@ def measure(ck, name, calls):
         out["bound_ms"] += b
         out["nbytes"] += nbytes
         out["ops"] += ops
-        out["calls"].append(dict(lanes=n, cols=end, nw=nw, ms=ms,
-                                 plain_ms=plain_ms, plain_cols=plain_cols,
-                                 bound_ms=b))
+        call = dict(lanes=n, cols=end, nw=nw, ms=ms, plain_ms=plain_ms,
+                    plain_cols=plain_cols, bound_ms=b)
+        if name in ("reduce_lanes", "sweep_shared"):
+            call.update(split_vs_whole(ck, name, args, reps))
+        out["calls"].append(call)
         log(f"{name} call: {n} lanes x {end} cols (nw {nw}), kernel "
             f"{ms:.3f} ms, plain {plain_ms:.1f} ms over {plain_cols} cols"
-            + (", equal" if i in held else ""))
+            + (", equal" if i in held else "")
+            + (f"; {call['threads']} threads of {call['core']} cols, one "
+               f"core a lane {call['whole_ms']:.3f} ms, equal"
+               if "core" in call else ""))
         torch.cuda.empty_cache()
     out["bound_by"] = bound(out["nbytes"], out["ops"])[1]
     return out
@@ -1699,6 +1779,7 @@ def main(argv=None) -> int:
     check_wavefront_kernels(rng, dev, ck)
     check_resumable_kernels(rng, dev, ck)
     check_adaptive_kernel(rng, dev, ck)
+    check_split_kernels(rng, dev, ck)
     log("kernels equal their plain versions at small shapes")
 
     rec = Recorder(ck)

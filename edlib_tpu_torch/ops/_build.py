@@ -30,15 +30,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of csrc/*.cu: the device index first, the stream last,
 # every pointer and the stream as void*.
 SIGNATURES = {
     "myers_reduce_lanes": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I,
-                           _P, _P, _P, _P, _P, _P],
+                           _P, _L, _I, _I, _P, _P, _P, _P, _P],
     "myers_reduce_bitplane": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P,
                               _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    "myers_sweep_shared": [_I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P,
-                           _P],
+    "myers_sweep_shared": [_I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _P, _P],
     "myers_hits_lanes": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
                          _P, _I, _P, _P],
     "myers_hits_bitplane": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,

@@ -3,20 +3,24 @@
 // the stream arrive as void*, every function returns the cudaError_t of its
 // launch (0 = cudaSuccess) and never synchronises or allocates.
 //
-// Fourteen kernels, one thread per alignment lane (or a block, in the wave
-// form below; a block per 1,024-lane tile for myers_hw_adaptive).  Each
-// replaces a kernel of edlib_tpu/ops/pallas_kernel.py:
+// Fourteen kernels, one thread per alignment lane (one per core of a lane
+// in K1 and K2 at 1-8 words; a block, in the wave form below; a block per
+// 1,024-lane tile for myers_hw_adaptive).  Each replaces a kernel of
+// edlib_tpu/ops/pallas_kernel.py:
 //
 //   myers_reduce_lanes     _reduce_kernel (:434), per-lane form, launched by
 //                          _sweep_reduce_call (:580, pallas_call :605); its
 //                          shared form (shared=True, same call) is this
-//                          kernel with one target row for every lane.
+//                          kernel with one target row for every lane.  At
+//                          1-8 words a thread is one core of a lane (the
+//                          split-lane schedule below).
 //   myers_reduce_bitplane  the bit-plane form of the same kernel
 //                          (_bitplane_tb :407, _bitplane_eq :415), launched by
 //                          _sweep_reduce_bitplane_call (:2013, pallas_call
 //                          :2040).
 //   myers_sweep_shared     _shared_kernel (:249), launched by
-//                          sweep_best_pallas_shared (:325, pallas_call :342).
+//                          sweep_best_pallas_shared (:325, pallas_call :342);
+//                          split-lane at 1-8 words, as myers_reduce_lanes.
 //   myers_hits_lanes       _hits_kernel (:768), per-lane and shared forms,
 //                          launched by _sweep_hits_call (:855, pallas_call
 //                          :874).
@@ -68,17 +72,26 @@
 // symbol (4 B) per lane-column, the Eq words come from a few KB per lane that
 // stay in L1/L2; a hit mask writes one bit per lane-column.
 //
-// What this first design does about it: nothing yet.  Each thread keeps its
-// lane's Pv/Mv words and running reduction in registers (templated on the
-// word count for 1-8 words, on the band window width for 1, 2, 4, 8, 12 and
-// 16 words; other counts keep their state in a global scratch buffer laid
-// out (NW, lanes) so a warp's accesses coalesce, or take the wave form
-// below), loops over the columns itself, and loads each column's symbol and
-// Eq words from memory.  A lane stops at its own window end hi, so padded
-// candidates (hi = 0) cost nothing.  The
-// per-column loads are latency-bound when few lanes are resident (a shared
-// sweep of 32 stragglers runs on one warp); splitting the target across
-// blocks and a register-blocked Eq prefetch are later work.
+// What the designs do about it.  A thread keeps its Pv/Mv words and running
+// reduction in registers (templated on the word count for 1-8 words, on the
+// band window width for 1, 2, 4, 8, 12 and 16 words; other counts keep their
+// state in a global scratch buffer laid out (NW, lanes) so a warp's accesses
+// coalesce, or take the wave form below).  A column is one dependent chain
+// of word updates, so issue is only reached with many threads resident: a
+// launch of a few long lanes is latency-bound.
+//
+// K1 (myers_reduce_lanes) and K2 (myers_sweep_shared) at 1-8 words take the
+// split-lane schedule (see "The split-lane schedule" below): in HW mode a
+// long lane is cut into cores of columns, each core one thread that starts
+// from the fresh state a halo of 2 * 32 * NW columns before its core, so a
+// few long lanes (K2's overflow stragglers, K1's segmented fallback and the
+// shared row) fill the card; each thread streams its target columns through
+// shared memory with cp.async, keeps its block's profile rows in shared
+// memory and loads the next column's Eq words before the current column
+// advances.  Past 8 words, and in the other kernels, each thread sweeps one
+// lane and loads each column's symbol and Eq words from memory on the
+// critical path.  A lane stops at its own window end hi, so padded
+// candidates (hi = 0) cost nothing.
 //
 // The capture kernel is bound by its stores instead: it writes every
 // column's Pv and Mv (and Ph and Mh) words, 8-16 bytes per word-column
@@ -132,6 +145,7 @@
 // the window has reached the bottom word (woff == NW - n_win); a value above
 // the band's k is an overestimate, never below the true one.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -561,6 +575,9 @@ struct LaneArgs {
   int32_t* pfirst;
   int32_t* plast;
   int32_t* last;
+  // K1's reduction as packed keys (first_key, last_key), merged over cores.
+  unsigned long long* key_first;
+  unsigned long long* key_last;
   uint32_t* scratch;       // 2 * nw * n_lanes words for the scratch paths
   int wave;                // per-lane kernels: one lane a block (sweep_wave)
   const int32_t* want;     // hit kernels: the best each lane's mask marks
@@ -599,6 +616,27 @@ __device__ __forceinline__ void store(const LaneArgs& a, int lane,
   a.best[lane] = r.best;
   a.pfirst[lane] = r.pfirst;
   a.plast[lane] = r.plast;
+  a.last[lane] = r.last;
+}
+
+// K1 and K2 merge their cores' reductions with 64-bit atomics on packed
+// keys (scores are >= 0, columns < 2^31): atomicMin over (score << 32 |
+// column) gives best and pfirst, atomicMax over ((kBig - score) << 32 |
+// column) gives plast.  A lane that saw no column keeps (kBig, -1) in both:
+// the wrappers start the keys there and unpack them.
+__device__ __forceinline__ unsigned long long first_key(int32_t score, int c) {
+  return (static_cast<unsigned long long>(static_cast<uint32_t>(score)) << 32) |
+         static_cast<uint32_t>(c);
+}
+
+__device__ __forceinline__ unsigned long long last_key(int32_t score, int c) {
+  return first_key(kBig - score, c);
+}
+
+__device__ __forceinline__ void store_keys(const LaneArgs& a, int lane,
+                                           const Reduction& r) {
+  a.key_first[lane] = first_key(r.best, r.pfirst);
+  a.key_last[lane] = last_key(r.best, r.plast);
   a.last[lane] = r.last;
 }
 
@@ -642,16 +680,18 @@ __device__ __forceinline__ bool lane_owner(const LaneArgs& a) {
   return !a.wave || threadIdx.x == blockDim.x - 1;
 }
 
+// K1 past 8 words: a thread a lane (state in scratch) or the wave form.
 template <int NW>
-__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+__global__ void __launch_bounds__(kWaveThreads)
 reduce_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a) {
+  static_assert(NW == 0, "1-8 words take reduce_split_kernel");
   const int lane = lane_index(a);
   if (lane >= a.n_lanes) return;
   Reduction r{a.lo[lane], a.hi[lane]};
   sweep_lane<NW>(peq_eq(peq, s1, nw, a, lane), nw, a.n_cols, r.hi, a.hin_pos,
                  scratch_pv(a, lane), scratch_mv(a, nw, lane),
                  (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), r);
-  if (lane_owner(a)) store(a, lane, r);
+  if (lane_owner(a)) store_keys(a, lane, r);
 }
 
 template <int NW>
@@ -790,29 +830,315 @@ shw_banded_hits_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
                      scratch_mv(a, band.nw, lane), (size_t)a.n_lanes, h);
 }
 
-// Every lane against one target.  The block stages kChunk symbols at a time in
-// shared memory; Peq is laid out (S1, NW, B) so a warp's 32 lanes read 32
-// consecutive words of the same row.
+// ---------------------------------------------------------------------------
+// The split-lane schedule of K1 (myers_reduce_lanes) and K2
+// (myers_sweep_shared) at 1-8 words.
+//
+// In HW mode (hin = 0) every cell of row i is at most i, so every bottom-row
+// score is at most R = 32 * nw, and an alignment of cost d that ends at
+// column c spans at most R + d <= 2R columns.  A sweep from the fresh state
+// (Pv = ~0, Mv = 0, score = R) at column max(0, s - 2R) therefore gives the
+// exact score at every column c >= s; edlib_tpu/ops/segmented.py makes the
+// same argument across lanes.  So the wrapper (cuda_kernel.split_core) cuts
+// a lane's scanned columns [s, end) into cores of `core` columns, and each
+// (lane, core) pair is one thread: it sweeps from the fresh state at
+// max(0, core start - halo), halo = 2R, and reduces over its core only.
+// The cores merge with atomics on packed keys (first_key, last_key); the
+// core that holds hi - 1 writes last.  A lane with hin = 1 (NW and SHW: the
+// score at a column depends on column 0) is one core swept from column 0.
+// s = max(0, min(lo, end - 1)) and end = min(hi, n_cols), so a lane whose
+// window is empty but whose hi - 1 is a column still sweeps to hi - 1.
+//
+// Threads run core-fastest: with many cores a lane, a warp is 32 cores of
+// one lane, and a few long lanes fill the card.  A thread streams its target
+// columns through its own ring of two kStage-column stages in shared memory
+// with cp.async (one stage in flight while the other is swept), reads Eq
+// from its block's profile rows in shared memory (K1: the block's distinct
+// prow rows; K2: its lanes' slice of the (S1, NW, B) profile; global memory
+// when they do not fit), and loads the next column's Eq words before the
+// current column advances.
+constexpr int kSplitMaxThreads = 128;
+constexpr int kStage = 16;                // columns a cp.async stage brings
+constexpr int kRingWords = 2 * kStage;    // a thread's ring: two stages
+constexpr int kPeqSmemWords = 6144;       // profile words a block may hold
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// This thread's symbols of `count` consecutive columns of one target row,
+// from `first` (the wrapper keeps the operand 16-byte aligned, so the chunk
+// holding `first` starts inside it) up to `limit` (the row's end; bytes past
+// it are zero-filled, never read).  Chunk k (4 symbols) of the stream lands
+// in ring chunk (k % 8) ^ (t & 7), so a quarter warp's 16-byte reads of one
+// chunk hit 32 distinct banks.
+struct SymStream {
+  uint32_t* ring;
+  const char* base;   // the 16-byte chunk holding `first`
+  const char* limit;
+  int skip, n, swz;   // symbols before `first` in chunk 0; skip + count
+
+  __device__ __forceinline__ SymStream(uint32_t* rings, const int32_t* first,
+                                       const int32_t* end, int count) {
+    ring = rings + threadIdx.x * kRingWords;
+    swz = threadIdx.x & 7;
+    const uintptr_t at = reinterpret_cast<uintptr_t>(first);
+    base = reinterpret_cast<const char*>(at & ~uintptr_t(15));
+    skip = static_cast<int>((at & 15) >> 2);
+    n = skip + count;
+    limit = reinterpret_cast<const char*>(end);
+  }
+  __device__ __forceinline__ uint32_t* slot(int s, int q) const {
+    return ring + 4 * ((((s & 1) << 2) | q) ^ swz);
+  }
+  // Stage s (4 chunks) into its half of the ring, as one commit group.
+  __device__ __forceinline__ void issue(int s) const {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 4 * s + q;
+      if (4 * k < n) {
+        const char* src = base + 16 * (size_t)k;
+        const long long left = limit - src;
+        cp_async16(slot(s, q), src, left >= 16 ? 16 : static_cast<int>(left));
+      }
+    }
+    cp_async_commit();
+  }
+};
+
+// Eq word w of symbol sym at base[sym * sym_stride + w * w_stride].
+struct EqRows {
+  const uint32_t* base;
+  int sym_stride, w_stride;
+
+  template <int NW>
+  __device__ __forceinline__ void load(uint32_t (&e)[NW], int32_t sym) const {
+    const uint32_t* r = base + (size_t)sym * sym_stride;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) e[w] = r[(size_t)w * w_stride];
+  }
+};
+
+// Sweep the stream's columns (the first is column c0) from the fresh state,
+// calling v.update(score, c, true) for each.
+template <int NW, class Visit>
+__device__ __forceinline__ void sweep_core(const SymStream& st, EqRows eq,
+                                           uint32_t hin_pos, int c0,
+                                           Visit& v) {
+  uint32_t pv[NW], mv[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    pv[w] = ~0u;
+    mv[w] = 0u;
+  }
+  int32_t score = NW * 32;
+  st.issue(0);
+  st.issue(1);
+  for (int s = 0; s * kStage < st.n; ++s) {
+    cp_async_wait<1>();
+    int32_t sym[kStage];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int4 x = *reinterpret_cast<const int4*>(st.slot(s, q));
+      sym[4 * q] = x.x;
+      sym[4 * q + 1] = x.y;
+      sym[4 * q + 2] = x.z;
+      sym[4 * q + 3] = x.w;
+    }
+    const int i0 = s * kStage;
+    uint32_t e[NW];
+    if (i0 >= st.skip && i0 < st.n) eq.load<NW>(e, sym[0]);
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int i = i0 + j;
+      uint32_t en[NW];
+      if (j + 1 < kStage && i + 1 >= st.skip && i + 1 < st.n)
+        eq.load<NW>(en, sym[j + 1]);
+      if (i >= st.skip && i < st.n) {
+        uint32_t hneg = 0u, hpos = hin_pos;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) advance_word(pv[w], mv[w], e[w], hneg, hpos);
+        score += static_cast<int32_t>(hpos) - static_cast<int32_t>(hneg);
+        v.update(score, c0 + i - st.skip, true);
+      }
+      if (j + 1 < kStage) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w) e[w] = en[w];
+      }
+    }
+    // Every symbol of stage s is used above, so its slots are free again.
+    st.issue(s + 2);
+  }
+  cp_async_wait<0>();
+}
+
+// One core of a lane: columns [c_lo, c_hi) of its scanned span [s, end),
+// and the column its sweep starts from.
+struct Core {
+  int c_lo, c_hi, start;
+
+  __device__ __forceinline__ Core(int lo, int hi, int n_cols, int k, int core,
+                                  int halo, uint32_t hin_pos) {
+    const int end = min(hi, n_cols);
+    const int s = max(0, min(lo, end - 1));
+    c_lo = s + k * core;
+    c_hi = static_cast<int>(min((long long)c_lo + core, (long long)end));
+    start = hin_pos ? 0 : max(0, c_lo - halo);
+  }
+};
+
+// The largest lane l < n with off[l] <= t (off nondecreasing from 0): the
+// lane that owns thread t, lanes without cores skipped.
+__device__ __forceinline__ int lane_of(const int32_t* off, int n, int t) {
+  int lo = 0, hi = n;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (off[mid] <= t) lo = mid;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Inclusive sum of x over the block's threads (every thread must call it).
+__device__ __forceinline__ int block_inclusive_sum(int x, int* warp_sums) {
+  const int l = threadIdx.x & 31, wp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(~0u, x, d);
+    if (l >= d) x += y;
+  }
+  if (l == 31) warp_sums[wp] = x;
+  __syncthreads();
+  for (int i = 0; i < wp; ++i) x += warp_sums[i];
+  return x;
+}
+
+struct SplitArgs {
+  const int32_t* offsets;  // (n_lanes + 1,): a lane's first thread; total
+                           // (K1; null: one core a lane, thread t lane t)
+  int core, halo;
+  int peq_words;           // profile words the block's shared memory holds
+};
+
+// K1, split-lane: thread t is core t - offsets[lane] of its lane.
 template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+reduce_split_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
+                    SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profile rows
+  __shared__ int row_of[kSplitMaxThreads], slot_row[kSplitMaxThreads];
+  __shared__ int warp_sums[kSplitMaxThreads / 32], n_slots;
+  const int T = blockDim.x;
+  const int total = sp.offsets ? sp.offsets[a.n_lanes] : a.n_lanes;
+  const long long t0 = (long long)blockIdx.x * T;
+  if (t0 >= total) return;
+  const int t = static_cast<int>(t0) + threadIdx.x;
+  bool active = t < total;
+  int lane = -1, core = 0;
+  if (active && sp.offsets) {
+    lane = lane_of(sp.offsets, a.n_lanes, t);
+    core = t - sp.offsets[lane];
+  } else if (active) {  // one core a lane: thread t is lane t
+    lane = t;
+    active = min(a.hi[lane], a.n_cols) > 0;
+  }
+  // The block's distinct profile rows: a new slot where a thread's prow
+  // differs from the previous thread's (threads run in lane order).
+  const int row = active ? a.prow[lane] : -1;
+  row_of[threadIdx.x] = row;
+  __syncthreads();
+  const int fresh =
+      active && (threadIdx.x == 0 || row != row_of[threadIdx.x - 1]);
+  const int slot = block_inclusive_sum(fresh, warp_sums) - 1;
+  if (fresh) slot_row[slot] = row;
+  if (threadIdx.x == T - 1) n_slots = slot + 1;
+  __syncthreads();
+  const int rw = s1 * NW;
+  uint32_t* rows = dyn + T * kRingWords;
+  const bool in_smem = n_slots * rw <= sp.peq_words;
+  if (in_smem)
+    for (int i = threadIdx.x; i < n_slots * rw; i += T)
+      rows[i] = peq[(size_t)slot_row[i / rw] * rw + i % rw];
+  __syncthreads();
+  if (!active) return;
+  const EqRows eq{in_smem ? rows + slot * rw : peq + (size_t)row * rw, NW,
+                  1};
+  const int lo = a.lo[lane], hi = a.hi[lane];
+  const Core k(lo, hi, a.n_cols, core, sp.core, sp.halo, a.hin_pos);
+  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
+  const SymStream st(dyn, tg + k.start, tg + a.n_cols, k.c_hi - k.start);
+  Reduction r{max(lo, k.c_lo), hi};
+  sweep_core<NW>(st, eq, a.hin_pos, k.start, r);
+  if (r.pfirst >= 0) {
+    atomicMin(a.key_first + lane, first_key(r.best, r.pfirst));
+    atomicMax(a.key_last + lane, last_key(r.best, r.plast));
+  }
+  if (hi - 1 >= k.c_lo && hi - 1 < k.c_hi) a.last[lane] = r.last;
+}
+
+// K2, split-lane: n_cores cores a lane, thread t is core t % n_cores of lane
+// t / n_cores.
+template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+sweep_shared_split_kernel(const uint32_t* __restrict__ peq, int s1,
+                          int n_lanes, const int32_t* __restrict__ target,
+                          int n_cols, uint32_t hin_pos, int col_lo,
+                          int col_hi, int n_cores, SplitArgs sp,
+                          unsigned long long* key) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profiles
+  const int T = blockDim.x;
+  const long long total = (long long)n_lanes * n_cores;
+  const long long t0 = (long long)blockIdx.x * T;
+  const int first = static_cast<int>(t0 / n_cores);
+  const int nl = static_cast<int>((min(total, t0 + T) - 1) / n_cores) - first + 1;
+  const int rw = s1 * NW;
+  uint32_t* rows = dyn + T * kRingWords;
+  const bool in_smem = nl * rw <= sp.peq_words;
+  if (in_smem)  // lane-fastest reads of (S1, NW, B): coalesced
+    for (int i = threadIdx.x; i < nl * rw; i += T)
+      rows[(i % nl) * rw + i / nl] = peq[(size_t)(i / nl) * n_lanes + first + i % nl];
+  __syncthreads();
+  const long long t = t0 + threadIdx.x;
+  if (t >= total) return;
+  const int lane = static_cast<int>(t / n_cores);
+  const EqRows eq = in_smem ? EqRows{rows + (lane - first) * rw, NW, 1}
+                            : EqRows{peq + lane, NW * n_lanes, n_lanes};
+  const Core k(col_lo, col_hi, n_cols, static_cast<int>(t % n_cores), sp.core,
+               sp.halo, hin_pos);
+  const SymStream st(dyn, target + k.start, target + n_cols, k.c_hi - k.start);
+  Reduction r{max(col_lo, k.c_lo), col_hi};
+  sweep_core<NW>(st, eq, hin_pos, k.start, r);
+  if (r.pfirst >= 0) atomicMin(key + lane, first_key(r.best, r.pfirst));
+}
+
+// K2 past 8 words: every lane against one target, a thread a lane, its
+// state in scratch.  The block stages kChunk symbols at a time in shared
+// memory; Peq is laid out (S1, NW, B) so a warp's 32 lanes read 32
+// consecutive words of the same row.
 __global__ void __launch_bounds__(kThreads)
 sweep_shared_kernel(const uint32_t* __restrict__ peq, int nw, int n_lanes,
                     const int32_t* __restrict__ target, int n_cols,
-                    uint32_t hin_pos, int col_lo, int col_hi, int32_t* best,
-                    int32_t* pos, uint32_t* scratch) {
+                    uint32_t hin_pos, int col_lo, int col_hi,
+                    unsigned long long* key, uint32_t* scratch) {
   __shared__ int32_t stage[kChunk];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = lane < n_lanes;
   const size_t row_stride = (size_t)nw * n_lanes;
-  uint32_t pv[NW > 0 ? NW : 1], mv[NW > 0 ? NW : 1];
   uint32_t* spv = scratch + lane;
   uint32_t* smv = scratch + row_stride + lane;
-  if constexpr (NW > 0) {
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      pv[w] = ~0u;
-      mv[w] = 0u;
-    }
-  } else if (active) {
+  if (active) {
     for (int w = 0; w < nw; ++w) {
       spv[(size_t)w * n_lanes] = ~0u;
       smv[(size_t)w * n_lanes] = 0u;
@@ -829,17 +1155,11 @@ sweep_shared_kernel(const uint32_t* __restrict__ peq, int nw, int n_lanes,
     for (int j = 0; j < n; ++j) {
       const uint32_t* row = peq + (size_t)stage[j] * row_stride + lane;
       uint32_t hneg = 0u, hpos = hin_pos;
-      if constexpr (NW > 0) {
-#pragma unroll
-        for (int w = 0; w < NW; ++w)
-          advance_word(pv[w], mv[w], row[(size_t)w * n_lanes], hneg, hpos);
-      } else {
-        for (int w = 0; w < nw; ++w) {
-          uint32_t p = spv[(size_t)w * n_lanes], m = smv[(size_t)w * n_lanes];
-          advance_word(p, m, row[(size_t)w * n_lanes], hneg, hpos);
-          spv[(size_t)w * n_lanes] = p;
-          smv[(size_t)w * n_lanes] = m;
-        }
+      for (int w = 0; w < nw; ++w) {
+        uint32_t p = spv[(size_t)w * n_lanes], m = smv[(size_t)w * n_lanes];
+        advance_word(p, m, row[(size_t)w * n_lanes], hneg, hpos);
+        spv[(size_t)w * n_lanes] = p;
+        smv[(size_t)w * n_lanes] = m;
       }
       score += static_cast<int32_t>(hpos) - static_cast<int32_t>(hneg);
       const int c = c0 + j;
@@ -849,10 +1169,7 @@ sweep_shared_kernel(const uint32_t* __restrict__ peq, int nw, int n_lanes,
       }
     }
   }
-  if (active) {
-    best[lane] = run_best;
-    pos[lane] = run_pos;
-  }
+  if (active) key[lane] = first_key(run_best, run_pos);
 }
 
 // Column capture: every column's state stored instead of reduced.  Lane b's
@@ -1162,6 +1479,19 @@ void set_carry(LaneArgs& a, const void* pv0, const void* mv0, const void* s0,
     default: LAUNCH(0); break;        \
   }
 
+// The split-lane kernels take 1-8 words.
+#define MYERS_DISPATCH_SPLIT(nw, LAUNCH) \
+  switch (nw) {                          \
+    case 1: LAUNCH(1); break;            \
+    case 2: LAUNCH(2); break;            \
+    case 3: LAUNCH(3); break;            \
+    case 4: LAUNCH(4); break;            \
+    case 5: LAUNCH(5); break;            \
+    case 6: LAUNCH(6); break;            \
+    case 7: LAUNCH(7); break;            \
+    default: LAUNCH(8); break;           \
+  }
+
 // Band windows are 1, 2 or a multiple of 4 words wide
 // (pallas_kernel._WIN_ROUND), or the whole profile: these widths get
 // register-resident windows, any other the scratch path.
@@ -1216,6 +1546,31 @@ int launch_banded(int kind, int device, const void* peq, int s1, int nw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch shape of a split-lane kernel: the largest block (of 32, 64 or
+// kSplitMaxThreads threads) that still gives every SM two blocks, so that a
+// launch of few threads spreads over the SMs; and the profile words its
+// shared memory holds (whole rows of s1 * nw words, at most one a thread).
+struct SplitConfig {
+  unsigned blocks;
+  int threads, peq_words;
+  size_t smem;
+};
+
+SplitConfig split_config(int device, long long n_threads, int max_rows,
+                         int row_words) {
+  int sms = 132;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int t = kSplitMaxThreads;
+  while (t > 32 && n_threads < 2LL * sms * t) t /= 2;
+  const int rows = std::min({t, max_rows, kPeqSmemWords / row_words});
+  SplitConfig c;
+  c.blocks = static_cast<unsigned>((n_threads + t - 1) / t);
+  c.threads = t;
+  c.peq_words = rows * row_words;
+  c.smem = (size_t)(t * kRingWords + c.peq_words) * sizeof(uint32_t);
+  return c;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1223,22 +1578,47 @@ extern "C" {
 // Every entry point takes the CUDA device of its operands first (the
 // library's runtime keeps its own current device) and the stream last.
 //
-// peq uint32 (R_p, s1, nw); targets int32 (R_t, n_cols); lo, hi, prow, trow
-// and the outputs int32 (n_lanes,).
+// peq uint32 (R_p, s1, nw); targets int32 (R_t, n_cols), 16-byte aligned;
+// lo, hi, prow, trow int32 (n_lanes,).  Outputs over scan columns [lo, hi):
+// key_first, key_last uint64 (n_lanes,) (first_key(best, pfirst) and
+// last_key(best, plast), started by the caller at first_key(kBig, -1) and
+// last_key(kBig, -1)) and last int32 (n_lanes,) (the score at hi - 1,
+// started at kBig).  At 1-8 words the split-lane schedule: offsets int32
+// (n_lanes + 1,) each lane's first thread (an exclusive prefix sum of its
+// core count, the total last) or null for one core a lane, n_threads >= the
+// total, core columns a core, halo columns before it (hin0 = 0).  Past 8
+// words offsets, n_threads, core and halo are not read and scratch holds
+// 2 * nw * n_lanes words.
 int myers_reduce_lanes(int device, const void* peq, int s1, int nw,
                        const void* targets, int n_cols, const void* lo,
                        const void* hi, const void* prow, const void* trow,
-                       int n_lanes, int hin0, void* best, void* pfirst,
-                       void* plast, void* last, void* scratch, void* stream) {
+                       int n_lanes, int hin0, const void* offsets,
+                       long long n_threads, int core, int halo,
+                       void* key_first, void* key_last, void* last,
+                       void* scratch, void* stream) {
   if (n_lanes <= 0) return 0;
+  if (nw < 1 || s1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
                          scratch);
-  set_reduction(a, best, pfirst, plast, last);
+  a.key_first = static_cast<unsigned long long*>(key_first);
+  a.key_last = static_cast<unsigned long long*>(key_last);
+  a.last = static_cast<int32_t*>(last);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
-#define LAUNCH(N) LANE_LAUNCH(N, reduce_lanes_kernel, p, s1, nw, a)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
+  if (nw > 8) {
+    LANE_LAUNCH(0, reduce_lanes_kernel, p, s1, nw, a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (n_threads <= 0) return 0;
+  if (core < 1 || halo < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitConfig cfg = split_config(device, n_threads, n_lanes, s1 * nw);
+  const SplitArgs sp{static_cast<const int32_t*>(offsets), core, halo,
+                     cfg.peq_words};
+#define LAUNCH(N)                                                  \
+  reduce_split_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \
+      p, s1, a, sp)
+  MYERS_DISPATCH_SPLIT(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
@@ -1353,25 +1733,43 @@ int myers_shw_banded_hits(int device, const void* peq, int s1, int nw,
                        stream);
 }
 
-// peq uint32 (s1, nw, n_lanes); target int32 (n_cols,); best/pos int32
-// (n_lanes,) over scan columns [col_lo, col_hi).
-int myers_sweep_shared(int device, const void* peq, int nw, int n_lanes,
-                       const void* target, int n_cols, int hin0, int col_lo,
-                       int col_hi, void* best, void* pos, void* scratch,
-                       void* stream) {
+// peq uint32 (s1, nw, n_lanes); target int32 (n_cols,), 16-byte aligned;
+// key uint64 (n_lanes,): first_key(best, pos) over scan columns
+// [col_lo, col_hi), started by the caller at first_key(kBig, -1).  At 1-8
+// words the split-lane schedule, n_cores cores of `core` columns a lane
+// (halo as myers_reduce_lanes); past 8 words scratch holds 2 * nw * n_lanes
+// words.
+int myers_sweep_shared(int device, const void* peq, int s1, int nw,
+                       int n_lanes, const void* target, int n_cols, int hin0,
+                       int col_lo, int col_hi, int n_cores, int core,
+                       int halo, void* key, void* scratch, void* stream) {
   if (n_lanes <= 0) return 0;
+  if (nw < 1 || s1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
   const int32_t* t = static_cast<const int32_t*>(target);
-  int32_t* b = static_cast<int32_t*>(best);
-  int32_t* q = static_cast<int32_t*>(pos);
-  uint32_t* s = static_cast<uint32_t*>(scratch);
+  unsigned long long* k = static_cast<unsigned long long*>(key);
   const uint32_t hp = hin0 ? 1u : 0u;
-#define LAUNCH(N)                                                       \
-  sweep_shared_kernel<N><<<blocks_for(n_lanes), kThreads, 0, st>>>( \
-      p, nw, n_lanes, t, n_cols, hp, col_lo, col_hi, b, q, s)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
+  if (nw > 8) {
+    sweep_shared_kernel<<<blocks_for(n_lanes), kThreads, 0, st>>>(
+        p, nw, n_lanes, t, n_cols, hp, col_lo, col_hi, k,
+        static_cast<uint32_t*>(scratch));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (n_cores <= 0) return 0;
+  if (core < 1 || halo < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_threads = (long long)n_lanes * n_cores;
+  const int t_max = static_cast<int>(
+      std::min<long long>(kSplitMaxThreads, n_threads));
+  const SplitConfig cfg = split_config(
+      device, n_threads,
+      std::min(n_lanes, (t_max + n_cores - 1) / n_cores + 1), s1 * nw);
+  const SplitArgs sp{nullptr, core, halo, cfg.peq_words};
+#define LAUNCH(N)                                                        \
+  sweep_shared_split_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \
+      p, s1, n_lanes, t, n_cols, hp, col_lo, col_hi, n_cores, sp, k)
+  MYERS_DISPATCH_SPLIT(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,7 +43,8 @@ one of them:
 Each wrapper checks its operands, runs the plain version when they lie on
 the CPU, and otherwise launches its kernel on the current stream, raises on
 a CUDA error, and counts the launch (launch_counts()).  A CUDA tensor never
-falls back to the plain version.
+falls back to the plain version.  reduce_lanes and sweep_shared plan their
+launches here (the split-lane schedule: split_core and below).
 
 Layouts follow the JAX package's flat wrappers, (B, S1, NW) profiles and
 (B, T) targets, without its (8, 128) lane tiles.  Bit words travel as int32
@@ -701,6 +702,166 @@ def shw_banded_hits_plain(peq, targets, woff, lo, hi, prow, trow, best,
 
 
 # ---------------------------------------------------------------------------
+# The split-lane schedule of K1 (reduce_lanes) and K2 (sweep_shared) at 1-8
+# words (csrc/myers.cu says why it is exact): in HW mode a lane's scanned
+# columns are cut into cores, each (lane, core) one thread that sweeps from
+# the fresh state split_halo columns before its core and reduces its core;
+# the cores merge by packed keys.  The plan the wrappers hand the kernels,
+# and a plain emulation of the schedule that the tests hold against the JAX
+# package.
+# ---------------------------------------------------------------------------
+
+_FILL_THREADS = 132 * 16 * WORD_SIZE  # (lane, core) threads: 16 warps an SM
+_SPLIT_MAX_WORDS = 8                   # the split kernels' register forms
+# Packed keys (csrc/myers.cu first_key, last_key) of a lane that saw no
+# column: (_BIG, -1) in both.
+_KEY_FIRST_NONE = (_BIG << 32) | 0xFFFFFFFF
+_KEY_LAST_NONE = 0xFFFFFFFF
+
+
+def split_halo(n_words: int) -> int:
+    """Columns a core's sweep starts before its core: 2R, R = 32 * NW.
+    Every HW bottom-row score is <= R, and an alignment of cost d spans at
+    most R + d columns."""
+    return 2 * n_words * WORD_SIZE
+
+
+def split_core(n_lanes: int, cols: int, n_words: int, hin0: int,
+               core=None) -> int:
+    """Columns each (lane, core) thread reduces, for n_lanes lanes of at
+    most `cols` scanned columns: enough cores for _FILL_THREADS threads, but
+    at least 4 halos (so the halo adds at most 25% work); a lane that short
+    stays one thread.  `core` forces it (checks only).  hin0 = 1 (a
+    column's score depends on column 0) and lanes past 8 words keep one
+    core a lane: max(cols, 1)."""
+    if hin0 or n_words > _SPLIT_MAX_WORDS:
+        return max(cols, 1)
+    if core is not None:
+        return max(1, int(core))
+    return max(4 * split_halo(n_words), -(-n_lanes * cols // _FILL_THREADS))
+
+
+def split_cores(lo, hi, n_cols: int, core: int):
+    """(s, end, count) (B,): a lane scans [s, end), end = min(hi,
+    n_cols) and s = max(0, min(lo, end - 1)) (so hi - 1 is scanned where it
+    is a column, also when the window [lo, hi) is empty), in `count` cores
+    of `core` columns."""
+    end = hi.clamp(0, n_cols)
+    s = torch.minimum(lo, end - 1).clamp(min=0)
+    n = (end - s).clamp(min=0).long()
+    return s, end, (n + (core - 1)) // core
+
+
+def split_offsets(counts) -> torch.Tensor:
+    """int32 (B + 1,): each lane's first thread (the exclusive prefix sum of
+    the core counts), the total last."""
+    off = torch.zeros(counts.shape[0] + 1, dtype=_I32, device=counts.device)
+    off[1:] = torch.cumsum(counts, 0)
+    return off
+
+
+def split_core_ranges(lo, hi, n_cols: int, core: int, halo):
+    """Every (lane, core) of the schedule in thread order, int64 (n,) each:
+    its lane, its core [c_lo, c_hi) and the column its sweep starts from
+    (max(0, c_lo - halo); 0 with halo None, for lanes that stay whole)."""
+    s, end, counts = split_cores(lo, hi, n_cols, core)
+    dev = lo.device
+    lane = torch.repeat_interleave(torch.arange(lo.shape[0], device=dev),
+                                   counts.long())
+    k = torch.arange(lane.shape[0], device=dev) - split_offsets(counts)[
+        lane].long()
+    c_lo = s.long()[lane] + k * core
+    c_hi = torch.minimum(c_lo + core, end.long()[lane])
+    start = (torch.zeros_like(c_lo) if halo is None
+             else (c_lo - halo).clamp(min=0))
+    return lane, c_lo, c_hi, start
+
+
+def _new_keys(n: int, count: int, dev) -> torch.Tensor:
+    """int64 (count, n) packed keys of lanes that saw no column: first
+    keys, then (count 2) last keys."""
+    keys = torch.empty((count, n), dtype=torch.int64, device=dev)
+    keys[0] = _KEY_FIRST_NONE
+    if count > 1:
+        keys[1] = _KEY_LAST_NONE
+    return keys
+
+
+def _unpack_keys(keys):
+    """(best, pfirst[, plast]) int32 (n,) from packed keys int64 (count, n):
+    a key's high 32-bit word is the score, its low word the column (all ones
+    where no column was seen: -1).  A little-endian device (x86, ARM, every
+    CUDA card) holds a key as (low, high) int32 words, so one copy splits
+    them."""
+    w = keys.view(_I32).view(keys.shape[0], -1, 2).permute(0, 2, 1)
+    w = w.contiguous()
+    return (w[0, 1], w[0, 0]) + ((w[1, 0],) if keys.shape[0] > 1 else ())
+
+
+def _split_emulate(peq, targets, lo, hi, prow, trow, hin0: int, core: int):
+    n_cols, nw, B = targets.shape[1], peq.shape[2], lo.shape[0]
+    dev = lo.device
+    halo = None if hin0 or nw > _SPLIT_MAX_WORDS else split_halo(nw)
+    lane, c_lo, c_hi, start = split_core_ranges(lo, hi, n_cols, core, halo)
+    keys = _new_keys(B, 2, dev)
+    last = torch.full((B,), _BIG, dtype=_I32, device=dev)
+    n = lane.shape[0]
+    if n:
+        width = int((c_hi - start).max())
+        cols = (start[:, None] + torch.arange(width, device=dev)).clamp(
+            max=n_cols - 1)
+        rows = targets[trow.long()[lane][:, None], cols]
+        best, pf, pl, lst = reduce_lanes_plain(
+            peq, rows, (torch.maximum(lo.long()[lane], c_lo) - start).to(_I32),
+            (c_hi - start).to(_I32), prow[lane],
+            torch.arange(n, dtype=_I32, device=dev), hin0)
+        seen = pf >= 0
+        b = best.long()[seen]
+        keys[0].scatter_reduce_(
+            0, lane[seen], (b << 32) | (pf.long() + start)[seen], "amin")
+        keys[1].scatter_reduce_(
+            0, lane[seen], ((_BIG - b) << 32) | (pl.long() + start)[seen],
+            "amax")
+        h = hi.long()[lane] - 1
+        holds = (h >= c_lo) & (h < c_hi)
+        last[lane[holds]] = lst[holds]
+    return _unpack_keys(keys) + (last,)
+
+
+def split_reduce_plain(peq, targets, lo, hi, prow, trow, hin0: int,
+                       core=None):
+    """reduce_lanes' split-lane schedule in plain PyTorch: every (lane,
+    core) swept by reduce_lanes_plain from the fresh state at its start,
+    reduced over its core, and merged by packed keys as the kernel merges
+    them.  Operands and outputs as reduce_lanes."""
+    c = split_core(lo.shape[0], targets.shape[1], peq.shape[2], hin0, core)
+    return _split_emulate(peq, targets, lo, hi, prow, trow, hin0, c)
+
+
+def _shared_span(n_cols: int, col_lo: int, col_hi: int) -> int:
+    """Columns a sweep_shared lane scans (split_cores for one lane)."""
+    end = max(0, min(n_cols, col_hi))
+    return max(0, end - max(0, min(col_lo, end - 1)))
+
+
+def split_shared_plain(peq_t, target, hin0: int, col_lo: int, col_hi: int,
+                       core=None):
+    """sweep_shared's split-lane schedule in plain PyTorch (operands and
+    outputs as sweep_shared)."""
+    nw, B = peq_t.shape[1], peq_t.shape[2]
+    dev = peq_t.device
+    c = split_core(B, _shared_span(target.shape[0], col_lo, col_hi), nw,
+                   hin0, core)
+    lanes = torch.arange(B, dtype=_I32, device=dev)
+    best, pfirst, _, _ = _split_emulate(
+        peq_t.permute(2, 0, 1).contiguous(), target[None],
+        torch.full((B,), col_lo, dtype=_I32, device=dev),
+        torch.full((B,), col_hi, dtype=_I32, device=dev), lanes,
+        torch.zeros(B, dtype=_I32, device=dev), hin0, c)
+    return best, pfirst
+
+
+# ---------------------------------------------------------------------------
 # The wavefront of one pair.  State int32 (7, NS), one column per word slot
 # in logical order (slot s holds word base + s): [Pv, Mv, hneg, hpos, score,
 # runmin, runpos], the JAX kernels' state planes without the symbol plane
@@ -892,7 +1053,13 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int):
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy where its data is not 16-byte aligned: the split
+    kernels stream targets in 16-byte chunks."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int, *, core=None):
     """Per-lane Myers sweep with in-sweep reduction (kernel K1).
 
     peq: int32 (R_p, S1, NW) profile bit words; targets: int32 (R_t, T)
@@ -900,7 +1067,9 @@ def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int):
     target row trow[i] with profile row prow[i] over scan columns
     [0, min(hi[i], T)) and returns, over columns [lo[i], hi[i]):
     best, pfirst, plast (int32 (B,)) and last, the score at hi[i]-1.
-    hin0: 0 for HW (free leading gap), 1 for SHW/NW."""
+    hin0: 0 for HW (free leading gap), 1 for SHW/NW.  At 1-8 words the
+    kernel runs the split-lane schedule (split_core); `core` forces its
+    core length, for checks only."""
     name = "reduce_lanes"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
@@ -908,15 +1077,24 @@ def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int):
     if not _on_cuda(name, peq, targets, lo, hi, prow, trow):
         return reduce_lanes_plain(peq, targets, lo, hi, prow, trow, hin0)
     s1, nw = peq.shape[1], peq.shape[2]
+    n_cols = targets.shape[1]
     dev = peq.device
-    out = _lane_outputs(n, dev)
-    if n == 0:
-        return tuple(out)
-    _launch(name, "myers_reduce_lanes", dev.index, peq.data_ptr(), s1, nw,
-            targets.data_ptr(), targets.shape[1],
-            *_ptrs(lo, hi, prow, trow), n, int(hin0), *_ptrs(*out),
-            _scratch(nw, n, dev).data_ptr(), _stream(dev))
-    return tuple(out)
+    keys = _new_keys(n, 2, dev)
+    last = torch.full((n,), _BIG, dtype=_I32, device=dev)
+    if n and n_cols:
+        c = split_core(n, n_cols, nw, hin0, core)
+        # Where no lane has two cores, thread i is lane i: no offsets.
+        offsets = (split_offsets(split_cores(lo, hi, n_cols, c)[2])
+                   if c < n_cols and nw <= _SPLIT_MAX_WORDS else None)
+        targets = _aligned(targets)
+        _launch(name, "myers_reduce_lanes", dev.index, peq.data_ptr(), s1,
+                nw, targets.data_ptr(), n_cols,
+                *_ptrs(lo, hi, prow, trow), n, int(hin0),
+                None if offsets is None else offsets.data_ptr(),
+                n * -(-n_cols // c), c, split_halo(nw), keys[0].data_ptr(),
+                keys[1].data_ptr(), last.data_ptr(),
+                _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return _unpack_keys(keys) + (last,)
 
 
 def reduce_bitplane(planes, pad, targets, lo, hi, prow, trow, hin0: int,
@@ -945,28 +1123,33 @@ def reduce_bitplane(planes, pad, targets, lo, hi, prow, trow, hin0: int,
     return tuple(out)
 
 
-def sweep_shared(peq_t, target, hin0: int, col_lo: int, col_hi: int):
+def sweep_shared(peq_t, target, hin0: int, col_lo: int, col_hi: int, *,
+                 core=None):
     """Every lane against one target (kernel K2).
 
     peq_t: int32 (S1, NW, B) profile bit words, lane-minor so a warp reads
     consecutive words; target: int32 (n_cols,) symbols in [0, S1).
     Returns (best, pos) int32 (B,): the minimal score over scan columns
-    [col_lo, col_hi) and the first column reaching it."""
+    [col_lo, col_hi) and the first column reaching it.  At 1-8 words the
+    kernel runs the split-lane schedule; `core` as reduce_lanes."""
     name = "sweep_shared"
     _check(name, peq_t, "peq_t", 3)
     _check(name, target, "target", 1)
     if not _on_cuda(name, peq_t, target):
         return sweep_shared_plain(peq_t, target, hin0, col_lo, col_hi)
-    nw, n = peq_t.shape[1], peq_t.shape[2]
+    s1, nw, n = peq_t.shape
     dev = peq_t.device
-    best, pos = _lane_outputs(n, dev, 2)
-    if n == 0:
-        return best, pos
-    _launch(name, "myers_sweep_shared", dev.index, peq_t.data_ptr(), nw, n,
-            target.data_ptr(), target.shape[0], int(hin0), int(col_lo),
-            int(col_hi), best.data_ptr(), pos.data_ptr(),
-            _scratch(nw, n, dev).data_ptr(), _stream(dev))
-    return best, pos
+    keys = _new_keys(n, 1, dev)
+    span = _shared_span(target.shape[0], col_lo, col_hi)
+    if n and span:
+        c = split_core(n, span, nw, hin0, core)
+        target = _aligned(target)
+        _launch(name, "myers_sweep_shared", dev.index, peq_t.data_ptr(), s1,
+                nw, n, target.data_ptr(), target.shape[0],
+                int(hin0), int(col_lo), int(col_hi), -(-span // c), c,
+                split_halo(nw), keys.data_ptr(),
+                _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return _unpack_keys(keys)
 
 
 def hits_lanes(peq, targets, lo, hi, prow, trow, best, hin0: int):
