@@ -22,7 +22,12 @@ Phases, each of which exits non-zero on any failure:
    columns (the split-lane schedule) at NW 1 and 4, both hin0 (hin0 = 1
    keeps one core a lane), 300 lanes of ragged spans with the edge lanes
    (hi = 0, hi - 1 < lo, lo past hi, hi past the row), and at NW 9 (the
-   scratch form, one thread a lane, whatever the forced core).
+   scratch form, one thread a lane, whatever the forced core); K3 likewise
+   at NW 1, 4, 8 and 9, sigma 100 and 300, one and two alternatives, rows
+   sorted and random (its profile expansion and staged planes), and four
+   alternatives at sigma 300 (the planes past the block's budget); and the banded wavefront's tile schedule on segments of ragged
+   starts and lengths at 128, 1,024, 2,048 and 4,096 slots (a capped
+   window, a tracked range), its plain emulation beside the 128-slot ones.
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -75,11 +80,18 @@ Phases, each of which exits non-zero on any failure:
    version on its phase's operands, over at most SHARED_PLAIN_COLS columns
    (and PLAIN_WORD_COLS word-columns) of at most the first, middle and last
    calls of a path; each wavefront kernel of phases 14-17 timed over every
-   call of its path and held against its plain version over WF_PLAIN_STEPS
-   steps of the first, middle and last calls.
+   call of its path (its microseconds a step; the banded one also by launch
+   form, with its tile width) and held against its plain version over
+   WF_PLAIN_STEPS steps of the first, middle and last calls (the banded one
+   over as many steps as keep the call's launch form, at least the tiles'
+   6,144, and it fails where the form differs).  K1's, K3's and
+   K2's calls also give their core length, threads and the time with one
+   core a lane (whole_ms); K3's calls also a traced batch (its kernels'
+   device time a call and the device's idle share).
 14-17. Long single pairs through nw_distance_long, shw_best_long,
-   semiglobal_locations_long and align, each with its launch counts and a
-   warm repeat that must agree:
+   semiglobal_locations_long and align, each with its launch counts, a
+   warm repeat that must agree, and its k ladder rung by rung (k, banded
+   and tail steps, whether the band died, whether the rung answered):
    14. NW: a random 1,000,000-bp target and its copy with 3% edits;
       nw_distance_long and align (distance, locations) on the banded
       wavefront (nw_banded must not run), equal to the unbanded wavefront,
@@ -221,7 +233,8 @@ ADAPT_READS, ADAPT_QLEN, ADAPT_TLEN = 8_192, 1_000, 100_000
 ADAPT_KS = (8, 16, 32, 64)
 # The wavefront kernels' plain versions run one torch step per wavefront
 # step: a full-width call is held over WF_PLAIN_STEPS steps of its first,
-# middle and last segments.
+# middle and last segments (wavefront_banded over enough steps to run the
+# launch form the path's segment ran).
 WF_PLAIN_STEPS = 1024
 KERNEL_SOURCE = {"wavefront": "edlib_tpu_torch/ops/csrc/wavefront.cu",
                  "wavefront_banded": "edlib_tpu_torch/ops/csrc/wavefront.cu"}
@@ -660,6 +673,15 @@ def hit_targets(rng, reduced):
     return best.contiguous()
 
 
+def wavefront_operands(rng, dev, n_words, t_scan):
+    """Random scan symbols in [0, 5) and (5, n_words) profile bit words."""
+    import torch
+    t = torch.from_numpy(rng.randint(0, 5, t_scan).astype(np.int32))
+    words = rng.randint(0, 1 << 32, (5, n_words), dtype=np.uint64)
+    peq = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    return t.to(dev), peq.to(dev)
+
+
 def check_wavefront_kernels(rng, dev, ck):
     """Both wavefront kernels == their plain versions at small shapes, two
     chained segments (the second ragged), in each launch form: one block of
@@ -667,14 +689,8 @@ def check_wavefront_kernels(rng, dev, ck):
     the cooperative grid; hin0 0 and 1, the stream on and off, a column
     range, a pinned window (word0 > 0), and banded windows that slide, up
     to their cap in one case."""
-    import torch
     from edlib_tpu_torch.ops.wavefront import initial_state
-
-    def operands(n_words, t_scan):
-        t = torch.from_numpy(rng.randint(0, 5, t_scan).astype(np.int32))
-        words = rng.randint(0, 1 << 32, (5, n_words), dtype=np.uint64)
-        peq = torch.from_numpy(words.astype(np.uint32).view(np.int32))
-        return t.to(dev), peq.to(dev)
+    operands = functools.partial(wavefront_operands, rng, dev)
 
     for ns, n_words, word0 in ((1024, 100, 0), (1024, 900, 40),
                                (2048, 2000, 0), (6144, 6000, 0)):
@@ -708,6 +724,42 @@ def check_wavefront_kernels(rng, dev, ck):
             want = ck.wavefront_banded_plain(t, peq, want, *args)
             check_equal(f"wavefront_banded ns={ns} words={n_words} lo={lo} "
                         f"cols={cols} from step {d}", [got], [want])
+
+
+def check_wavefront_tiles(rng, dev, ck):
+    """The banded entry's tile schedule (segments of at least 6,144 steps,
+    up to 4,096 slots) == the plain version: segments that start and end
+    mid-tile (d_base and n_steps not multiples of 32), slides inside tiles,
+    a tracked range cut by tile edges, windows that reach their cap, and
+    windows of 128, 1,024, 2,048 and 4,096 slots; the schedule's plain
+    emulation beside the first 128-slot segment."""
+    from edlib_tpu_torch.ops.wavefront import initial_state
+    operands = functools.partial(wavefront_operands, rng, dev)
+
+    for ns, n_words, lo, cols, segs in (
+            (128, 160, -10, (0, 0), ((7, 6161), (6168, 6250))),
+            (128, 300, -40, (37, 6001), ((0, 6613), (6613, 6150))),
+            (1024, 1200, -300, (0, 0), ((331, 6150), (6481, 6200))),
+            (2048, 2500, -500, (40, 7900), ((531, 6145), (6676, 6177))),
+            (4096, 4500, -100, (5, 8000), ((131, 6300), (6431, 6211)))):
+        t_scan = 9000
+        t, peq = operands(n_words, t_scan)
+        got = want = initial_state(ns, dev)
+        for d, n in segs:
+            if ck.wavefront_banded_form(ns, n) != "tiles":
+                fail(f"wavefront_banded ns={ns} n_steps={n} does not take "
+                     "the tiles")
+            args = (d, n, n_words, t_scan, lo, *cols)
+            before = got
+            got = ck.wavefront_banded(t, peq, got, *args)
+            want = ck.wavefront_banded_plain(t, peq, want, *args)
+            check_equal(f"wavefront_banded tiles ns={ns} words={n_words} "
+                        f"lo={lo} cols={cols} from step {d} ({n} steps)",
+                        [got], [want])
+            if (ns, d) == (128, 7):
+                check_equal("wavefront_banded_tiles_plain ns=128 from step 7",
+                            [ck.wavefront_banded_tiles_plain(
+                                t, peq, before, *args)], [want])
 
 
 def check_resumable_kernels(rng, dev, ck):
@@ -804,12 +856,13 @@ def check_adaptive_kernel(rng, dev, ck):
 
 
 def check_split_kernels(rng, dev, ck):
-    """K1 and K2 with forced small cores (the split-lane schedule) == their
-    plain versions and the schedule's plain emulation: NW 1 and 4, both
-    hin0 (hin0 = 1 must keep one core a lane), 300 lanes of ragged spans
-    with the edge lanes (hi = 0, hi - 1 < lo, lo past hi, hi past the row);
-    and at NW 9, where a forced core leaves the scratch form one thread a
-    lane."""
+    """K1, K3 and K2 with forced small cores (the split-lane schedule) ==
+    their plain versions and the schedule's plain emulation: NW 1 and 4,
+    both hin0 (hin0 = 1 must keep one core a lane), 300 lanes of ragged
+    spans with the edge lanes (hi = 0, hi - 1 < lo, lo past hi, hi past the
+    row), K3 with one and two alternatives and the wildcard in the
+    targets; and at NW 9, where a forced core leaves the scratch form one
+    thread a lane."""
     import torch
     T = 251
     for nw in (1, 4, 9):
@@ -847,6 +900,54 @@ def check_split_kernels(rng, dev, ck):
                             ck.split_shared_plain(peq_t, target, hin0,
                                                   col_lo, col_hi, core=4),
                             want)
+
+
+def check_bitplane_split(rng, dev, ck):
+    """K3 with forced small cores == its plain version: NW 1, 4, 8 and 9
+    (9: one thread a lane), both hin0, 300 lanes with the edge lanes over
+    40 reads' bit planes, prow sorted
+    (the main path's order: few rows a block, the profiles expanded in
+    shared memory) and random (many rows a block: the planes staged), one
+    and two alternatives, targets holding the wildcard and the symbol past
+    it; and sigma = 300 at 8 words (nb = 9: profiles too large to expand,
+    Eq from the staged planes), also with four alternatives (planes past
+    the block's shared-memory budget even at 32 threads)."""
+    import torch
+    T = 131
+    for sigma, nw in ((100, 1), (100, 4), (100, 8), (100, 9), (300, 8)):
+        nb = ck.bitplane_nb(sigma)
+        q = torch.from_numpy(rng.randint(0, sigma, (40, nw * 32))
+                             .astype(np.int32)).to(dev)
+        qlens = torch.from_numpy(rng.randint(1, nw * 32 + 1, 40)
+                                 .astype(np.int32)).to(dev)
+        q_alts, pad = ck.bitplane_identity_operands(q, qlens, sigma, nw)
+        alt = torch.from_numpy(np.where(
+            rng.rand(*q_alts.shape) < 0.3, rng.randint(0, sigma, q_alts.shape),
+            (1 << nb) - 1).astype(np.int32)).to(dev)
+        _, targets, lo, hi, prow, trow = lane_operands(
+            rng, dev, n_lanes=300, n_rows=40, T=T, s1=sigma + 2, nw=1)
+        hi[1::7] = lo[1::7]                   # empty window
+        lo[2::7] = hi[2::7] + 3               # lo past hi
+        hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
+        lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+        hi[5::7] = 0
+        for hin0 in (0, 1):
+            alts = [(1, q_alts), (2, torch.cat([q_alts, alt], 1))]
+            if sigma == 300:
+                alts.append((4, torch.cat([q_alts, alt, alt.flip(0),
+                                           alt.roll(1, 0)], 1)))
+            for n_alts, qa in alts:
+                planes = ck.bitplane_planes(qa.contiguous(), nb)
+                for order, rows in (("sorted", torch.sort(prow)[0]),
+                                    ("random", prow)):
+                    bp = (planes, pad, targets, lo, hi, rows.contiguous(),
+                          trow, hin0, nb, n_alts, sigma)
+                    want = ck.reduce_bitplane_plain(*bp)
+                    tag = (f"sigma={sigma} nw={nw} hin0={hin0} "
+                           f"alts={n_alts} rows {order}")
+                    for core in (None, 1, 7, 40):
+                        check_equal(f"reduce_bitplane {tag} core={core}",
+                                    ck.reduce_bitplane(*bp, core=core), want)
 
 
 def wavefront_work(ck, name, args):
@@ -896,10 +997,21 @@ def measure_wavefront(ck, name, calls):
         nb, op = wavefront_work(ck, name, a)
         nbytes, ops = nbytes + nb, ops + op
         b_ms += bound(nb, op)[0]
-    err, plain_ms, plain_steps = 0.0, 0.0, 0
+    err, plain_ms, plain_steps, forms_held = 0.0, 0.0, 0, []
+    # wavefront_banded is held over enough steps that the held call runs
+    # the launch form the path's call ran (cuda_kernel.wavefront_banded_form).
+    held_steps = (max(WF_PLAIN_STEPS, ck._WF_TILES_MIN_STEPS)
+                  if name == "wavefront_banded" else WF_PLAIN_STEPS)
     for i in sorted({0, len(calls) // 2, len(calls) - 1}):
         a = list(calls[i])
-        a[4] = min(a[4], WF_PLAIN_STEPS)
+        a[4] = min(a[4], held_steps)
+        if name == "wavefront_banded":
+            ns, form = a[2].shape[1], ck.wavefront_banded_form(
+                a[2].shape[1], calls[i][4])
+            if ck.wavefront_banded_form(ns, a[4]) != form:
+                fail(f"{name}: the held call {i} ({a[4]} steps) runs another "
+                     f"form than the path's ({calls[i][4]} steps, {form})")
+            forms_held.append(form)
         got = kernel(*a)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -910,19 +1022,57 @@ def measure_wavefront(ck, name, calls):
         if isinstance(got, torch.Tensor):
             got, want = (got, None), (want, None)
         err = max(err, check_equal(
-            f"{name} on main-path operands (call {i}, step {a[3]})",
+            f"{name} on main-path operands (call {i}, step {a[3]}, "
+            f"{a[4]} steps)",
             [x for x in got if x is not None],
             [x for x in want if x is not None]))
     steps = sum(a[4] for a in calls)
     ns = calls[0][2].shape[1]
+    summary = dict(segments=len(calls), slots=ns, cols=steps, ms=ms,
+                   us_per_step=ms * 1e3 / max(steps, 1), plain_ms=plain_ms,
+                   plain_cols=plain_steps, bound_ms=b_ms)
+    if forms_held:
+        summary["plain_forms"] = forms_held
+    if name == "wavefront_banded":
+        # The segments each form ran (cuda_kernel.wavefront_banded_form),
+        # the tile width, and each form's time on its own segments.
+        forms = {}
+        for a in calls:
+            forms.setdefault(ck.wavefront_banded_form(a[2].shape[1], a[4]),
+                             []).append(a)
+        summary.update(tile_cols=ck.WF_TILE, forms={
+            f: dict(segments=len(c), steps=sum(a[4] for a in c),
+                    ms=time_ms(lambda c=c: [kernel(*a) for a in c], 1))
+            for f, c in forms.items()})
     log(f"{name}: {len(calls)} calls, {steps} steps over {ns} slots, kernel "
-        f"{ms:.3f} ms (bound {b_ms:.3f} ms), plain {plain_ms:.1f} ms over "
-        f"{plain_steps} steps, equal")
+        f"{ms:.3f} ms ({summary['us_per_step']:.4f} us a step; bound "
+        f"{b_ms:.3f} ms), plain {plain_ms:.1f} ms over {plain_steps} steps"
+        + (f" of forms {forms_held}" if forms_held else "") + ", equal" + (f"; forms {summary['forms']}" if "forms" in summary
+                    else ""))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, nbytes=nbytes,
                 ops=ops, max_abs_err=err, bound_by=bound(nbytes, ops)[1],
-                calls=[dict(segments=len(calls), slots=ns, cols=steps, ms=ms,
-                            plain_ms=plain_ms, plain_cols=plain_steps,
-                            bound_ms=b_ms)])
+                calls=[summary])
+
+
+def banded_form_crossover(ck, call):
+    """wavefront_banded's two launch forms timed against each other on one
+    recorded call's operands (a fresh window of 1,024 and of 4,096 slots
+    at the call's step), for segments of 2,048 to 16,384 steps: where the
+    tiles overtake a step a barrier (cuda_kernel.wavefront_banded_form)."""
+    from edlib_tpu_torch.ops.wavefront import initial_state
+    t, peq, state, d0, _, n_words, t_scan, lo = call[:8]
+    out = []
+    for ns in (1024, 4096):
+        fresh = initial_state(ns, state.device)
+        for n in (2048, 4096, 8192, 16384):
+            row = dict(slots=ns, steps=n, rule=ck.wavefront_banded_form(ns, n))
+            for form in ("tiles", "steps"):
+                row[f"{form}_ms"] = time_ms(lambda: ck.wavefront_banded(
+                    t, peq, fresh, d0, n, n_words, t_scan, lo, 0, 0,
+                    form=form), 3)
+            out.append(row)
+    log(f"wavefront_banded form crossover: {out}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1029,10 +1179,12 @@ def lane_call_cost(words_per_row, targets, hi, prow, trow, n_vecs, ops_col,
 def call_plan(ck, name, args):
     """(bytes, ops, lanes, cols, words, plain args, plain cols) of one
     recorded call.  Operations per lane-column: 13 per advanced word
-    (OPS_PER_WORD), plus for the bit-plane Eq one 3-input op per plane and
-    alternative and the OR into the word, and per column two per plane for
-    the symbol's bit masks and two for the wildcard test; plus
-    OPS_PER_COLUMN for the score and the reduction or hit mask.  A call's
+    (OPS_PER_WORD), plus OPS_PER_COLUMN for the score and the reduction or
+    hit mask.  The bit-plane Eq is built once per profile row a lane reads,
+    as a 2^nb-symbol profile (the least work: the columns then read Eq as
+    K1 does): NW words a symbol, each one 3-input op per plane and
+    alternative, the OR into the word per alternative and the OR of pad
+    and wildcard, n_alts * (nb + 1) + 1 operations.  A call's
     plain version runs over at most its first SHARED_PLAIN_COLS columns
     and PLAIN_WORD_COLS word-columns (the kernel is held on the same
     prefix).  The score stream writes every lane-column's score; the
@@ -1125,11 +1277,14 @@ def call_plan(ck, name, args):
     targets, hi = a["targets"], a["hi"]
     n = hi.shape[0]
     end = min(targets.shape[1], int(hi.max())) if n else 0
+    expand_ops = 0
     if "planes" in a:
         nw, nb, n_alts = a["pad"].shape[1], a["nb"], a["n_alts"]
         words = a["planes"].shape[1] + nw
-        ops_col = (nw * (OPS_PER_WORD + n_alts * (nb + 1)) + 2 * nb + 2
-                   + OPS_PER_COLUMN)
+        ops_col = nw * OPS_PER_WORD + OPS_PER_COLUMN
+        read = a["prow"][hi.long().clamp(0, targets.shape[1]) > 0]
+        expand_ops = (int(torch.unique(read).numel()) * (1 << nb) * nw
+                      * (n_alts * (nb + 1) + 1))
     else:
         nw = a["n_win"] if "n_win" in a else a["peq"].shape[2]
         words = a["peq"].shape[1] * a["peq"].shape[2]
@@ -1150,7 +1305,7 @@ def call_plan(ck, name, args):
     n_vecs = sum(k in a for k in ("lo", "hi", "prow", "trow", "best"))
     nbytes, ops = lane_call_cost(words, targets, hi, a["prow"], a["trow"],
                                  n_vecs, ops_col, out_bytes)
-    return nbytes, ops, n, end, nw, checked, plain_cols
+    return nbytes, ops + expand_ops, n, end, nw, checked, plain_cols
 
 
 def bound(nbytes, ops):
@@ -1160,18 +1315,23 @@ def bound(nbytes, ops):
 
 
 def split_vs_whole(ck, name, args, reps):
-    """K1's or K2's split-lane launch on a recorded call's operands held
-    exactly against the same kernel with one core a lane (core = the row
-    length), and the plan and time of both."""
+    """K1's, K3's or K2's split-lane launch on a recorded call's operands
+    held exactly against the same kernel with one core a lane (core = the
+    row length), and the plan and time of both."""
     import torch
     kernel = getattr(ck, name)
-    n_cols = args[1].shape[-1]
+    n_cols = args[2 if name == "reduce_bitplane" else 1].shape[-1]
     whole = lambda: kernel(*args, core=n_cols)
     check_equal(f"{name}: the split launch against one core a lane",
                 kernel(*args), whole())
-    if name == "reduce_lanes":
-        peq, targets, lo, hi, _, _, hin0 = args
-        core = ck.split_core(lo.shape[0], n_cols, peq.shape[2], hin0)
+    if name in ("reduce_lanes", "reduce_bitplane"):
+        if name == "reduce_lanes":
+            peq, targets, lo, hi, _, _, hin0 = args
+            nw = peq.shape[2]
+        else:
+            _, pad, targets, lo, hi, _, _, hin0 = args[:8]
+            nw = pad.shape[1]
+        core = ck.split_core(lo.shape[0], n_cols, nw, hin0)
         threads = int(ck.split_cores(lo, hi, n_cols, core)[2].sum())
     else:
         peq_t, target, hin0, col_lo, col_hi = args
@@ -1201,6 +1361,16 @@ def measure(ck, name, calls):
         _, first_s = timed(lambda: kernel(*args))
         reps = 1 if first_s > 0.5 else 3 if end * n > 1e8 else 10
         ms = time_ms(lambda: kernel(*args), reps, warm=False)
+        traced = None
+        if name == "reduce_bitplane":
+            # K3's calls can be shorter than its wrapper's host work, which
+            # the event time then includes: a second batch, traced, gives
+            # the kernels' own device time and the device's idle share (not
+            # its event time: the profiler slows the host further).
+            trace = profile_call(lambda: [kernel(*args) for _ in range(reps)],
+                                 top=4, groups={"kernel": name})
+            traced = dict(device_ms=trace["kernel_device_ms"] / reps,
+                          idle_share=trace["device_idle_share"])
         plain_ms = 0.0
         if i not in held:
             plain_cols = 0
@@ -1224,12 +1394,16 @@ def measure(ck, name, calls):
         out["ops"] += ops
         call = dict(lanes=n, cols=end, nw=nw, ms=ms, plain_ms=plain_ms,
                     plain_cols=plain_cols, bound_ms=b)
-        if name in ("reduce_lanes", "sweep_shared"):
+        if traced:
+            call["traced"] = traced
+        if name in ("reduce_lanes", "reduce_bitplane", "sweep_shared"):
             call.update(split_vs_whole(ck, name, args, reps))
         out["calls"].append(call)
         log(f"{name} call: {n} lanes x {end} cols (nw {nw}), kernel "
             f"{ms:.3f} ms, plain {plain_ms:.1f} ms over {plain_cols} cols"
             + (", equal" if i in held else "")
+            + (f" (traced: device {traced['device_ms']:.3f} ms a call, "
+               f"idle {traced['idle_share']:.3f})" if traced else "")
             + (f"; {call['threads']} threads of {call['core']} cols, one "
                f"core a lane {call['whole_ms']:.3f} ms, equal"
                if "core" in call else ""))
@@ -1362,19 +1536,30 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
     import torch
     from edlib_tpu_torch.align import _filter_locations
     from edlib_tpu_torch.encode import transform_sequences
-    from edlib_tpu_torch.ops.wavefront import Wavefront
+    from edlib_tpu_torch.ops.wavefront import Wavefront, take_rungs
     from edlib_tpu_torch.path import hirschberg as thb
     summary, calls = {}, {}
 
     def phase(label, call, required, forbidden=()):
-        out, counts, rec_calls, cold, warm, _ = drive(ck, rec, label, call,
-                                                      required)
+        # The k ladder's rungs of the cold call (ops.wavefront.take_rungs).
+        rungs = []
+
+        def cold_first():
+            out = call()
+            if not rungs:
+                rungs.append(take_rungs())
+            return out
+
+        take_rungs()
+        out, counts, rec_calls, cold, warm, _ = drive(ck, rec, label,
+                                                      cold_first, required)
+        take_rungs()
         for name in forbidden:
             if counts[name]:
                 fail(f"{label} launched {name} {counts[name]} times")
         calls[label] = rec_calls, counts
         summary[label] = dict(cold_s=cold, warm_s=warm, launches={
-            k: v for k, v in counts.items() if v})
+            k: v for k, v in counts.items() if v}, rungs=rungs[0])
         return out
 
     # 14. Long NW: 1 Mbp against its copy with 3% edits.
@@ -1780,6 +1965,11 @@ def main(argv=None) -> int:
     check_resumable_kernels(rng, dev, ck)
     check_adaptive_kernel(rng, dev, ck)
     check_split_kernels(rng, dev, ck)
+    # The checks added since PR 7 draw from a generator of their own, so
+    # the paths below see the same data as before.
+    extra = np.random.RandomState(args.seed + 1)
+    check_bitplane_split(extra, dev, ck)
+    check_wavefront_tiles(extra, dev, ck)
     log("kernels equal their plain versions at small shapes")
 
     rec = Recorder(ck)
@@ -2157,6 +2347,9 @@ def main(argv=None) -> int:
             if entry is None:
                 entry = sub
                 kernels.append(entry)
+                if name == "wavefront_banded":
+                    entry["form_crossover"] = banded_form_crossover(
+                        ck, calls[name][len(calls[name]) // 2])
             else:
                 entry.setdefault("other_paths", []).append(
                     {k: sub[k] for k in ("path", "launches", "max_abs_err",

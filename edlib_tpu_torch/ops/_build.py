@@ -37,7 +37,8 @@ SIGNATURES = {
     "myers_reduce_lanes": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I,
                            _P, _L, _I, _I, _P, _P, _P, _P, _P],
     "myers_reduce_bitplane": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P,
-                              _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+                              _P, _P, _I, _I, _P, _L, _I, _I, _P, _P, _P,
+                              _P, _P],
     "myers_sweep_shared": [_I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P],
     "myers_hits_lanes": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
@@ -64,7 +65,7 @@ SIGNATURES = {
     "myers_wavefront": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P],
     "myers_wavefront_banded": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -17,7 +17,8 @@
 //   myers_reduce_bitplane  the bit-plane form of the same kernel
 //                          (_bitplane_tb :407, _bitplane_eq :415), launched by
 //                          _sweep_reduce_bitplane_call (:2013, pallas_call
-//                          :2040).
+//                          :2040); split-lane at 1-8 words, as
+//                          myers_reduce_lanes.
 //   myers_sweep_shared     _shared_kernel (:249), launched by
 //                          sweep_best_pallas_shared (:325, pallas_call :342);
 //                          split-lane at 1-8 words, as myers_reduce_lanes.
@@ -80,17 +81,18 @@
 // of word updates, so issue is only reached with many threads resident: a
 // launch of a few long lanes is latency-bound.
 //
-// K1 (myers_reduce_lanes) and K2 (myers_sweep_shared) at 1-8 words take the
-// split-lane schedule (see "The split-lane schedule" below): in HW mode a
-// long lane is cut into cores of columns, each core one thread that starts
-// from the fresh state a halo of 2 * 32 * NW columns before its core, so a
-// few long lanes (K2's overflow stragglers, K1's segmented fallback and the
-// shared row) fill the card; each thread streams its target columns through
-// shared memory with cp.async, keeps its block's profile rows in shared
-// memory and loads the next column's Eq words before the current column
-// advances.  Past 8 words, and in the other kernels, each thread sweeps one
-// lane and loads each column's symbol and Eq words from memory on the
-// critical path.  A lane stops at its own window end hi, so padded
+// K1 (myers_reduce_lanes), K3 (myers_reduce_bitplane) and K2
+// (myers_sweep_shared) at 1-8 words take the split-lane schedule (see "The
+// split-lane schedule" below): in HW mode a long lane is cut into cores of
+// columns, each core one thread that starts from the fresh state a halo of
+// 2 * 32 * NW columns before its core, so a few long lanes (K2's overflow
+// stragglers, K1's and K3's segmented fallbacks and the shared row) fill
+// the card; each thread streams its target columns through shared memory
+// with cp.async, keeps its block's profile rows (K3: its rows' expanded
+// bit-plane profiles) in shared memory and loads the next column's Eq words
+// before the current column advances.  Past 8 words, and in the other
+// kernels, each thread sweeps one lane and loads each column's symbol and
+// Eq words from memory on the critical path.  A lane stops at its own window end hi, so padded
 // candidates (hi = 0) cost nothing.
 //
 // The capture kernel is bound by its stores instead: it writes every
@@ -694,18 +696,20 @@ reduce_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a
   if (lane_owner(a)) store_keys(a, lane, r);
 }
 
+// K3 past 8 words: a thread a lane (state in scratch) or the wave form.
 template <int NW>
-__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+__global__ void __launch_bounds__(kWaveThreads)
 reduce_bitplane_kernel(const uint32_t* __restrict__ planes,
                        const uint32_t* __restrict__ pad, int nw, int nb,
                        int n_alts, int wildcard, LaneArgs a) {
+  static_assert(NW == 0, "1-8 words take reduce_bitplane_split_kernel");
   const int lane = lane_index(a);
   if (lane >= a.n_lanes) return;
   Reduction r{a.lo[lane], a.hi[lane]};
   sweep_lane<NW>(bitplane_eq(planes, pad, nw, nb, n_alts, wildcard, a, lane),
                  nw, a.n_cols, r.hi, a.hin_pos, scratch_pv(a, lane),
                  scratch_mv(a, nw, lane), (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), r);
-  if (lane_owner(a)) store(a, lane, r);
+  if (lane_owner(a)) store_keys(a, lane, r);
 }
 
 template <int NW>
@@ -831,8 +835,8 @@ shw_banded_hits_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
 }
 
 // ---------------------------------------------------------------------------
-// The split-lane schedule of K1 (myers_reduce_lanes) and K2
-// (myers_sweep_shared) at 1-8 words.
+// The split-lane schedule of K1 (myers_reduce_lanes), K3
+// (myers_reduce_bitplane) and K2 (myers_sweep_shared) at 1-8 words.
 //
 // In HW mode (hin = 0) every cell of row i is at most i, so every bottom-row
 // score is at most R = 32 * nw, and an alignment of cost d that ends at
@@ -855,12 +859,16 @@ shw_banded_hits_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
 // with cp.async (one stage in flight while the other is swept), reads Eq
 // from its block's profile rows in shared memory (K1: the block's distinct
 // prow rows; K2: its lanes' slice of the (S1, NW, B) profile; global memory
-// when they do not fit), and loads the next column's Eq words before the
-// current column advances.
+// when they do not fit; K3: the distinct rows' bit planes, expanded once
+// into full 2^nb-symbol profiles where those fit, else Eq built from the
+// staged planes per column), and loads the next column's Eq words before
+// the current column advances.
 constexpr int kSplitMaxThreads = 128;
 constexpr int kStage = 16;                // columns a cp.async stage brings
 constexpr int kRingWords = 2 * kStage;    // a thread's ring: two stages
 constexpr int kPeqSmemWords = 6144;       // profile words a block may hold
+constexpr int kBitplaneSmemWords = 9216;  // K3: profiles and planes, the
+                                          // same (4 blocks of 128 an SM)
 
 __device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src,
                                            int bytes) {
@@ -918,23 +926,58 @@ struct SymStream {
   }
 };
 
-// Eq word w of symbol sym at base[sym * sym_stride + w * w_stride].
+// Eq word w of symbol sym at base[(sym & sym_mask) * sym_stride + w *
+// w_stride] (K3's expanded profile keeps 2^nb rows and masks the symbol).
 struct EqRows {
   const uint32_t* base;
   int sym_stride, w_stride;
+  int32_t sym_mask = -1;
 
   template <int NW>
   __device__ __forceinline__ void load(uint32_t (&e)[NW], int32_t sym) const {
-    const uint32_t* r = base + (size_t)sym * sym_stride;
+    const uint32_t* r = base + (size_t)(sym & sym_mask) * sym_stride;
 #pragma unroll
     for (int w = 0; w < NW; ++w) e[w] = r[(size_t)w * w_stride];
   }
 };
 
+// K3's Eq built per column from one profile row's bit planes (the
+// arithmetic of BitplaneEq): planes[(e * nb + b) * NW + w] and pad[w], in
+// shared memory; the path of rows whose expanded profiles do not fit (a
+// block of lanes that each have a row of their own).
+struct PlaneRows {
+  const uint32_t* planes;
+  const uint32_t* pad;
+  int nb, n_alts, wildcard;
+
+  template <int NW>
+  __device__ __forceinline__ void load(uint32_t (&e)[NW], int32_t sym) const {
+    uint32_t tb[kMaxPlanes];
+#pragma unroll
+    for (int b = 0; b < kMaxPlanes; ++b)
+      tb[b] = 0u - ((static_cast<uint32_t>(sym) >> b) & 1u);
+    const uint32_t wild = sym == wildcard ? ~0u : 0u;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      uint32_t acc = pad[w] | wild;
+#pragma unroll 1
+      for (int k = 0; k < n_alts; ++k) {
+        const uint32_t* p = planes + k * nb * NW + w;
+        uint32_t x = p[0] ^ tb[0];
+#pragma unroll
+        for (int b = 1; b < kMaxPlanes; ++b)
+          if (b < nb) x |= p[b * NW] ^ tb[b];
+        acc |= ~x;
+      }
+      e[w] = acc;
+    }
+  }
+};
+
 // Sweep the stream's columns (the first is column c0) from the fresh state,
 // calling v.update(score, c, true) for each.
-template <int NW, class Visit>
-__device__ __forceinline__ void sweep_core(const SymStream& st, EqRows eq,
+template <int NW, class Eq, class Visit>
+__device__ __forceinline__ void sweep_core(const SymStream& st, const Eq& eq,
                                            uint32_t hin_pos, int c0,
                                            Visit& v) {
   uint32_t pv[NW], mv[NW];
@@ -959,13 +1002,13 @@ __device__ __forceinline__ void sweep_core(const SymStream& st, EqRows eq,
     }
     const int i0 = s * kStage;
     uint32_t e[NW];
-    if (i0 >= st.skip && i0 < st.n) eq.load<NW>(e, sym[0]);
+    if (i0 >= st.skip && i0 < st.n) eq.template load<NW>(e, sym[0]);
 #pragma unroll
     for (int j = 0; j < kStage; ++j) {
       const int i = i0 + j;
       uint32_t en[NW];
       if (j + 1 < kStage && i + 1 >= st.skip && i + 1 < st.n)
-        eq.load<NW>(en, sym[j + 1]);
+        eq.template load<NW>(en, sym[j + 1]);
       if (i >= st.skip && i < st.n) {
         uint32_t hneg = 0u, hpos = hin_pos;
 #pragma unroll
@@ -1032,60 +1075,147 @@ struct SplitArgs {
   int peq_words;           // profile words the block's shared memory holds
 };
 
-// K1, split-lane: thread t is core t - offsets[lane] of its lane.
+// A split-lane thread's place: its lane and core, and the block's distinct
+// profile rows (slot_row[0, n_slots); slot is this thread's).  Thread t is
+// core t - offsets[lane] of its lane, or lane t where offsets is null.
+struct SplitPlace {
+  bool active;
+  int lane, core, row, slot, n_slots;
+};
+
+// False where the whole block lies past the last thread (it returns before
+// any barrier).  Every thread of the block calls it.
+__device__ __forceinline__ bool split_place(const LaneArgs& a,
+                                            const SplitArgs& sp,
+                                            SplitPlace& p, int* slot_row) {
+  __shared__ int row_of[kSplitMaxThreads];
+  __shared__ int warp_sums[kSplitMaxThreads / 32], n_slots;
+  const int T = blockDim.x;
+  const int total = sp.offsets ? sp.offsets[a.n_lanes] : a.n_lanes;
+  const long long t0 = (long long)blockIdx.x * T;
+  if (t0 >= total) return false;
+  const int t = static_cast<int>(t0) + threadIdx.x;
+  p.active = t < total;
+  p.lane = -1;
+  p.core = 0;
+  if (p.active && sp.offsets) {
+    p.lane = lane_of(sp.offsets, a.n_lanes, t);
+    p.core = t - sp.offsets[p.lane];
+  } else if (p.active) {  // one core a lane: thread t is lane t
+    p.lane = t;
+    p.active = min(a.hi[p.lane], a.n_cols) > 0;
+  }
+  // A new slot where a thread's prow differs from the previous thread's
+  // (threads run in lane order).
+  p.row = p.active ? a.prow[p.lane] : -1;
+  row_of[threadIdx.x] = p.row;
+  __syncthreads();
+  const int fresh =
+      p.active && (threadIdx.x == 0 || p.row != row_of[threadIdx.x - 1]);
+  p.slot = block_inclusive_sum(fresh, warp_sums) - 1;
+  if (fresh) slot_row[p.slot] = p.row;
+  if (threadIdx.x == T - 1) n_slots = p.slot + 1;
+  __syncthreads();
+  p.n_slots = n_slots;
+  return true;
+}
+
+// Sweep one core from the fresh state at its start and merge its
+// reduction into its lane's keys; the core holding hi - 1 writes last.
+template <int NW, class Eq>
+__device__ __forceinline__ void split_sweep(const LaneArgs& a,
+                                            const SplitArgs& sp,
+                                            const SplitPlace& p,
+                                            uint32_t* rings, const Eq& eq) {
+  const int lo = a.lo[p.lane], hi = a.hi[p.lane];
+  const Core k(lo, hi, a.n_cols, p.core, sp.core, sp.halo, a.hin_pos);
+  const int32_t* tg = a.targets + (size_t)a.trow[p.lane] * a.n_cols;
+  const SymStream st(rings, tg + k.start, tg + a.n_cols, k.c_hi - k.start);
+  Reduction r{max(lo, k.c_lo), hi};
+  sweep_core<NW>(st, eq, a.hin_pos, k.start, r);
+  if (r.pfirst >= 0) {
+    atomicMin(a.key_first + p.lane, first_key(r.best, r.pfirst));
+    atomicMax(a.key_last + p.lane, last_key(r.best, r.plast));
+  }
+  if (hi - 1 >= k.c_lo && hi - 1 < k.c_hi) a.last[p.lane] = r.last;
+}
+
+// K1, split-lane.
 template <int NW>
 __global__ void __launch_bounds__(kSplitMaxThreads, 4)
 reduce_split_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
                     SplitArgs sp) {
   extern __shared__ __align__(16) uint32_t dyn[];  // rings, profile rows
-  __shared__ int row_of[kSplitMaxThreads], slot_row[kSplitMaxThreads];
-  __shared__ int warp_sums[kSplitMaxThreads / 32], n_slots;
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
   const int T = blockDim.x;
-  const int total = sp.offsets ? sp.offsets[a.n_lanes] : a.n_lanes;
-  const long long t0 = (long long)blockIdx.x * T;
-  if (t0 >= total) return;
-  const int t = static_cast<int>(t0) + threadIdx.x;
-  bool active = t < total;
-  int lane = -1, core = 0;
-  if (active && sp.offsets) {
-    lane = lane_of(sp.offsets, a.n_lanes, t);
-    core = t - sp.offsets[lane];
-  } else if (active) {  // one core a lane: thread t is lane t
-    lane = t;
-    active = min(a.hi[lane], a.n_cols) > 0;
-  }
-  // The block's distinct profile rows: a new slot where a thread's prow
-  // differs from the previous thread's (threads run in lane order).
-  const int row = active ? a.prow[lane] : -1;
-  row_of[threadIdx.x] = row;
-  __syncthreads();
-  const int fresh =
-      active && (threadIdx.x == 0 || row != row_of[threadIdx.x - 1]);
-  const int slot = block_inclusive_sum(fresh, warp_sums) - 1;
-  if (fresh) slot_row[slot] = row;
-  if (threadIdx.x == T - 1) n_slots = slot + 1;
-  __syncthreads();
   const int rw = s1 * NW;
   uint32_t* rows = dyn + T * kRingWords;
-  const bool in_smem = n_slots * rw <= sp.peq_words;
+  const bool in_smem = p.n_slots * rw <= sp.peq_words;
   if (in_smem)
-    for (int i = threadIdx.x; i < n_slots * rw; i += T)
+    for (int i = threadIdx.x; i < p.n_slots * rw; i += T)
       rows[i] = peq[(size_t)slot_row[i / rw] * rw + i % rw];
   __syncthreads();
-  if (!active) return;
-  const EqRows eq{in_smem ? rows + slot * rw : peq + (size_t)row * rw, NW,
-                  1};
-  const int lo = a.lo[lane], hi = a.hi[lane];
-  const Core k(lo, hi, a.n_cols, core, sp.core, sp.halo, a.hin_pos);
-  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
-  const SymStream st(dyn, tg + k.start, tg + a.n_cols, k.c_hi - k.start);
-  Reduction r{max(lo, k.c_lo), hi};
-  sweep_core<NW>(st, eq, a.hin_pos, k.start, r);
-  if (r.pfirst >= 0) {
-    atomicMin(a.key_first + lane, first_key(r.best, r.pfirst));
-    atomicMax(a.key_last + lane, last_key(r.best, r.plast));
+  if (!p.active) return;
+  const EqRows eq{in_smem ? rows + p.slot * rw : peq + (size_t)p.row * rw,
+                  NW, 1};
+  split_sweep<NW>(a, sp, p, dyn, eq);
+}
+
+// K3, split-lane: K1's schedule with Eq from the query-id bit planes.  A row
+// is n_alts * nb + 1 plane words a query word (the planes, then pad).  Each
+// of the block's rows has its planes staged in shared memory (split_config
+// sizes the block so that they fit).  Where the rows also fit sp.peq_words
+// with their expanded profiles (2^nb symbols x NW words each), each row is
+// expanded once, every Eq word the PlaneRows function of its symbol, and
+// the sweep reads one word per word and column (EqRows); else Eq is built
+// from the staged planes per column.
+template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+reduce_bitplane_split_kernel(const uint32_t* __restrict__ planes,
+                             const uint32_t* __restrict__ pad, int nb,
+                             int n_alts, int wildcard, LaneArgs a,
+                             SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profiles, planes
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  const int T = blockDim.x;
+  const int n_sym = 1 << nb;
+  const int pw = n_alts * nb * NW;   // plane words a row, pad after them
+  const int rw = pw + NW;
+  const int rs = rw | 1;             // an odd row stride: no bank conflicts
+  const int prof_w = n_sym * NW;
+  const int n = p.n_slots;
+  const bool expand = n * (prof_w + rs) <= sp.peq_words;
+  uint32_t* profs = dyn + T * kRingWords;
+  uint32_t* rows = expand ? profs + n * prof_w : profs;
+  for (int i = threadIdx.x; i < n * rw; i += T) {
+    const int row = slot_row[i / rw], j = i % rw;
+    rows[(i / rw) * rs + j] = j < pw ? planes[(size_t)row * pw + j]
+                                     : pad[(size_t)row * NW + j - pw];
   }
-  if (hi - 1 >= k.c_lo && hi - 1 < k.c_hi) a.last[lane] = r.last;
+  __syncthreads();
+  if (expand) {
+    for (int i = threadIdx.x; i < n * n_sym; i += T) {
+      const int slot = i / n_sym, sym = i % n_sym;
+      const uint32_t* r = rows + slot * rs;
+      uint32_t e[NW];
+      PlaneRows{r, r + pw, nb, n_alts, wildcard}.template load<NW>(e, sym);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) profs[slot * prof_w + sym * NW + w] = e[w];
+    }
+    __syncthreads();
+  }
+  if (!p.active) return;
+  if (expand) {
+    split_sweep<NW>(a, sp, p, dyn,
+                    EqRows{profs + p.slot * prof_w, NW, 1, n_sym - 1});
+    return;
+  }
+  const uint32_t* r = rows + p.slot * rs;
+  split_sweep<NW>(a, sp, p, dyn, PlaneRows{r, r + pw, nb, n_alts, wildcard});
 }
 
 // K2, split-lane: n_cores cores a lane, thread t is core t % n_cores of lane
@@ -1550,6 +1680,10 @@ int launch_banded(int kind, int device, const void* peq, int s1, int nw,
 // kSplitMaxThreads threads) that still gives every SM two blocks, so that a
 // launch of few threads spreads over the SMs; and the profile words its
 // shared memory holds (whole rows of s1 * nw words, at most one a thread).
+// With whole_words (K3's staged planes) every row a block can hold, one a
+// thread, also gets that many words: the block drops to fewer threads
+// until they fit the budget, and past it at 32 threads takes the words
+// anyway (the launch raises where the card's shared memory cannot).
 struct SplitConfig {
   unsigned blocks;
   int threads, peq_words;
@@ -1557,16 +1691,19 @@ struct SplitConfig {
 };
 
 SplitConfig split_config(int device, long long n_threads, int max_rows,
-                         int row_words) {
+                         int row_words, int budget = kPeqSmemWords,
+                         int whole_words = 0) {
   int sms = 132;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   int t = kSplitMaxThreads;
   while (t > 32 && n_threads < 2LL * sms * t) t /= 2;
-  const int rows = std::min({t, max_rows, kPeqSmemWords / row_words});
+  while (t > 32 && std::min(t, max_rows) * whole_words > budget) t /= 2;
+  const int rows = std::min({t, max_rows, budget / row_words});
   SplitConfig c;
   c.blocks = static_cast<unsigned>((n_threads + t - 1) / t);
   c.threads = t;
-  c.peq_words = rows * row_words;
+  c.peq_words = std::max(rows * row_words,
+                         std::min(t, max_rows) * whole_words);
   c.smem = (size_t)(t * kRingWords + c.peq_words) * sizeof(uint32_t);
   return c;
 }
@@ -1623,26 +1760,56 @@ int myers_reduce_lanes(int device, const void* peq, int s1, int nw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// planes uint32 (R_p, n_alts * nb * nw); pad uint32 (R_p, nw); the rest as
-// myers_reduce_lanes.  wildcard: the target symbol that matches every row.
+// planes uint32 (R_p, n_alts * nb * nw); pad uint32 (R_p, nw); wildcard:
+// the target symbol that matches every row; targets in [0, 2^nb).  The rest
+// as myers_reduce_lanes, split-lane at 1-8 words.
 int myers_reduce_bitplane(int device, const void* planes, const void* pad,
                           int nw, int nb, int n_alts, int wildcard,
                           const void* targets, int n_cols, const void* lo,
                           const void* hi, const void* prow, const void* trow,
-                          int n_lanes, int hin0, void* best, void* pfirst,
-                          void* plast, void* last, void* scratch, void* stream) {
+                          int n_lanes, int hin0, const void* offsets,
+                          long long n_threads, int core, int halo,
+                          void* key_first, void* key_last, void* last,
+                          void* scratch, void* stream) {
   if (n_lanes <= 0) return 0;
-  if (nb < 1 || nb > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (nw < 1 || n_alts < 1 || nb < 1 || nb > kMaxPlanes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
                          scratch);
-  set_reduction(a, best, pfirst, plast, last);
+  a.key_first = static_cast<unsigned long long*>(key_first);
+  a.key_last = static_cast<unsigned long long*>(key_last);
+  a.last = static_cast<int32_t*>(last);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* pl = static_cast<const uint32_t*>(planes);
   const uint32_t* pd = static_cast<const uint32_t*>(pad);
-#define LAUNCH(N) \
-  LANE_LAUNCH(N, reduce_bitplane_kernel, pl, pd, nw, nb, n_alts, wildcard, a)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
+  if (nw > 8) {
+    LANE_LAUNCH(0, reduce_bitplane_kernel, pl, pd, nw, nb, n_alts, wildcard,
+                a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (n_threads <= 0) return 0;
+  if (core < 1 || halo < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // Whole rows with their expanded profiles where they fit; the planes of
+  // every row a block holds always.
+  const int rs = ((n_alts * nb + 1) * nw) | 1;  // the kernel's row stride
+  const SplitConfig cfg = split_config(device, n_threads, n_lanes,
+                                       (1 << nb) * nw + rs,
+                                       kBitplaneSmemWords, rs);
+  const SplitArgs sp{static_cast<const int32_t*>(offsets), core, halo,
+                     cfg.peq_words};
+#define LAUNCH(N)                                                          \
+  do {                                                                     \
+    if (const cudaError_t e = cudaFuncSetAttribute(                        \
+            reduce_bitplane_split_kernel<N>,                               \
+            cudaFuncAttributeMaxDynamicSharedMemorySize,                   \
+            static_cast<int>(cfg.smem)))                                   \
+      return static_cast<int>(e);                                          \
+    reduce_bitplane_split_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem,   \
+                                      st>>>(pl, pd, nb, n_alts, wildcard,  \
+                                            a, sp);                        \
+  } while (0)
+  MYERS_DISPATCH_SPLIT(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

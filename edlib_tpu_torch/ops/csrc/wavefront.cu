@@ -4,8 +4,9 @@
 // arrive as void*, each entry point returns the cudaError_t of its launch
 // (0 = cudaSuccess) and never synchronises or allocates.
 //
-// Two entry points, one kernel template.  Each replaces a kernel of
-// edlib_tpu/ops/wavefront.py:
+// Two entry points over two kernels: the step form (wavefront_kernel, both
+// entries) and the banded entry's tile schedule (wavefront_tiles_kernel,
+// below).  Each entry replaces a kernel of edlib_tpu/ops/wavefront.py:
 //
 //   myers_wavefront         _wf_kernel (:66), launched by _wavefront_call
 //                           (:185, pallas_call :205): all query words of the
@@ -51,10 +52,12 @@
 // spread over the co-resident blocks of a cooperative launch with one
 // grid.sync() per step and the hand-off through a global buffer read past
 // L1 (__ldcg).  The launch checks the occupancy and fails rather than run
-// with blocks that are not all resident.  No attempt is made yet to amortise
-// the barrier (several steps per barrier with a halo, or point-to-point
-// flags between neighbouring blocks).
+// with blocks that are not all resident.  The banded entry amortises the
+// barrier with the tile schedule below (one barrier a super-step of 32
+// columns) from ns steps and up to 4,096 slots; myers_wavefront keeps a
+// barrier a step.
 
+#include <climits>
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,6 +83,8 @@ struct WfArgs {
   uint32_t hin0;
   int col_lo, col_hi;
   int banded, lo, base_cap, word0;
+  int s1;                // profile rows (tile schedule)
+  int peq_smem;          // tile schedule: slots keep their profile words
 };
 
 __device__ __forceinline__ int floor_div33(int x) {
@@ -232,6 +237,350 @@ wavefront_kernel(WfArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The banded entry's tile schedule (ops/cuda_kernel.py
+// wavefront_banded_tiles_plain is the same schedule in PyTorch).
+//
+// Cell (w, c) needs only (w, c-1), its own word's state, and (w-1, c), for
+// its horizontal input; the band's rules are functions of the
+// anti-diagonal d = c + w alone: the window holds word w for the steps
+// d in [first_step(w - ns + 1), first_step(w + 1)), first_step(x) being the
+// first step whose base_of is >= x; word w is the window's top, input
+// (0, +1), from step first_step(w) on; and a word that enters the window
+// at step E starts at column E - w from Pv = ~0, Mv = 0 and the score of
+// word w-1 before that column + 32 (the old "bottom score - hout + 32" of
+// step E - 1).  So in a segment word w sweeps one interval of columns
+// [c_lo, c_hi), and it may sweep it in tiles of kTile columns aligned to
+// absolute columns: tile j at super-step j + w, one tile behind word w-1.
+// A tile hands on its horizontal deltas as two 32-bit masks (hp, hn; bit i
+// = column 32j + i) and the word's score after the tile, from which the
+// entering word w+1 subtracts the deltas of columns >= its entry column.
+// The loaded state's hout belongs to the column before a word's first one;
+// it is handed on as the record of that column's tile.
+//
+// One block of kTileThreads threads; thread g holds the word slots
+// g, g + kTileThreads, ... (word w in slot w mod ns, as the step form), so
+// a thread takes its slot's next word when the last one has left.  The
+// band slopes 32 columns a word, so while the window slides about
+// ns / 2 words have a tile at a super-step.  Per super-step a thread runs
+// the tiles of its live slots (state in shared memory between tiles) and
+// the block crosses one __syncthreads(); records are double-buffered by
+// super-step parity.  Neighbouring threads hold neighbouring words, which
+// run neighbouring tiles, so the symbols come as 16-bit values (the
+// wrapper's copy): a tile is four 16-byte loads and a warp's 32 tiles one
+// contiguous 2 KB run.  Each slot keeps its word's s1 profile words in
+// shared memory where they fit (s1 <= kTilePeqRows), else they are read
+// from the operand.  A tile loads its 32 symbols and Eq words ahead of the
+// dependent chain; the per-word interval and boundary columns are a
+// multiply and a shift, with no division or % in the column loop.  Whole
+// untracked tiles (most of them) run a branch-free loop; a tile cut by the
+// word's interval, the scan's end or the tracked bottom word runs the
+// column-predicated one.
+//
+// What bounds it: still one SM.  A segment costs about n_steps / 16 + ns
+// super-steps, so the wrapper (cuda_kernel.wavefront_banded_form) keeps a
+// step a barrier for segments under 6,144 steps, where the pipeline's fill
+// and drain cost more than the barriers saved, and past 4,096 slots (the
+// cooperative grid).
+
+constexpr int kTile = 32;
+constexpr int kTileThreads = 512;
+constexpr int kTileMaxSlots = 4096;
+constexpr int kTileStateWords = 14;    // shared words a slot (state, records)
+constexpr int kTilePeqRows = 8;        // profile rows a slot may keep there
+constexpr size_t kTileSmemMax = 232448;  // an H100 block's opt-in maximum
+constexpr long long kFar = 1LL << 40;
+
+__device__ __forceinline__ long long first_step(const WfArgs& a, int x) {
+  if (x <= 0) return -kFar;
+  if (x > a.base_cap) return kFar;
+  return 33LL * x + 31 - a.lo;
+}
+
+// Word w's columns [c_lo, c_hi) in the segment [d_base, d_end), and its
+// super-steps [s_a, s_b] (s_a > s_b where it has none).
+struct TileSpan {
+  int c_lo, c_hi, s_a, s_b;
+  __device__ __forceinline__ TileSpan(const WfArgs& a, int w, int d_end) {
+    const long long lo = max((long long)a.d_base, first_step(a, w - a.ns + 1));
+    const long long hi = min((long long)d_end, first_step(a, w + 1));
+    c_lo = static_cast<int>(lo - w);
+    c_hi = static_cast<int>(max(hi, lo) - w);
+    if (c_lo < c_hi) {
+      s_a = (c_lo >> 5) + w;  // arithmetic shift: floor for c < 0
+      s_b = ((c_hi - 1) >> 5) + w;
+    } else {
+      s_a = INT_MAX;
+      s_b = INT_MIN;
+    }
+  }
+};
+
+// Bits [lo, hi) of a word (clamped to [0, 32)).
+__device__ __forceinline__ uint32_t bit_range(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, kTile);
+  if (hi <= lo) return 0u;
+  return (~0u >> (kTile - (hi - lo))) << lo;
+}
+
+__global__ void __launch_bounds__(kTileThreads)
+wavefront_tiles_kernel(WfArgs a) {
+  extern __shared__ int32_t sm[];
+  const int ns = a.ns;
+  // Per slot: the word's state between its tiles, and its super-steps.
+  uint32_t* s_pv = reinterpret_cast<uint32_t*>(sm);
+  uint32_t* s_mv = s_pv + ns;
+  int32_t* s_sc = sm + 2 * ns;
+  int32_t* s_rmin = sm + 3 * ns;
+  int32_t* s_rpos = sm + 4 * ns;
+  int32_t* s_w = sm + 5 * ns;
+  int32_t* s_a = sm + 6 * ns;
+  int32_t* s_b = sm + 7 * ns;
+  // Records [parity][slot]: hp mask, hn mask, score after the tile.
+  uint32_t* r_hp = reinterpret_cast<uint32_t*>(sm + 8 * ns);
+  uint32_t* r_hn = r_hp + 2 * ns;
+  int32_t* r_sc = sm + 12 * ns;
+  // The slots' profile words [row][slot], where they fit.
+  const bool peq_smem = a.peq_smem;
+  uint32_t* s_peq = reinterpret_cast<uint32_t*>(sm + kTileStateWords * ns);
+  const int n_tiles = (a.t_scan + kTile - 1) / kTile;
+  __shared__ int step_lo, step_hi;
+  const int T = blockDim.x, g = threadIdx.x;
+  const int d_end = a.d_base + a.n_steps;
+  const int b0 = base_of(a, a.d_base - 1), b_end = base_of(a, d_end - 1);
+  const int bottom = a.n_words - 1;
+  if (g == 0) {
+    step_lo = INT_MAX;
+    step_hi = INT_MIN;
+  }
+  // Load the window of step d_base - 1; each word's hout there is the
+  // record of the column before its first one.
+  for (int p = g; p < ns; p += T) {
+    const int w = b0 + mod_ns(p - b0, ns);
+    const int32_t* st = a.state + (w - b0);
+    s_pv[p] = static_cast<uint32_t>(st[0]);
+    s_mv[p] = static_cast<uint32_t>(st[ns]);
+    s_sc[p] = st[4 * ns];
+    s_rmin[p] = st[5 * ns];
+    s_rpos[p] = st[6 * ns];
+    s_w[p] = w;
+    if (peq_smem)
+      for (int r = 0; r < a.s1; ++r)
+        s_peq[r * ns + p] =
+            a.peq[(size_t)r * a.peq_words + min(w, a.n_words - 1)];
+    const TileSpan sp(a, w, d_end);
+    s_a[p] = sp.s_a;
+    s_b[p] = sp.s_b;
+    const int cp = a.d_base - 1 - w;
+    const int q = (((cp >> 5) + w) & 1) * ns + p;
+    r_hp[q] = (static_cast<uint32_t>(st[3 * ns]) & 1u) << (cp & 31);
+    r_hn[q] = (static_cast<uint32_t>(st[2 * ns]) & 1u) << (cp & 31);
+    r_sc[q] = st[4 * ns];
+  }
+  __syncthreads();
+  {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int p = g; p < ns; p += T)
+      for (int w = s_w[p]; w < b_end + ns; w += ns) {
+        const TileSpan sp(a, w, d_end);
+        lo = min(lo, sp.s_a);
+        hi = max(hi, sp.s_b);
+      }
+    atomicMin(&step_lo, lo);
+    atomicMax(&step_hi, hi);
+  }
+  __syncthreads();
+  const bool track = a.col_hi > a.col_lo;
+  const int s_end = step_hi;
+  for (int s = step_lo; s <= s_end; ++s) {
+    const int par = s & 1;
+    for (int p = g; p < ns; p += T) {
+      int w = s_w[p];
+      if (s > s_b[p] && w + 1 <= b_end) {
+        // The slot takes its next word (the one after may follow at once
+        // where a word entered and left inside the segment).
+        TileSpan sp(a, w + ns, d_end);
+        w += ns;
+        while (s > sp.s_b && w + 1 <= b_end) {
+          w += ns;
+          sp = TileSpan(a, w, d_end);
+        }
+        s_w[p] = w;
+        s_a[p] = sp.s_a;
+        s_b[p] = sp.s_b;
+        s_pv[p] = ~0u;
+        s_mv[p] = 0u;
+        s_rmin[p] = kWfBig;
+        s_rpos[p] = -1;
+        if (peq_smem)
+          for (int r = 0; r < a.s1; ++r)
+            s_peq[r * ns + p] =
+                a.peq[(size_t)r * a.peq_words + min(w, a.n_words - 1)];
+      }
+      if (s < s_a[p] || s > s_b[p]) continue;
+      const TileSpan sp(a, w, d_end);
+      const int jt = s - w;
+      const int c0 = jt * kTile;
+      const uint32_t act =
+          w < a.n_words ? bit_range(max(sp.c_lo, 0) - c0,
+                                    min(sp.c_hi, a.t_scan) - c0)
+                        : 0u;
+      const long long top_at =
+          w <= a.base_cap ? first_step(a, w) - w : kFar;
+      const long long tp = top_at - c0;
+      const uint32_t top = tp <= 0 ? ~0u : tp >= kTile ? 0u : ~0u << tp;
+      const int rq = (par ^ 1) * ns + (p == 0 ? ns - 1 : p - 1);
+      const uint32_t p_hp = r_hp[rq], p_hn = r_hn[rq];
+      int32_t sc = s_sc[p];
+      if (w >= b0 + ns && (sp.c_lo >> 5) == jt) {
+        // Entered in this segment: word w-1's score before this column.
+        const int k = sp.c_lo - c0;
+        sc = r_sc[rq] - __popc(p_hp >> k) + __popc(p_hn >> k) + 32;
+      }
+      const uint32_t in_p = p_hp | top, in_n = p_hn & ~top;
+      // The tile's 32 symbols (16-bit, 64 bytes: four vector loads, a
+      // warp's 32 neighbouring tiles one contiguous run) and Eq words
+      // (shared memory where the slot keeps its profile words), ahead of
+      // the dependent chain.
+      uint32_t eq[kTile];
+      {
+        uint32_t pair[kTile / 2];
+        if (jt >= 0 && jt < n_tiles) {
+          const int4* tv = reinterpret_cast<const int4*>(a.t) + 4 * jt;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int4 x = __ldg(tv + v);
+            pair[4 * v] = x.x;
+            pair[4 * v + 1] = x.y;
+            pair[4 * v + 2] = x.z;
+            pair[4 * v + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < kTile / 2; ++v) pair[v] = 0u;
+        }
+        const uint32_t* pg = a.peq + min(w, a.n_words - 1);
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) {
+          const uint32_t sym = (pair[i / 2] >> (16 * (i & 1))) & 0xFFFFu;
+          eq[i] = peq_smem ? s_peq[sym * ns + p]
+                           : __ldg(pg + (size_t)sym * a.peq_words);
+        }
+      }
+      uint32_t pv = s_pv[p], mv = s_mv[p];
+      int32_t rmin = s_rmin[p], rpos = s_rpos[p];
+      const bool trk = track && w == bottom;
+      uint32_t o_hp = 0u, o_hn = 0u;
+      if (act == ~0u && !trk) {
+        // A whole tile, untracked: the input bits come in at the top of
+        // bit-reversed masks through funnel shifts, the hout bits leave
+        // through funnel shifts (reversed back after the tile), and the
+        // score moves once by the counts.
+        const uint32_t rp = __brev(in_p), rn = __brev(in_n);
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) {
+          const uint32_t e = eq[i];
+          const uint32_t xv = e | mv;
+          const uint32_t e2 = e | ((in_n >> i) & 1u);
+          const uint32_t xh = (((e2 & pv) + pv) ^ pv) | e2;
+          const uint32_t ph = mv | ~(xh | pv);
+          const uint32_t mh = pv & xh;
+          const uint32_t phs = __funnelshift_l(rp << i, ph, 1);
+          const uint32_t mhs = __funnelshift_l(rn << i, mh, 1);
+          o_hp = __funnelshift_l(ph, o_hp, 1);
+          o_hn = __funnelshift_l(mh, o_hn, 1);
+          pv = mhs | ~(xv | phs);
+          mv = phs & xv;
+        }
+        o_hp = __brev(o_hp);
+        o_hn = __brev(o_hn);
+        sc += __popc(o_hp) - __popc(o_hn);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) {
+          if ((act >> i) & 1u) {
+            const uint32_t hn_in = (in_n >> i) & 1u;
+            const uint32_t hp_in = (in_p >> i) & 1u;
+            const uint32_t e = eq[i];
+            const uint32_t xv = e | mv;
+            const uint32_t e2 = e | hn_in;
+            const uint32_t xh = (((e2 & pv) + pv) ^ pv) | e2;
+            const uint32_t ph = mv | ~(xh | pv);
+            const uint32_t mh = pv & xh;
+            const uint32_t hp = ph >> 31, hn = mh >> 31;
+            const uint32_t phs = (ph << 1) | hp_in;
+            const uint32_t mhs = (mh << 1) | hn_in;
+            pv = mhs | ~(xv | phs);
+            mv = phs & xv;
+            sc += static_cast<int32_t>(hp) - static_cast<int32_t>(hn);
+            o_hp |= hp << i;
+            o_hn |= hn << i;
+            if (trk) {
+              const int c = c0 + i;
+              if (c >= a.col_lo && c < a.col_hi && sc < rmin) {
+                rmin = sc;
+                rpos = c;
+              }
+            }
+          }
+        }
+      }
+      const int o = par * ns + p;
+      if (w < b0 + ns && ((a.d_base - 1 - w) >> 5) == jt) {
+        // The first tile of a word of the loaded window keeps the record
+        // of the column before it.
+        o_hp |= r_hp[o];
+        o_hn |= r_hn[o];
+      }
+      r_hp[o] = o_hp;
+      r_hn[o] = o_hn;
+      r_sc[o] = sc;
+      s_pv[p] = pv;
+      s_mv[p] = mv;
+      s_sc[p] = sc;
+      s_rmin[p] = rmin;
+      s_rpos[p] = rpos;
+    }
+    __syncthreads();
+  }
+  // Every slot holds a word of step d_end - 1's window; its hout is the
+  // bit of its last column in its last tile's record.
+  for (int p = g; p < ns; p += T) {
+    const int w = s_w[p];
+    const int cl = d_end - 1 - w;
+    const int o = (((cl >> 5) + w) & 1) * ns + p;
+    int32_t* st = a.state + (w - b_end);
+    st[0] = static_cast<int32_t>(s_pv[p]);
+    st[ns] = static_cast<int32_t>(s_mv[p]);
+    st[2 * ns] = static_cast<int32_t>((r_hn[o] >> (cl & 31)) & 1u);
+    st[3 * ns] = static_cast<int32_t>((r_hp[o] >> (cl & 31)) & 1u);
+    st[4 * ns] = s_sc[p];
+    st[5 * ns] = s_rmin[p];
+    st[6 * ns] = s_rpos[p];
+  }
+}
+
+int launch_wavefront_tiles(int device, WfArgs a, void* stream) {
+  if (a.n_steps <= 0) return 0;
+  if (a.ns < 1 || a.ns > kTileMaxSlots || a.n_words < 1 ||
+      a.peq_words < a.n_words)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  size_t smem = kTileStateWords * (size_t)a.ns * sizeof(int32_t);
+  a.peq_smem = a.s1 <= kTilePeqRows &&
+               smem + (size_t)a.s1 * a.ns * sizeof(int32_t) <=
+                   kTileSmemMax - 1024;
+  if (a.peq_smem) smem += (size_t)a.s1 * a.ns * sizeof(int32_t);
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          wavefront_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem)))
+    return static_cast<int>(e);
+  wavefront_tiles_kernel<<<1, min(kTileThreads, a.ns), smem,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_wavefront(int device, WfArgs a, void* stream) {
   if (a.n_steps <= 0) return 0;
   if (a.ns < 1 || a.n_words < 1 || a.peq_words < a.n_words)
@@ -323,17 +672,22 @@ int myers_wavefront(int device, const void* t, const void* peq, int peq_words,
 }
 
 // myers_wavefront_banded: the window slides along the band of lower diagonal
-// offset lo; top hin (0, +1); no stream.
+// offset lo; top hin (0, +1); no stream.  tiles: the tile schedule (at most
+// 4,096 slots; t then uint16, 16-byte aligned, padded with zeros to a
+// multiple of 32 columns; s1 the profile's rows), else a step a barrier.
 int myers_wavefront_banded(int device, const void* t, const void* peq,
                            int peq_words, void* state, void* hand, int d_base,
                            int n_steps, int ns, int n_words, int t_scan,
-                           int lo, int col_lo, int col_hi, void* stream) {
+                           int lo, int col_lo, int col_hi, int tiles, int s1,
+                           void* stream) {
   WfArgs a = wf_args(t, peq, peq_words, state, hand, d_base, n_steps, ns,
                      n_words, t_scan, col_lo, col_hi);
   a.hin0 = 1u;
   a.banded = 1;
   a.lo = lo;
   a.base_cap = n_words > ns ? n_words - ns : 0;
+  a.s1 = s1;
+  if (tiles) return launch_wavefront_tiles(device, a, stream);
   return launch_wavefront(device, a, stream);
 }
 

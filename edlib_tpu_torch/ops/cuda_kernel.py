@@ -43,8 +43,9 @@ one of them:
 Each wrapper checks its operands, runs the plain version when they lie on
 the CPU, and otherwise launches its kernel on the current stream, raises on
 a CUDA error, and counts the launch (launch_counts()).  A CUDA tensor never
-falls back to the plain version.  reduce_lanes and sweep_shared plan their
-launches here (the split-lane schedule: split_core and below).
+falls back to the plain version.  reduce_lanes, reduce_bitplane and
+sweep_shared plan their launches here (the split-lane schedule: split_core
+and below).
 
 Layouts follow the JAX package's flat wrappers, (B, S1, NW) profiles and
 (B, T) targets, without its (8, 128) lane tiles.  Bit words travel as int32
@@ -407,6 +408,39 @@ def _peq_columns(peq, targets, hi, prow, trow, hin0, carry=None,
                         carry, exit_state)
 
 
+def _bitplane_eq(pl, pd, sym, nb: int, n_alts: int, wildcard: int):
+    """Eq words (a list of NW int32 (n,) tensors) of symbols sym (n,) from
+    bit planes pl (n, E*nb*NW) and pad pd (n, NW): row i matches where
+    every bit of some alternative id equals the symbol's (BitplaneEq)."""
+    n_words = pd.shape[1]
+    tb = [-((sym >> b) & 1) for b in range(nb)]
+    wild = torch.where(sym == wildcard, -1, 0).to(_I32)
+    words = []
+    for w in range(n_words):
+        acc = pd[:, w] | wild
+        for e in range(n_alts):
+            base = e * nb * n_words + w
+            x = pl[:, base] ^ tb[0]
+            for b in range(1, nb):
+                x = x | (pl[:, base + b * n_words] ^ tb[b])
+            acc = acc | ~x
+        words.append(acc)
+    return words
+
+
+def bitplane_profile(planes, pad, nb: int, n_alts: int, wildcard: int):
+    """int32 (R_p, 2^nb, NW): every row's Eq words for every symbol the
+    planes tell apart, the profile K3's split kernel expands in shared
+    memory (csrc/myers.cu reduce_bitplane_split_kernel)."""
+    R, nw = pad.shape
+    S = 1 << nb
+    sym = torch.arange(S, dtype=_I32, device=pad.device).repeat(R)
+    pl = planes.repeat_interleave(S, 0)
+    pd = pad.repeat_interleave(S, 0)
+    words = _bitplane_eq(pl, pd, sym, nb, n_alts, wildcard)
+    return torch.stack(words, 1).reshape(R, S, nw)
+
+
 def _bitplane_columns(planes, pad, targets, hi, prow, trow, hin0, nb,
                       n_alts, wildcard):
     """Plain sweep with Eq rebuilt from query-id bit planes."""
@@ -415,24 +449,9 @@ def _bitplane_columns(planes, pad, targets, hi, prow, trow, hin0, nb,
     pl = planes[prow.long()]                              # (B, E*nb*NW)
     pd = pad[prow.long()]                                 # (B, NW)
     tg = targets[trow.long(), :end]
-
-    def eq_at(c):
-        sym = tg[:, c]
-        tb = [-((sym >> b) & 1) for b in range(nb)]
-        wild = torch.where(sym == wildcard, -1, 0).to(_I32)
-        words = []
-        for w in range(n_words):
-            acc = pd[:, w] | wild
-            for e in range(n_alts):
-                base = e * nb * n_words + w
-                x = pl[:, base] ^ tb[0]
-                for b in range(1, nb):
-                    x = x | (pl[:, base + b * n_words] ^ tb[b])
-                acc = acc | ~x
-            words.append(acc)
-        return words
-
-    return _sweep_plain(eq_at, end, n_words, hi.shape[0], hi.device, hin0)
+    return _sweep_plain(
+        lambda c: _bitplane_eq(pl, pd, tg[:, c], nb, n_alts, wildcard), end,
+        n_words, hi.shape[0], hi.device, hin0)
 
 
 def _stream_columns(eq_t, hi, hin0):
@@ -702,9 +721,10 @@ def shw_banded_hits_plain(peq, targets, woff, lo, hi, prow, trow, best,
 
 
 # ---------------------------------------------------------------------------
-# The split-lane schedule of K1 (reduce_lanes) and K2 (sweep_shared) at 1-8
-# words (csrc/myers.cu says why it is exact): in HW mode a lane's scanned
-# columns are cut into cores, each (lane, core) one thread that sweeps from
+# The split-lane schedule of K1 (reduce_lanes), K3 (reduce_bitplane) and K2
+# (sweep_shared) at 1-8 words (csrc/myers.cu says why it is exact): in HW
+# mode a lane's scanned columns are cut into cores, each (lane, core) one
+# thread that sweeps from
 # the fresh state split_halo columns before its core and reduces its core;
 # the cores merge by packed keys.  The plan the wrappers hand the kernels,
 # and a plain emulation of the schedule that the tests hold against the JAX
@@ -798,8 +818,11 @@ def _unpack_keys(keys):
     return (w[0, 1], w[0, 0]) + ((w[1, 0],) if keys.shape[0] > 1 else ())
 
 
-def _split_emulate(peq, targets, lo, hi, prow, trow, hin0: int, core: int):
-    n_cols, nw, B = targets.shape[1], peq.shape[2], lo.shape[0]
+def _split_emulate(reduce, nw: int, targets, lo, hi, prow, trow, hin0: int,
+                   core: int):
+    """The schedule in plain PyTorch: reduce(rows, lo, hi, prow, trow) is
+    the plain per-lane reduce that sweeps each (lane, core)."""
+    n_cols, B = targets.shape[1], lo.shape[0]
     dev = lo.device
     halo = None if hin0 or nw > _SPLIT_MAX_WORDS else split_halo(nw)
     lane, c_lo, c_hi, start = split_core_ranges(lo, hi, n_cols, core, halo)
@@ -811,10 +834,10 @@ def _split_emulate(peq, targets, lo, hi, prow, trow, hin0: int, core: int):
         cols = (start[:, None] + torch.arange(width, device=dev)).clamp(
             max=n_cols - 1)
         rows = targets[trow.long()[lane][:, None], cols]
-        best, pf, pl, lst = reduce_lanes_plain(
-            peq, rows, (torch.maximum(lo.long()[lane], c_lo) - start).to(_I32),
+        best, pf, pl, lst = reduce(
+            rows, (torch.maximum(lo.long()[lane], c_lo) - start).to(_I32),
             (c_hi - start).to(_I32), prow[lane],
-            torch.arange(n, dtype=_I32, device=dev), hin0)
+            torch.arange(n, dtype=_I32, device=dev))
         seen = pf >= 0
         b = best.long()[seen]
         keys[0].scatter_reduce_(
@@ -835,7 +858,23 @@ def split_reduce_plain(peq, targets, lo, hi, prow, trow, hin0: int,
     reduced over its core, and merged by packed keys as the kernel merges
     them.  Operands and outputs as reduce_lanes."""
     c = split_core(lo.shape[0], targets.shape[1], peq.shape[2], hin0, core)
-    return _split_emulate(peq, targets, lo, hi, prow, trow, hin0, c)
+    return _split_emulate(
+        lambda *ops: reduce_lanes_plain(peq, *ops, hin0), peq.shape[2],
+        targets, lo, hi, prow, trow, hin0, c)
+
+
+def split_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
+                         hin0: int, nb: int, n_alts: int, wildcard: int,
+                         core=None):
+    """reduce_bitplane's split-lane schedule in plain PyTorch (K1's
+    schedule, Eq from the bit planes); operands and outputs as
+    reduce_bitplane."""
+    nw = pad.shape[1]
+    c = split_core(lo.shape[0], targets.shape[1], nw, hin0, core)
+    return _split_emulate(
+        lambda *ops: reduce_bitplane_plain(planes, pad, *ops, hin0, nb,
+                                           n_alts, wildcard),
+        nw, targets, lo, hi, prow, trow, hin0, c)
 
 
 def _shared_span(n_cols: int, col_lo: int, col_hi: int) -> int:
@@ -853,8 +892,10 @@ def split_shared_plain(peq_t, target, hin0: int, col_lo: int, col_hi: int,
     c = split_core(B, _shared_span(target.shape[0], col_lo, col_hi), nw,
                    hin0, core)
     lanes = torch.arange(B, dtype=_I32, device=dev)
+    peq = peq_t.permute(2, 0, 1).contiguous()
     best, pfirst, _, _ = _split_emulate(
-        peq_t.permute(2, 0, 1).contiguous(), target[None],
+        lambda *ops: reduce_lanes_plain(peq, *ops, hin0), nw,
+        target[None],
         torch.full((B,), col_lo, dtype=_I32, device=dev),
         torch.full((B,), col_hi, dtype=_I32, device=dev), lanes,
         torch.zeros(B, dtype=_I32, device=dev), hin0, c)
@@ -954,6 +995,155 @@ def wavefront_banded_plain(t, peq, state, d_base: int, n_steps: int,
     return _wavefront_steps(t, peq, state, d_base, n_steps, n_words, t_scan,
                             1, col_lo, col_hi,
                             lambda d: wavefront_base(d, lo, base_cap), None)
+
+
+# The banded wavefront's tile schedule (csrc/wavefront.cu
+# wavefront_tiles_kernel; WF_TILE columns a tile).  Cell (w, c) needs only
+# (w, c-1) and (w-1, c), and the band's rules depend on the anti-diagonal
+# c + w alone, so word w may sweep its columns in tiles of 32, tile j at
+# super-step j + w, taking word w-1's horizontal deltas of tile j as two
+# 32-bit masks and its score after the tile.  Word w's columns in a segment
+# are one interval [c_lo, c_hi) (its steps in [d_base, d_end) inside the
+# window); it takes the top boundary (0, +1) from column c_top on; a word
+# that enters the window during the segment starts at its first column from
+# Pv = ~0 with the score of word w-1 before that column + 32.  The word
+# intervals and boundaries come from _first_step (no division).
+WF_TILE = 32
+_WF_FAR = 1 << 40
+_WF_TILES_MAX_SLOTS = 4096  # past this the banded entry keeps a step a barrier
+# A segment costs the tiles about n_steps / 16 + ns super-steps, the
+# pipeline's fill and drain a fixed part; on the H100 the tiles overtake a
+# step a barrier between 4,096 and 8,192 steps at 1,024-4,096 slots
+# (chip_smoke's banded form crossover).
+_WF_TILES_MIN_STEPS = 6144
+
+
+def wavefront_banded_form(ns: int, n_steps: int) -> str:
+    """The launch form of a wavefront_banded segment of n_steps steps over
+    ns slots: "tiles" (one block, one barrier a super-step of 32 columns)
+    from _WF_TILES_MIN_STEPS steps up to 4,096 slots; else "steps" (one
+    barrier an anti-diagonal step: the block forms, or past 4,096 slots
+    the cooperative grid)."""
+    return ("tiles" if ns <= _WF_TILES_MAX_SLOTS
+            and n_steps >= _WF_TILES_MIN_STEPS else "steps")
+
+
+def _first_step(x, lo: int, base_cap: int):
+    """The first step d with wavefront_base(d) >= x (-far / +far where it
+    holds for every step / none)."""
+    return torch.where(x <= 0, -_WF_FAR,
+                       torch.where(x > base_cap, _WF_FAR, 33 * x + 31 - lo))
+
+
+def _popc(x):
+    return sum((x >> b) & 1 for b in range(WF_TILE))
+
+
+def wavefront_banded_tiles_plain(t, peq, state, d_base: int, n_steps: int,
+                                 n_words: int, t_scan: int, lo: int,
+                                 col_lo: int, col_hi: int):
+    """The tile schedule of wavefront_banded in plain PyTorch, thread by
+    thread as the kernel runs it (slots vectorised): operands and output as
+    wavefront_banded, and equal to wavefront_banded_plain."""
+    ns = state.shape[1]
+    dev = state.device
+    if n_steps == 0:
+        return state.clone()
+    cap = max(0, n_words - ns)
+    d_end = d_base + n_steps
+    b0 = wavefront_base(d_base - 1, lo, cap)
+    b_end = wavefront_base(d_end - 1, lo, cap)
+    i64 = torch.int64
+    p = torch.arange(ns, dtype=i64, device=dev)
+    w = b0 + (p - b0) % ns               # slot p's word at step d_base - 1
+    pv, mv, hn0, hp0, sc, rmin, rpos = state[:, w - b0].unbind(0)
+    pw = peq.shape[1]
+    flat = peq.reshape(-1)
+    bottom = n_words - 1
+    lane = torch.arange(WF_TILE, dtype=i64, device=dev)
+    first = lambda x: _first_step(x, lo, cap)
+
+    def span(w):
+        c_lo = torch.clamp(first(w - ns + 1), min=d_base) - w
+        c_hi = torch.clamp(first(w + 1), max=d_end) - w
+        return c_lo, c_hi, (c_lo >> 5) + w, ((c_hi - 1) >> 5) + w
+
+    # Records [parity][slot]: hp mask, hn mask, score after the tile.  The
+    # initial words' records of the column before the segment come first.
+    rec = torch.zeros((3, 2, ns), dtype=i64, device=dev)
+    cp = d_base - 1 - w
+    par = ((cp >> 5) + w) & 1
+    rec[0, par, p] = hp0.long() << (cp & 31)
+    rec[1, par, p] = hn0.long() << (cp & 31)
+    rec[2, par, p] = sc.long()
+    words = torch.arange(b0, b_end + ns, dtype=i64, device=dev)
+    c_lo, c_hi, s_a, s_b = span(words)
+    some = c_lo < c_hi
+    for s in range(int(s_a[some].min()), int(s_b[some].max()) + 1):
+        while True:   # a slot takes its next word when its word is done
+            c_lo, c_hi, s_a, s_b = span(w)
+            nxt = ((c_lo >= c_hi) | (s > s_b)) & (w + 1 <= b_end)
+            if not bool(nxt.any()):
+                break
+            w = torch.where(nxt, w + ns, w)
+            pv = torch.where(nxt, -1, pv)
+            mv = torch.where(nxt, 0, mv)
+            rmin = torch.where(nxt, _BIG, rmin)
+            rpos = torch.where(nxt, -1, rpos)
+        live = (c_lo < c_hi) & (s_a <= s) & (s <= s_b)
+        c0 = (s - w) * WF_TILE
+        cols = c0[:, None] + lane
+        act = ((cols >= c_lo[:, None]) & (cols < c_hi[:, None]) & (cols >= 0)
+               & (cols < t_scan) & (w < n_words)[:, None] & live[:, None])
+        c_top = torch.where(w <= cap, first(w) - w, _WF_FAR)
+        top = (cols >= c_top[:, None]).long()
+        prev = (p - 1) % ns
+        r_hp, r_hn, r_sc = rec[:, (s - 1) & 1, prev]
+        # A word that entered the window in this segment: its first column.
+        enter = live & (w >= b0 + ns) & (c_lo >> 5 == s - w)
+        k = (c_lo - c0).clamp(0, WF_TILE - 1)
+        sc = torch.where(enter, (r_sc - _popc(r_hp >> k) + _popc(r_hn >> k)
+                                 + 32).to(_I32), sc)
+        in_p = (((r_hp[:, None] >> lane) & 1) | top).to(_I32)
+        in_n = (((r_hn[:, None] >> lane) & 1) & (1 - top)).to(_I32)
+        eqs = flat[t[cols.clamp(0, t_scan - 1)].long() * pw
+                   + w.clamp(0, pw - 1)[:, None]]          # the tile's Eq
+        trk = (live & (w == bottom)).any() and col_hi > col_lo
+        o_p, o_n = [], []
+        for i in range(WF_TILE):
+            a = act[:, i]
+            pv2, mv2, on, op = _advance_word(pv, mv, eqs[:, i], in_n[:, i],
+                                             in_p[:, i])
+            pv = torch.where(a, pv2, pv)
+            mv = torch.where(a, mv2, mv)
+            o_p.append(op & a)
+            o_n.append(on & a)
+            sc = sc + o_p[-1] - o_n[-1]
+            if trk:
+                col = cols[:, i]
+                upd = (a & (w == bottom) & (col >= col_lo) & (col < col_hi)
+                       & (sc < rmin))
+                rmin = torch.where(upd, sc, rmin)
+                rpos = torch.where(upd, col.to(_I32), rpos)
+        o_hp = (torch.stack(o_p, 1).long() << lane).sum(1)
+        o_hn = (torch.stack(o_n, 1).long() << lane).sum(1)
+        # An initial word's first tile keeps the record of the column
+        # before the segment.
+        pre = live & (w < b0 + ns) & ((d_base - 1 - w) >> 5 == s - w)
+        cur = rec[:, s & 1, p]
+        o_hp = torch.where(pre, o_hp | cur[0], o_hp)
+        o_hn = torch.where(pre, o_hn | cur[1], o_hn)
+        rec[:, s & 1, p] = torch.where(live, torch.stack(
+            [o_hp, o_hn, sc.long()]), cur)
+    # Each slot holds a word of the last step's window; its hout is the
+    # bit of its last column (d_end - 1 - w) in its last tile's record.
+    cl = d_end - 1 - w
+    last = rec[:, ((cl >> 5) + w) & 1, p]
+    hp = ((last[0] >> (cl & 31)) & 1).to(_I32)
+    hn = ((last[1] >> (cl & 31)) & 1).to(_I32)
+    out = torch.empty_like(state)
+    out[:, w - b_end] = torch.stack([pv, mv, hn, hp, sc, rmin, rpos])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1059,6 +1249,28 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _split_launch(name, fn, head, nw: int, targets, lo, hi, prow, trow,
+                  hin0: int, core, dev):
+    """Launch K1 or K3 (fn, its leading operands head) on the split-lane
+    plan and unpack its keys: (best, pfirst, plast, last).  Where no lane
+    has two cores, thread i is lane i and no offsets are passed."""
+    n, n_cols = lo.shape[0], targets.shape[1]
+    keys = _new_keys(n, 2, dev)
+    last = torch.full((n,), _BIG, dtype=_I32, device=dev)
+    if n and n_cols:
+        c = split_core(n, n_cols, nw, hin0, core)
+        offsets = (split_offsets(split_cores(lo, hi, n_cols, c)[2])
+                   if c < n_cols and nw <= _SPLIT_MAX_WORDS else None)
+        targets = _aligned(targets)
+        _launch(name, fn, dev.index, *head, targets.data_ptr(), n_cols,
+                *_ptrs(lo, hi, prow, trow), n, int(hin0),
+                None if offsets is None else offsets.data_ptr(),
+                n * -(-n_cols // c), c, split_halo(nw), keys[0].data_ptr(),
+                keys[1].data_ptr(), last.data_ptr(),
+                _scratch(nw, n, dev).data_ptr(), _stream(dev))
+    return _unpack_keys(keys) + (last,)
+
+
 def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int, *, core=None):
     """Per-lane Myers sweep with in-sweep reduction (kernel K1).
 
@@ -1073,54 +1285,35 @@ def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int, *, core=None):
     name = "reduce_lanes"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
-    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
+    _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
     if not _on_cuda(name, peq, targets, lo, hi, prow, trow):
         return reduce_lanes_plain(peq, targets, lo, hi, prow, trow, hin0)
     s1, nw = peq.shape[1], peq.shape[2]
-    n_cols = targets.shape[1]
-    dev = peq.device
-    keys = _new_keys(n, 2, dev)
-    last = torch.full((n,), _BIG, dtype=_I32, device=dev)
-    if n and n_cols:
-        c = split_core(n, n_cols, nw, hin0, core)
-        # Where no lane has two cores, thread i is lane i: no offsets.
-        offsets = (split_offsets(split_cores(lo, hi, n_cols, c)[2])
-                   if c < n_cols and nw <= _SPLIT_MAX_WORDS else None)
-        targets = _aligned(targets)
-        _launch(name, "myers_reduce_lanes", dev.index, peq.data_ptr(), s1,
-                nw, targets.data_ptr(), n_cols,
-                *_ptrs(lo, hi, prow, trow), n, int(hin0),
-                None if offsets is None else offsets.data_ptr(),
-                n * -(-n_cols // c), c, split_halo(nw), keys[0].data_ptr(),
-                keys[1].data_ptr(), last.data_ptr(),
-                _scratch(nw, n, dev).data_ptr(), _stream(dev))
-    return _unpack_keys(keys) + (last,)
+    return _split_launch(name, "myers_reduce_lanes",
+                         (peq.data_ptr(), s1, nw), nw, targets, lo, hi, prow,
+                         trow, hin0, core, peq.device)
 
 
 def reduce_bitplane(planes, pad, targets, lo, hi, prow, trow, hin0: int,
-                    nb: int, n_alts: int, wildcard: int):
+                    nb: int, n_alts: int, wildcard: int, *, core=None):
     """reduce_lanes with Eq rebuilt per column from query-id bit planes
     (kernel K3): planes int32 (R_p, n_alts*nb*NW) from bitplane_planes,
     pad int32 (R_p, NW) rows matching every symbol, wildcard the target
-    symbol matching every row.  Other operands and outputs as reduce_lanes.
-    """
+    symbol matching every row; targets in [0, 2^nb).  Other operands and
+    outputs as reduce_lanes, and at 1-8 words the same split-lane plan
+    (`core` forces its core length, for checks only)."""
     name = "reduce_bitplane"
     _check_planes(name, planes, pad, nb, n_alts)
     _check(name, targets, "targets", 2)
-    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
+    _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
     if not _on_cuda(name, planes, pad, targets, lo, hi, prow, trow):
         return reduce_bitplane_plain(planes, pad, targets, lo, hi, prow,
                                      trow, hin0, nb, n_alts, wildcard)
     nw = pad.shape[1]
-    dev = planes.device
-    out = _lane_outputs(n, dev)
-    if n == 0:
-        return tuple(out)
-    _launch(name, "myers_reduce_bitplane", dev.index, planes.data_ptr(),
-            pad.data_ptr(), nw, nb, n_alts, wildcard, targets.data_ptr(),
-            targets.shape[1], *_ptrs(lo, hi, prow, trow), n, int(hin0),
-            *_ptrs(*out), _scratch(nw, n, dev).data_ptr(), _stream(dev))
-    return tuple(out)
+    return _split_launch(name, "myers_reduce_bitplane",
+                         (planes.data_ptr(), pad.data_ptr(), nw, nb, n_alts,
+                          wildcard), nw, targets, lo, hi, prow, trow, hin0,
+                         core, planes.device)
 
 
 def sweep_shared(peq_t, target, hin0: int, col_lo: int, col_hi: int, *,
@@ -1583,27 +1776,49 @@ def wavefront(t, peq, state, d_base: int, n_steps: int, n_words: int,
     return out, stream
 
 
+def tile_symbols(t, t_scan: int) -> torch.Tensor:
+    """The scan columns as 16-bit symbols padded with zeros to whole tiles
+    (int16 (n_tiles * WF_TILE,); symbols are < 2^15): a tile is 64 bytes,
+    four vector loads of the tile kernel.  A caller that runs many
+    wavefront_banded segments over one target makes it once (tiled=)."""
+    n_tiles = -(-t_scan // WF_TILE)
+    tt = torch.zeros(n_tiles * WF_TILE, dtype=torch.int16, device=t.device)
+    tt[:t_scan] = t[:t_scan]
+    return tt
+
+
 def wavefront_banded(t, peq, state, d_base: int, n_steps: int, n_words: int,
-                     t_scan: int, lo: int, col_lo: int, col_hi: int):
+                     t_scan: int, lo: int, col_lo: int, col_hi: int, *,
+                     tiled=None, form=None):
     """n_steps banded wavefront steps from absolute step d_base (kernel
     wavefront_banded): the window of NS word slots has its top word at
     wavefront_base(d, lo, max(0, n_words - NS)) and slides as that
     advances; its top word takes hin +1.  Operands as wavefront; returns
-    the new state (exact wherever a value is <= the band's k)."""
+    the new state (exact wherever a value is <= the band's k).  The kernel
+    runs the tile schedule or a step a barrier by wavefront_banded_form;
+    `form` forces one ("tiles" up to 4,096 slots, or "steps"), for checks
+    only.  tiled: tile_symbols(t, t_scan), where the caller made it."""
     name = "wavefront_banded"
     _check_wavefront(name, t, peq, state, d_base, n_steps, n_words, t_scan)
+    ns = state.shape[1]
+    if form not in (None, "tiles", "steps") or (
+            form == "tiles" and ns > _WF_TILES_MAX_SLOTS):
+        raise ValueError(f"{name}: no {form!r} form at {ns} slots")
     if not _on_cuda(name, t, peq, state):
         return wavefront_banded_plain(t, peq, state, d_base, n_steps,
                                       n_words, t_scan, lo, col_lo, col_hi)
     dev = state.device
     out = state.clone()
     if n_steps:
-        hand = torch.empty(2 * state.shape[1], dtype=_I32, device=dev)
+        tiles = (form or wavefront_banded_form(ns, n_steps)) == "tiles"
+        hand = torch.empty(0 if tiles else 2 * ns, dtype=_I32, device=dev)
+        if tiles:
+            t = tile_symbols(t, t_scan) if tiled is None else tiled
         _launch(name, "myers_wavefront_banded", dev.index, t.data_ptr(),
                 peq.data_ptr(), peq.shape[1], out.data_ptr(),
-                hand.data_ptr(), int(d_base), int(n_steps), state.shape[1],
-                int(n_words), int(t_scan), int(lo), int(col_lo), int(col_hi),
-                _stream(dev))
+                hand.data_ptr(), int(d_base), int(n_steps), ns,
+                int(n_words), int(t_scan), int(lo), int(col_lo),
+                int(col_hi), int(tiles), peq.shape[0], _stream(dev))
     return out
 
 

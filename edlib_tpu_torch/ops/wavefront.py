@@ -25,6 +25,7 @@ word itself.
 
 from __future__ import annotations
 
+from collections import deque
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -37,6 +38,27 @@ from edlib_tpu_torch.utils import hw
 LANES = 128
 SUB_MIN = 8
 _BIG = 0x3FFFFFFF
+# The newest banded runs (k ladder rungs), oldest first: see take_rungs.
+_RUNGS: deque = deque(maxlen=1024)
+
+
+def take_rungs() -> list:
+    """The banded runs since the last call, oldest first, and forget them:
+    for each, its entry (distance_bounded, shw_best_bounded or
+    shw_locations_bounded), k, the wavefront steps it ran in banded
+    segments and in the pinned-tail stream, whether the band died before
+    the last step, and whether it answered (the result was <= k)."""
+    out = list(_RUNGS)
+    _RUNGS.clear()
+    return out
+
+
+def _rung(fn: str, k: int, banded_steps: int, tail_steps: int, died: bool,
+          out):
+    _RUNGS.append(dict(fn=fn, k=k, banded_steps=banded_steps,
+                       tail_steps=tail_steps, died=died,
+                       answered=out is not None))
+    return out
 
 
 def _full_rows(n_words: int) -> int:
@@ -224,10 +246,13 @@ class BandedWavefront:
         return n_words, lo, self._rows((hi - lo + 31) // 33 + 3, n_words)
 
     def _init(self, q_ids, t_ids, sigma: int, n_words: int, R: int, eq=None):
-        """(peq, scan targets, initial state) of a banded run."""
+        """(peq, scan targets, their 16-bit tiles, initial state) of a
+        banded run: the tiles (on a card; None elsewhere) made once for
+        every segment's tile form."""
         t_scan = len(t_ids) + n_words * 32 - len(q_ids)
-        return (_profile(q_ids, sigma, n_words, eq, self.device),
-                _scan_targets(t_ids, t_scan, sigma, self.device),
+        t = _scan_targets(t_ids, t_scan, sigma, self.device)
+        return (_profile(q_ids, sigma, n_words, eq, self.device), t,
+                ck.tile_symbols(t, t_scan) if t.is_cuda else None,
                 initial_state(R * LANES, self.device))
 
     @staticmethod
@@ -244,23 +269,25 @@ class BandedWavefront:
             return False
         return int(state[4, :n_valid].min()) - 31 > k
 
-    def _segment(self, state, d: int, n_steps: int, peq, t, *, n_words: int,
-                 lo: int, t_scan: int, col_lo: int, col_hi: int):
+    def _segment(self, state, d: int, n_steps: int, peq, t, tiled, *,
+                 n_words: int, lo: int, t_scan: int, col_lo: int,
+                 col_hi: int):
         """One banded segment of n_steps from absolute step d."""
         return ck.wavefront_banded(t, peq, state, d, n_steps, n_words, t_scan,
-                                   lo, col_lo, col_hi)
+                                   lo, col_lo, col_hi, tiled=tiled)
 
     def _run_banded(self, q_ids, t_ids, sigma: int, n_words: int, lo: int,
                     R: int, col_lo: int, col_hi: int, eq=None, k_exit=None):
         """Run the banded sweep; return the bottom word's (score, runmin,
-        runpos) as ints.  k_exit: stop as soon as the frontier provably
+        runpos) as ints, the steps run and whether the band died.  k_exit: stop as soon as the frontier provably
         exceeds it (_band_dead); hits recorded before death still count
         (they keep the frontier <= k, so death comes after the last)."""
         qlen, tlen = len(q_ids), len(t_ids)
         WINW = R * LANES
         t_scan = tlen + n_words * 32 - qlen
         n_steps_total = t_scan + n_words - 1
-        peq, t, state = self._init(q_ids, t_ids, sigma, n_words, R, eq=eq)
+        peq, t, tiled, state = self._init(q_ids, t_ids, sigma, n_words, R,
+                                          eq=eq)
         d = 0
         died = False
         while d < n_steps_total:
@@ -268,9 +295,9 @@ class BandedWavefront:
             # steps are inert and only slide the window toward its cap,
             # which never moves the bottom word once the window holds it.
             n = min(self.seg_steps, n_steps_total - d)
-            state = self._segment(state, d, n, peq, t, n_words=n_words,
-                                  lo=lo, t_scan=t_scan, col_lo=col_lo,
-                                  col_hi=col_hi)
+            state = self._segment(state, d, n, peq, t, tiled,
+                                  n_words=n_words, lo=lo, t_scan=t_scan,
+                                  col_lo=col_lo, col_hi=col_hi)
             d += n
             if k_exit is not None and d < n_steps_total and self._band_dead(
                     state, d, n_words, lo, R, k_exit):
@@ -282,18 +309,20 @@ class BandedWavefront:
         if slot >= WINW:
             # Died before the window reached the bottom word: every
             # bottom-row cell is provably > k_exit, nothing was tracked.
-            return _BIG, _BIG, -1
+            return _BIG, _BIG, -1, d, died
         score, runmin, runpos = state[4:7, slot].tolist()
         # On death the bottom word's final column was never reached; only
         # the tracked (runmin, runpos) hits (all <= k_exit) are valid.
-        return (_BIG if died else score), runmin, runpos
+        return (_BIG if died else score), runmin, runpos, d, died
 
     def distance_bounded(self, q_ids, t_ids, sigma: int, k: int, eq=None):
         """NW distance if <= k else None."""
         n_words, lo, R = self._band_geometry(len(q_ids), len(t_ids), k)
-        score, _, _ = self._run_banded(q_ids, t_ids, sigma, n_words, lo, R,
-                                       col_lo=0, col_hi=0, eq=eq, k_exit=k)
-        return score if score <= k else None
+        score, _, _, steps, died = self._run_banded(
+            q_ids, t_ids, sigma, n_words, lo, R, col_lo=0, col_hi=0, eq=eq,
+            k_exit=k)
+        return _rung("distance_bounded", k, steps, 0, died,
+                     score if score <= k else None)
 
     def shw_best_bounded(self, q_ids, t_ids, sigma: int, k: int, eq=None):
         """SHW (best score, first best end position) if the best is <= k,
@@ -306,10 +335,11 @@ class BandedWavefront:
         n_words = encode.num_words(qlen)
         R = self._rows((2 * k + 31) // 33 + 3, n_words)
         w_pad = n_words * 32 - qlen
-        _, best, pos = self._run_banded(
+        _, best, pos, steps, died = self._run_banded(
             q_ids, np.asarray(t_ids)[:tlen_eff], sigma, n_words, -k, R,
             col_lo=w_pad, col_hi=w_pad + tlen_eff, eq=eq, k_exit=k)
-        return (best, pos - w_pad) if best <= k else None
+        return _rung("shw_best_bounded", k, steps, 0, died,
+                     (best, pos - w_pad) if best <= k else None)
 
     # Segment sizes for landing the banded phase inside the [window-pin,
     # first-emission] step interval (always >= 64 steps wide:
@@ -349,7 +379,7 @@ class BandedWavefront:
         tlen_eff = min(tlen, qlen + k)
         if qlen - k > tlen_eff:
             # Every SHW alignment deletes >= qlen - tlen_eff > k chars.
-            return None
+            return _rung("shw_locations_bounded", k, 0, 0, False, None)
         t_eff = np.asarray(t_ids)[:tlen_eff]
         n_words = encode.num_words(qlen)
         lo = -k
@@ -369,15 +399,17 @@ class BandedWavefront:
             base_cap = 0
             R = _full_rows(n_words)
 
-        peq, t, state = self._init(q_ids, t_eff, sigma, n_words, R, eq=eq)
+        peq, t, tiled, state = self._init(q_ids, t_eff, sigma, n_words, R,
+                                          eq=eq)
         d = 0
         for d0, b in self._landing(d_pin, d_emit, n_steps_total):
-            state = self._segment(state, d0, b, peq, t, n_words=n_words,
-                                  lo=lo, t_scan=t_scan, col_lo=0, col_hi=0)
+            state = self._segment(state, d0, b, peq, t, tiled,
+                                  n_words=n_words, lo=lo, t_scan=t_scan,
+                                  col_lo=0, col_hi=0)
             d = d0 + b
             if d < d_pin and self._band_dead(state, d, n_words, lo, R, k):
                 # Bottom-row columns are all in the future: nothing <= k.
-                return None
+                return _rung("shw_locations_bounded", k, d, 0, True, None)
 
         # Phase 2: the pinned-tail stream (word0 = base_cap).
         streams = []
@@ -395,7 +427,9 @@ class BandedWavefront:
         scores_cells[c0 - w_pad:] = by_step[steps0:steps0 + n_c][
             :tlen_eff - (c0 - w_pad)]
         best, positions = _filter_locations(scores_cells, qlen, k)
-        return (best, positions) if best >= 0 else None
+        return _rung("shw_locations_bounded", k, d,
+                     max(0, n_steps_total - d), False,
+                     (best, positions) if best >= 0 else None)
 
     def shw_locations(self, q_ids, t_ids, sigma: int, k: int = -1, eq=None):
         """SHW (best, [all minimal end positions]); (-1, []) when k >= 0
