@@ -27,7 +27,15 @@ Phases, each of which exits non-zero on any failure:
    sorted and random (its profile expansion and staged planes), and four
    alternatives at sigma 300 (the planes past the block's budget); and the banded wavefront's tile schedule on segments of ragged
    starts and lengths at 128, 1,024, 2,048 and 4,096 slots (a capped
-   window, a tracked range), its plain emulation beside the 128-slot ones.
+   window, a tracked range), its plain emulation beside the 128-slot ones;
+   the fixed-window wavefront's warp groups on ragged segments with rings
+   of 1, 2 and 64 tiles, passes forced to 3 and 4 groups, word0 > 0 and
+   6,144 slots, and HW from step 0 over forced column cores (halos reaching
+   column 0 and fresh ones), stream and tracked range, its emulation beside
+   the first; and the resumable reduce's split-lane cores with a carry at
+   NW 1, 4 and 8, both hin0, forced cores of 1-40 columns, per-lane and
+   shared rows, the edge lanes, fresh and carried states (at hin0 = 0 an HW
+   sweep's state), chained segments equal to one sweep.
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -81,13 +89,16 @@ Phases, each of which exits non-zero on any failure:
    (and PLAIN_WORD_COLS word-columns) of at most the first, middle and last
    calls of a path; each wavefront kernel of phases 14-17 timed over every
    call of its path (its microseconds a step; the banded one also by launch
-   form, with its tile width) and held against its plain version over
-   WF_PLAIN_STEPS steps of the first, middle and last calls (the banded one
-   over as many steps as keep the call's launch form, at least the tiles'
-   6,144, and it fails where the form differs).  K1's, K3's and
-   K2's calls also give their core length, threads and the time with one
-   core a lane (whole_ms); K3's calls also a traced batch (its kernels'
-   device time a call and the device's idle share).
+   form, with its tile width; the fixed-window one with each call's plan,
+   its column cores and warp groups, and where it runs cores the same calls
+   with one core) and held against its plain version in the form the path's
+   call runs over the first, middle and last calls: WF_PLAIN_STEPS steps,
+   two cores and the query where the call runs column cores, the banded one
+   at least the tiles' 6,144 steps; it fails where the form differs.  K1's,
+   K3's, K2's and the resumable reduce's calls also give their core
+   length, threads and the time with one core a lane (whole_ms); K3's calls
+   also a traced batch (its kernels' device time a call and the device's
+   idle share).  The resumable reduce has an entry at each hin0.
 14-17. Long single pairs through nw_distance_long, shw_best_long,
    semiglobal_locations_long and align, each with its launch counts, a
    warm repeat that must agree, and its k ladder rung by rung (k, banded
@@ -131,8 +142,9 @@ Phases, each of which exits non-zero on any failure:
    launch counts and a warm repeat that must agree:
    21. sharded_reduce_pipeline of phase 3's 8,192 reads against its
       4,194,304-bp target, hin0 0 and 1: reduce_resume 2 launches a dp row,
-      4 in all, the result equal lane for lane to one shared reduce_lanes
-      sweep of the whole scan.
+      4 in all (at hin0 0 several cores a lane, which it checks), the
+      result equal lane for lane to one shared reduce_lanes sweep of the
+      whole scan.
    22. align_batch(mesh=) on phase 7's HW batch (locations: sp halo slices
       merged over the grid, start re-runs data-parallel) and phase 8's NW
       batch (the full reduce, nw_banded must not run), map_reads(mesh=) on
@@ -762,6 +774,130 @@ def check_wavefront_tiles(rng, dev, ck):
                                 t, peq, before, *args)], [want])
 
 
+def check_wavefront_groups(rng, dev, ck):
+    """The fixed-window wavefront's warp groups == wavefront_plain: ragged
+    segment starts and lengths over 10 groups with rings of 1, 2 and 64
+    tiles, passes forced to 3 and 4 groups, word0 > 0, a tracked range cut
+    by a segment, a window of 6,144 slots (past the old block forms), and HW
+    from step 0 over forced column cores (cores of 300 and 900 columns with
+    a 2,560-column halo: the first cores' halos reach column 0, the later
+    ones start fresh) with the stream and the tracked range, whole and cut
+    runs; the schedule's plain emulation beside the first segment."""
+    from edlib_tpu_torch.ops.wavefront import initial_state
+    operands = functools.partial(wavefront_operands, rng, dev)
+
+    def held(label, args, **kw):
+        got = ck.wavefront(*args, **kw)
+        want = ck.wavefront_plain(*args)
+        check_equal(label, [got[0]] + ([got[1]] if args[11] else []),
+                    [want[0]] + ([want[1]] if args[11] else []))
+        return got[0], want
+
+    for ns, n_words, word0, hin0, cols, segs, kw in (
+            (384, 300, 0, 1, (0, 0), ((0, 97), (97, 613)), dict(ring=1)),
+            (384, 300, 0, 0, (45, 700), ((13, 333), (346, 650)),
+             dict(ring=2)),
+            (384, 300, 0, 1, (0, 900), ((0, 410), (410, 500)),
+             dict(pass_groups=3)),
+            (1024, 900, 40, 1, (0, 0), ((440, 301), (741, 700)),
+             dict(pass_groups=4, ring=2)),
+            (6144, 6000, 0, 1, (10, 800), ((3001, 700), (3701, 431)), {})):
+        t_scan = 1000
+        t, peq = operands(n_words, t_scan)
+        state = initial_state(ns, dev)
+        for i, (d, n) in enumerate(segs):
+            args = (t, peq, state, d, n, n_words, t_scan, hin0, *cols, word0,
+                    True)
+            label = (f"wavefront groups ns={ns} words={n_words} word0={word0}"
+                     f" hin0={hin0} cols={cols} {kw} from step {d} ({n})")
+            state, want = held(label, args, **kw)
+            if (ns, i) == (384, 0) and kw == dict(ring=1):
+                emu = ck.wavefront_groups_plain(*args, ring=1)
+                check_equal("wavefront_groups_plain " + label,
+                            list(emu), list(want))
+    for core, steps, cols in ((300, None, (70, 5900)), (900, None, (0, 0)),
+                              (900, 3100, (500, 2900))):
+        n_words, t_scan = 40, 6000
+        t, peq = operands(n_words, t_scan)
+        n = t_scan + n_words - 1 if steps is None else steps
+        if ck.wavefront_form(128, n_words, t_scan, 0, 0, 0, core)["cores"] < 3:
+            fail(f"wavefront: core={core} does not give column cores")
+        held(f"wavefront HW cores core={core} steps={n} cols={cols}",
+             (t, peq, initial_state(128, dev), 0, n, n_words, t_scan, 0,
+              *cols, 0, True), core=core)
+
+
+def hw_state(dev, ck, peq, rows, n, nw, rng):
+    """A random HW state a lane's sweep leaves (the pipelines' carry): each
+    lane's exit state after a random row of 60 columns from fresh."""
+    import torch
+    pre = torch.from_numpy(rng.randint(0, 5, (n, 60)).astype(np.int32)).to(
+        dev)
+    fresh = (torch.full((n, nw), -1, dtype=torch.int32, device=dev),
+             torch.zeros((n, nw), dtype=torch.int32, device=dev),
+             torch.full((n,), nw * 32, dtype=torch.int32, device=dev))
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    return ck.reduce_resume_plain(peq, pre, zero, zero, rows, rows, *fresh,
+                                  0)[4:]
+
+
+def check_resume_split(rng, dev, ck):
+    """The resumable reduce's split-lane schedule with a carry == its plain
+    version: NW 1, 4 and 8, both hin0 (hin0 = 1 keeps one core a lane),
+    forced cores of 1-40 columns, per-lane and shared rows, the edge lanes,
+    from the fresh state and from a random carry (at hin0 = 0 an HW sweep's
+    state, as the pipelines carry), every output and every word of the exit
+    state; two chained segments equal one sweep; and its plain emulation
+    beside the first."""
+    import torch
+    T = 251
+    for nw, shared in ((1, False), (4, True), (8, False)):
+        n = 300
+        peq, targets, lo, hi, prow, trow = lane_operands(
+            rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+        if shared:
+            targets, trow = targets[:1].contiguous(), trow * 0
+        hi[1::7] = lo[1::7]                   # empty window
+        lo[2::7] = hi[2::7] + 3               # lo past hi
+        hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
+        lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+        hi[5::7] = 0
+        words = rng.randint(0, 1 << 32, (2, n, nw), dtype=np.uint64)
+        pv0, mv0 = torch.from_numpy(
+            words.astype(np.uint32).view(np.int32)).to(dev)
+        random = (pv0, mv0 & ~pv0, torch.from_numpy(
+            rng.randint(0, 400, n).astype(np.int32)).to(dev))
+        fresh = (torch.full((n, nw), -1, dtype=torch.int32, device=dev),
+                 torch.zeros((n, nw), dtype=torch.int32, device=dev),
+                 torch.full((n,), nw * 32, dtype=torch.int32, device=dev))
+        for hin0 in (0, 1):
+            carries = (("fresh", fresh), (
+                "carried", random if hin0 else hw_state(dev, ck, peq, prow,
+                                                        n, nw, rng)))
+            for what, carry in carries:
+                ops = (peq, targets, lo, hi, prow, trow) + carry + (hin0,)
+                want = ck.reduce_resume_plain(*ops)
+                tag = f"nw={nw} shared={shared} hin0={hin0} {what}"
+                for core in (1, 7, 40, None):
+                    check_equal(f"reduce_resume split {tag} core={core}",
+                                ck.reduce_resume(*ops, core=core), want)
+                if (nw, what) == (1, "carried"):
+                    check_equal(f"split_resume_plain {tag}",
+                                ck.split_resume_plain(*ops, core=7), want)
+            cut = T // 2 + 1
+            r1 = ck.reduce_resume(peq, targets[:, :cut].contiguous(),
+                                  lo.clamp(max=cut), hi.clamp(max=cut), prow,
+                                  trow, *fresh, hin0, core=9)
+            r2 = ck.reduce_resume(peq, targets[:, cut:].contiguous(),
+                                  (lo - cut).clamp(min=0),
+                                  (hi - cut).clamp(min=0), prow, trow,
+                                  *r1[4:], hin0, core=9)
+            check_equal(f"reduce_resume split chained state nw={nw} "
+                        f"hin0={hin0}", r2[4:], ck.reduce_resume_plain(
+                            peq, targets, lo, hi, prow, trow, *fresh,
+                            hin0)[4:])
+
+
 def check_resumable_kernels(rng, dev, ck):
     """The resumable reduce and the carry form of the score stream == their
     plain versions at small shapes: per-lane and shared target rows, both
@@ -998,20 +1134,28 @@ def measure_wavefront(ck, name, calls):
         nbytes, ops = nbytes + nb, ops + op
         b_ms += bound(nb, op)[0]
     err, plain_ms, plain_steps, forms_held = 0.0, 0.0, 0, []
-    # wavefront_banded is held over enough steps that the held call runs
-    # the launch form the path's call ran (cuda_kernel.wavefront_banded_form).
-    held_steps = (max(WF_PLAIN_STEPS, ck._WF_TILES_MIN_STEPS)
-                  if name == "wavefront_banded" else WF_PLAIN_STEPS)
+    # Each held call runs the launch form the path's call ran: wavefront_banded
+    # over at least the tiles' 6,144 steps (cuda_kernel.wavefront_banded_form),
+    # wavefront over WF_PLAIN_STEPS steps, or where the path's call runs
+    # column cores (wavefront_form) over two cores and the query, so that a
+    # core swept from the fresh state a halo before its own is held too.
     for i in sorted({0, len(calls) // 2, len(calls) - 1}):
         a = list(calls[i])
-        a[4] = min(a[4], held_steps)
         if name == "wavefront_banded":
+            a[4] = min(a[4], max(WF_PLAIN_STEPS, ck._WF_TILES_MIN_STEPS))
             ns, form = a[2].shape[1], ck.wavefront_banded_form(
                 a[2].shape[1], calls[i][4])
-            if ck.wavefront_banded_form(ns, a[4]) != form:
-                fail(f"{name}: the held call {i} ({a[4]} steps) runs another "
-                     f"form than the path's ({calls[i][4]} steps, {form})")
-            forms_held.append(form)
+            held_form = ck.wavefront_banded_form(ns, a[4])
+        else:
+            form = wavefront_plan(ck, calls[i])
+            a[4] = min(a[4], WF_PLAIN_STEPS if form["cores"] == 1
+                       else 2 * form["core"] + a[5])
+            held_form = wavefront_plan(ck, a)
+        if held_form != form:
+            fail(f"{name}: the held call {i} ({a[4]} steps) runs another "
+                 f"form ({held_form}) than the path's ({calls[i][4]} steps, "
+                 f"{form})")
+        forms_held.append(form)
         got = kernel(*a)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1030,9 +1174,19 @@ def measure_wavefront(ck, name, calls):
     ns = calls[0][2].shape[1]
     summary = dict(segments=len(calls), slots=ns, cols=steps, ms=ms,
                    us_per_step=ms * 1e3 / max(steps, 1), plain_ms=plain_ms,
-                   plain_cols=plain_steps, bound_ms=b_ms)
-    if forms_held:
-        summary["plain_forms"] = forms_held
+                   plain_cols=plain_steps, bound_ms=b_ms,
+                   plain_forms=forms_held)
+    if name == "wavefront":
+        # The plan of each call (cores, core length, warp groups), and for
+        # calls cut into column cores the same calls with one core (the
+        # groups alone, core = t_scan).
+        summary["forms"] = [wavefront_plan(ck, a) for a in calls]
+        cored = [a for a in calls if wavefront_plan(ck, a)["cores"] > 1]
+        if cored:
+            summary["one_core_ms"] = time_ms(lambda: [
+                kernel(*a, core=a[6]) for a in cored], 1)
+            summary["cored_ms"] = time_ms(lambda: [kernel(*a)
+                                                   for a in cored], 1)
     if name == "wavefront_banded":
         # The segments each form ran (cuda_kernel.wavefront_banded_form),
         # the tile width, and each form's time on its own segments.
@@ -1047,11 +1201,21 @@ def measure_wavefront(ck, name, calls):
     log(f"{name}: {len(calls)} calls, {steps} steps over {ns} slots, kernel "
         f"{ms:.3f} ms ({summary['us_per_step']:.4f} us a step; bound "
         f"{b_ms:.3f} ms), plain {plain_ms:.1f} ms over {plain_steps} steps"
-        + (f" of forms {forms_held}" if forms_held else "") + ", equal" + (f"; forms {summary['forms']}" if "forms" in summary
-                    else ""))
+        f" of forms {forms_held}, equal"
+        + (f"; forms {summary['forms']}" if "forms" in summary else "")
+        + (f"; cored {summary['cored_ms']:.3f} ms, one core "
+           f"{summary['one_core_ms']:.3f} ms" if "one_core_ms" in summary
+           else ""))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, nbytes=nbytes,
                 ops=ops, max_abs_err=err, bound_by=bound(nbytes, ops)[1],
                 calls=[summary])
+
+
+def wavefront_plan(ck, a):
+    """A recorded wavefront call's launch plan (cuda_kernel.wavefront_form):
+    its column cores, their length and its warp groups."""
+    _, _, state, d0, _, n_words, t_scan, hin0 = a[:8]
+    return ck.wavefront_form(state.shape[1], n_words, t_scan, d0, hin0, a[10])
 
 
 def banded_form_crossover(ck, call):
@@ -1315,16 +1479,20 @@ def bound(nbytes, ops):
 
 
 def split_vs_whole(ck, name, args, reps):
-    """K1's, K3's or K2's split-lane launch on a recorded call's operands
-    held exactly against the same kernel with one core a lane (core = the
-    row length), and the plan and time of both."""
+    """K1's, K3's, K2's or the resumable reduce's split-lane launch on a
+    recorded call's operands held exactly against the same kernel with one
+    core a lane (core = the row length), and the plan and time of both."""
     import torch
     kernel = getattr(ck, name)
     n_cols = args[2 if name == "reduce_bitplane" else 1].shape[-1]
     whole = lambda: kernel(*args, core=n_cols)
     check_equal(f"{name}: the split launch against one core a lane",
                 kernel(*args), whole())
-    if name in ("reduce_lanes", "reduce_bitplane"):
+    if name == "reduce_resume":
+        peq, _, lo = args[:3]
+        core, k = ck.resume_cores(lo.shape[0], n_cols, peq.shape[2], args[9])
+        threads = lo.shape[0] * k
+    elif name in ("reduce_lanes", "reduce_bitplane"):
         if name == "reduce_lanes":
             peq, targets, lo, hi, _, _, hin0 = args
             nw = peq.shape[2]
@@ -1396,7 +1564,8 @@ def measure(ck, name, calls):
                     plain_cols=plain_cols, bound_ms=b)
         if traced:
             call["traced"] = traced
-        if name in ("reduce_lanes", "reduce_bitplane", "sweep_shared"):
+        if name in ("reduce_lanes", "reduce_bitplane", "sweep_shared",
+                    "reduce_resume"):
             call.update(split_vs_whole(ck, name, args, reps))
         out["calls"].append(call)
         log(f"{name} call: {n} lanes x {end} cols (nw {nw}), kernel "
@@ -1828,6 +1997,14 @@ def sharded_phases(rng, dev, ck, rec, et, grid, acgt, main_batch, hw_batch,
         got = phase(label, lambda: as_lists(tpar.sharded_reduce_pipeline(
             grid, peq, t_ids, qlen, lo, hi, hin0=hin0)), ("reduce_resume",),
             {"reduce_resume": 2 * dp})
+        if hin0 == 0:
+            # The split-lane schedule with a carry: several cores a lane.
+            for a in calls[label][0]["reduce_resume"]:
+                cores = ck.resume_cores(a[2].shape[0], a[1].shape[1],
+                                        a[0].shape[2], 0)[1]
+                if cores < 2:
+                    fail(f"{label}: a reduce_resume call ran {cores} core "
+                         "a lane")
         want, secs = timed(lambda: as_lists(ck.reduce_lanes(
             peq, scan, lo_t, hi_t, rows, rows * 0, hin0)))
         if got != want:
@@ -1970,6 +2147,11 @@ def main(argv=None) -> int:
     extra = np.random.RandomState(args.seed + 1)
     check_bitplane_split(extra, dev, ck)
     check_wavefront_tiles(extra, dev, ck)
+    # The warp groups' and the carried cores' checks: a generator of their
+    # own again, so the paths below see the same data.
+    extra = np.random.RandomState(args.seed + 2)
+    check_wavefront_groups(extra, dev, ck)
+    check_resume_split(extra, dev, ck)
     log("kernels equal their plain versions at small shapes")
 
     rec = Recorder(ck)
@@ -2314,8 +2496,10 @@ def main(argv=None) -> int:
                                  "bound_ms", "bound_by", "calls")})
         log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
             f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
-    # Phase 13 for the kernels of phases 21-23.
+    # Phase 13 for the kernels of phases 21-23 (the resumable reduce at both
+    # hin0, an entry each).
     pipe_calls, pipe_counts = sharded_calls["reduce_pipeline_hin0_0"]
+    pipe1_calls, pipe1_counts = sharded_calls["reduce_pipeline_hin0_1"]
     nwp_calls2, nwp_counts2 = sharded_calls["mesh_nw_pipeline"]
     ad_calls = [c for k in ADAPT_KS
                 for c in adaptive_calls[f"hw_adaptive_k{k}"][0]["hw_adaptive"]]
@@ -2324,6 +2508,8 @@ def main(argv=None) -> int:
     for name, calls, n_launch, path in (
             ("reduce_resume", pipe_calls["reduce_resume"],
              pipe_counts["reduce_resume"], "reduce_pipeline_hin0_0"),
+            ("reduce_resume", pipe1_calls["reduce_resume"],
+             pipe1_counts["reduce_resume"], "reduce_pipeline_hin0_1"),
             ("sweep_scores_resume", nwp_calls2["sweep_scores_resume"],
              nwp_counts2["sweep_scores_resume"], "mesh_nw_pipeline"),
             ("hw_adaptive", ad_calls, ad_launches, "hw_adaptive")):

@@ -55,15 +55,18 @@ SIGNATURES = {
     "myers_sweep_scores": [_I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P],
     "myers_reduce_resume": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                            _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P],
     "myers_hw_adaptive": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "myers_reduce_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                               _P, _P, _P],
     "myers_hits_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _P,
                             _P],
-    "myers_wavefront": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P, _P],
+    "myers_wavefront": [_I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
+                        _P, _P],
+    "myers_wavefront_capacity": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "myers_wavefront_banded": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P],
 }

@@ -54,7 +54,8 @@
 //                          score), with the exit state written out.  It
 //                          sweeps exactly the segment's columns (the TPU
 //                          wrapper asserts T % chunk == 0, since swept pad
-//                          columns would corrupt the carry).
+//                          columns would corrupt the carry); split-lane at
+//                          1-8 words, the cores at column 0 from the carry.
 //   myers_hw_adaptive      _hw_adaptive_kernel (:1469), launched by
 //                          sweep_hw_adaptive_pallas (:1636, pallas_call
 //                          :1669): the value-adaptive banded HW/SHW reduce,
@@ -81,13 +82,14 @@
 // of word updates, so issue is only reached with many threads resident: a
 // launch of a few long lanes is latency-bound.
 //
-// K1 (myers_reduce_lanes), K3 (myers_reduce_bitplane) and K2
-// (myers_sweep_shared) at 1-8 words take the split-lane schedule (see "The
-// split-lane schedule" below): in HW mode a long lane is cut into cores of
-// columns, each core one thread that starts from the fresh state a halo of
-// 2 * 32 * NW columns before its core, so a few long lanes (K2's overflow
-// stragglers, K1's and K3's segmented fallbacks and the shared row) fill
-// the card; each thread streams its target columns through shared memory
+// K1 (myers_reduce_lanes), K3 (myers_reduce_bitplane), K2
+// (myers_sweep_shared) and the resumable reduce at 1-8 words take the
+// split-lane schedule (see "The split-lane schedule" below): in HW mode a
+// long lane is cut into cores of columns, each core one thread that starts
+// from the fresh state a halo of 2 * 32 * NW columns before its core (the
+// resumable reduce's first cores from the carry), so a few long lanes (K2's
+// overflow stragglers, K1's and K3's segmented fallbacks, the shared row,
+// the sharded pipelines' segments) fill the card; each thread streams its target columns through shared memory
 // with cp.async, keeps its block's profile rows (K3: its rows' expanded
 // bit-plane profiles) in shared memory and loads the next column's Eq words
 // before the current column advances.  Past 8 words, and in the other
@@ -749,12 +751,14 @@ sweep_scores_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
                  (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), s);
 }
 
-// The resumable reduce: every column of the lane's target row from the
-// carried state, the reduction over [lo, hi) of those columns.
+// The resumable reduce past 8 words: every column of the lane's target row
+// from the carried state, the reduction over [lo, hi) of those columns (1-8
+// words take reduce_resume_split_kernel).
 template <int NW>
-__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+__global__ void __launch_bounds__(kWaveThreads)
 reduce_resume_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
                      LaneArgs a) {
+  static_assert(NW == 0, "1-8 words take reduce_resume_split_kernel");
   const int lane = lane_index(a);
   if (lane >= a.n_lanes) return;
   WindowReduction r;
@@ -974,19 +978,15 @@ struct PlaneRows {
   }
 };
 
-// Sweep the stream's columns (the first is column c0) from the fresh state,
-// calling v.update(score, c, true) for each.
+// Sweep the stream's columns (the first is column c0) from the state (pv,
+// mv, score), calling v.update(score, c, true) for each; the state after
+// the last column is left in (pv, mv, score).
 template <int NW, class Eq, class Visit>
 __device__ __forceinline__ void sweep_core(const SymStream& st, const Eq& eq,
                                            uint32_t hin_pos, int c0,
+                                           uint32_t (&pv)[NW],
+                                           uint32_t (&mv)[NW], int32_t& score,
                                            Visit& v) {
-  uint32_t pv[NW], mv[NW];
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    pv[w] = ~0u;
-    mv[w] = 0u;
-  }
-  int32_t score = NW * 32;
   st.issue(0);
   st.issue(1);
   for (int s = 0; s * kStage < st.n; ++s) {
@@ -1025,6 +1025,21 @@ __device__ __forceinline__ void sweep_core(const SymStream& st, const Eq& eq,
     st.issue(s + 2);
   }
   cp_async_wait<0>();
+}
+
+// The same sweep from the fresh state.
+template <int NW, class Eq, class Visit>
+__device__ __forceinline__ void sweep_core(const SymStream& st, const Eq& eq,
+                                           uint32_t hin_pos, int c0,
+                                           Visit& v) {
+  uint32_t pv[NW], mv[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    pv[w] = ~0u;
+    mv[w] = 0u;
+  }
+  int32_t score = NW * 32;
+  sweep_core<NW>(st, eq, hin_pos, c0, pv, mv, score, v);
 }
 
 // One core of a lane: columns [c_lo, c_hi) of its scanned span [s, end),
@@ -1070,9 +1085,11 @@ __device__ __forceinline__ int block_inclusive_sum(int x, int* warp_sums) {
 
 struct SplitArgs {
   const int32_t* offsets;  // (n_lanes + 1,): a lane's first thread; total
-                           // (K1; null: one core a lane, thread t lane t)
+                           // (K1; null: n_cores cores a lane, or one core a
+                           // lane, thread t lane t, where n_cores is 0)
   int core, halo;
   int peq_words;           // profile words the block's shared memory holds
+  int n_cores;             // the resumable reduce: cores a lane, every lane
 };
 
 // A split-lane thread's place: its lane and core, and the block's distinct
@@ -1091,16 +1108,22 @@ __device__ __forceinline__ bool split_place(const LaneArgs& a,
   __shared__ int row_of[kSplitMaxThreads];
   __shared__ int warp_sums[kSplitMaxThreads / 32], n_slots;
   const int T = blockDim.x;
-  const int total = sp.offsets ? sp.offsets[a.n_lanes] : a.n_lanes;
+  const long long total = sp.offsets  ? sp.offsets[a.n_lanes]
+                          : sp.n_cores ? (long long)a.n_lanes * sp.n_cores
+                                       : a.n_lanes;
   const long long t0 = (long long)blockIdx.x * T;
   if (t0 >= total) return false;
-  const int t = static_cast<int>(t0) + threadIdx.x;
-  p.active = t < total;
+  const long long tl = t0 + threadIdx.x;
+  const int t = static_cast<int>(tl);
+  p.active = tl < total;
   p.lane = -1;
   p.core = 0;
   if (p.active && sp.offsets) {
     p.lane = lane_of(sp.offsets, a.n_lanes, t);
     p.core = t - sp.offsets[p.lane];
+  } else if (p.active && sp.n_cores) {  // thread t: core t % n_cores
+    p.lane = static_cast<int>(tl / sp.n_cores);
+    p.core = static_cast<int>(tl % sp.n_cores);
   } else if (p.active) {  // one core a lane: thread t is lane t
     p.lane = t;
     p.active = min(a.hi[p.lane], a.n_cols) > 0;
@@ -1118,6 +1141,29 @@ __device__ __forceinline__ bool split_place(const LaneArgs& a,
   __syncthreads();
   p.n_slots = n_slots;
   return true;
+}
+
+// The block's distinct profile rows of s1 * NW words, staged after the
+// threads' rings in shared memory where they fit sp.peq_words (every thread
+// of the block calls it); the Eq rows of this thread's profile row, there
+// or in global memory.  An inactive thread's rows are not to be read.
+template <int NW>
+__device__ __forceinline__ EqRows stage_rows(const uint32_t* peq, int s1,
+                                             const SplitArgs& sp,
+                                             const SplitPlace& p,
+                                             const int* slot_row,
+                                             uint32_t* dyn) {
+  const int T = blockDim.x;
+  const int rw = s1 * NW;
+  uint32_t* rows = dyn + T * kRingWords;
+  const bool in_smem = p.n_slots * rw <= sp.peq_words;
+  if (in_smem)
+    for (int i = threadIdx.x; i < p.n_slots * rw; i += T)
+      rows[i] = peq[(size_t)slot_row[i / rw] * rw + i % rw];
+  __syncthreads();
+  return EqRows{in_smem ? rows + p.slot * rw
+                        : peq + (size_t)max(p.row, 0) * rw,
+                NW, 1};
 }
 
 // Sweep one core from the fresh state at its start and merge its
@@ -1149,18 +1195,68 @@ reduce_split_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
   __shared__ int slot_row[kSplitMaxThreads];
   SplitPlace p;
   if (!split_place(a, sp, p, slot_row)) return;
-  const int T = blockDim.x;
-  const int rw = s1 * NW;
-  uint32_t* rows = dyn + T * kRingWords;
-  const bool in_smem = p.n_slots * rw <= sp.peq_words;
-  if (in_smem)
-    for (int i = threadIdx.x; i < p.n_slots * rw; i += T)
-      rows[i] = peq[(size_t)slot_row[i / rw] * rw + i % rw];
-  __syncthreads();
+  const EqRows eq = stage_rows<NW>(peq, s1, sp, p, slot_row, dyn);
   if (!p.active) return;
-  const EqRows eq{in_smem ? rows + p.slot * rw : peq + (size_t)p.row * rw,
-                  NW, 1};
   split_sweep<NW>(a, sp, p, dyn, eq);
+}
+
+// The resumable reduce, split-lane (1-8 words): every lane's n_cols columns
+// in sp.n_cores cores of sp.core columns from column 0, thread t core
+// t % n_cores of lane t / n_cores.  A core whose sweep starts at column 0
+// (c_lo - halo <= 0, or hin = 1: one core a lane) starts from the lane's
+// carried state; the others from the fresh state a halo before the core,
+// exact in HW by the argument above, since the carried columns before the
+// segment lie further back still (the carry must be an HW sweep's state,
+// its rows >= 0).  Each core reduces [lo, hi) over its core and merges it
+// as packed keys (scores >= 0); with one core a lane (n_cores = 1) it
+// writes best, pfirst and plast itself, whatever the carry.  The core
+// holding hi - 1 writes last, the one holding column n_cols - 1 the exit
+// state.
+template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+reduce_resume_split_kernel(const uint32_t* __restrict__ peq, int s1,
+                           LaneArgs a, SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profile rows
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  const EqRows eq = stage_rows<NW>(peq, s1, sp, p, slot_row, dyn);
+  if (!p.active) return;
+  const int lane = p.lane;
+  const int c_lo = static_cast<int>((long long)p.core * sp.core);
+  const int c_hi =
+      static_cast<int>(min((long long)c_lo + sp.core, (long long)a.n_cols));
+  const int start = a.hin_pos ? 0 : max(0, c_lo - sp.halo);
+  const bool carried = start == 0;
+  const LaneCarry cr = lane_carry(a, NW, lane);
+  uint32_t pv[NW], mv[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    pv[w] = carried ? cr.pv(w) : ~0u;
+    mv[w] = carried ? cr.mv(w) : 0u;
+  }
+  int32_t score = carried ? cr.score(NW) : NW * 32;
+  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
+  const SymStream st(dyn, tg + start, tg + a.n_cols, c_hi - start);
+  const int lo = a.lo[lane], hi = a.hi[lane];
+  WindowReduction r;
+  r.lo = max(lo, c_lo);
+  r.hi = hi;
+  sweep_core<NW>(st, eq, a.hin_pos, start, pv, mv, score, r);
+  if (sp.n_cores == 1) {
+    store(a, lane, r);
+  } else {
+    if (r.pfirst >= 0) {
+      atomicMin(a.key_first + lane, first_key(r.best, r.pfirst));
+      atomicMax(a.key_last + lane, last_key(r.best, r.plast));
+    }
+    if (hi - 1 >= c_lo && hi - 1 < c_hi) a.last[lane] = r.last;
+  }
+  if (c_hi == a.n_cols) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) cr.keep(w, pv[w], mv[w]);
+    cr.keep_score(score);
+  }
 }
 
 // K3, split-lane: K1's schedule with Eq from the query-id bit planes.  A row
@@ -2007,30 +2103,52 @@ int myers_sweep_scores(int device, const void* peq, int s1, int nw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The resumable reduce: peq, targets, lo, hi, prow, trow and the reduction
-// outputs as myers_reduce_lanes, but every lane sweeps all n_cols columns
-// of its row (the reduction still covers [lo, hi) only) from the carried
-// state pv0, mv0 uint32 (n_lanes, nw), sc0 int32 (n_lanes,), and writes the
-// state after the last column to pv1, mv1, sc1 (the same shapes).
+// The resumable reduce: peq, targets (16-byte aligned), lo, hi, prow, trow
+// as myers_reduce_lanes, but every lane sweeps all n_cols columns of its
+// row (the reduction still covers [lo, hi) only) from the carried state
+// pv0, mv0 uint32 (n_lanes, nw), sc0 int32 (n_lanes,), and writes the state
+// after the last column to pv1, mv1, sc1 (the same shapes).  At 1-8 words
+// the split-lane schedule: n_cores cores of `core` columns a lane from
+// column 0 (halo as myers_reduce_lanes; hin0 = 1 takes one core).  The
+// reduction: with n_cores > 1 key_first, key_last and last as
+// myers_reduce_lanes; else (and past 8 words, where n_cores, core and halo
+// are not read and scratch holds 2 * nw * n_lanes words) best, pfirst,
+// plast, last int32 (n_lanes,), written for every lane.
 int myers_reduce_resume(int device, const void* peq, int s1, int nw,
                         const void* targets, int n_cols, const void* lo,
                         const void* hi, const void* prow, const void* trow,
                         int n_lanes, int hin0, const void* pv0,
-                        const void* mv0, const void* sc0, void* best,
-                        void* pfirst, void* plast, void* last, void* pv1,
-                        void* mv1, void* sc1, void* scratch, void* stream) {
-  if (n_lanes <= 0) return 0;
-  if (nw < 1 || !pv0 || !mv0 || !sc0 || !pv1 || !mv1 || !sc1)
+                        const void* mv0, const void* sc0, int n_cores,
+                        int core, int halo, void* key_first, void* key_last,
+                        void* best, void* pfirst, void* plast, void* last,
+                        void* pv1, void* mv1, void* sc1, void* scratch,
+                        void* stream) {
+  if (n_lanes <= 0 || n_cols <= 0) return 0;
+  if (nw < 1 || s1 < 1 || !pv0 || !mv0 || !sc0 || !pv1 || !mv1 || !sc1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
                          scratch);
+  a.key_first = static_cast<unsigned long long*>(key_first);
+  a.key_last = static_cast<unsigned long long*>(key_last);
   set_reduction(a, best, pfirst, plast, last);
   set_carry(a, pv0, mv0, sc0, pv1, mv1, sc1);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
-#define LAUNCH(N) LANE_LAUNCH(N, reduce_resume_kernel, p, s1, nw, a)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
+  if (nw > 8) {
+    LANE_LAUNCH(0, reduce_resume_kernel, p, s1, nw, a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (n_cores < 1 || core < 1 || halo < 0 ||
+      (long long)n_cores * core < n_cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_threads = (long long)n_lanes * n_cores;
+  const SplitConfig cfg = split_config(device, n_threads, n_lanes, s1 * nw);
+  const SplitArgs sp{nullptr, core, halo, cfg.peq_words, n_cores};
+#define LAUNCH(N)                                                         \
+  reduce_resume_split_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \
+      p, s1, a, sp)
+  MYERS_DISPATCH_SPLIT(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,11 @@
 // arrive as void*, each entry point returns the cudaError_t of its launch
 // (0 = cudaSuccess) and never synchronises or allocates.
 //
-// Two entry points over two kernels: the step form (wavefront_kernel, both
-// entries) and the banded entry's tile schedule (wavefront_tiles_kernel,
-// below).  Each entry replaces a kernel of edlib_tpu/ops/wavefront.py:
+// Two entry points over three kernels: myers_wavefront runs warp groups
+// linked by per-tile records (wavefront_groups_kernel, below), the banded
+// entry the step form (wavefront_kernel) or its tile schedule
+// (wavefront_tiles_kernel).  Each entry replaces a kernel of
+// edlib_tpu/ops/wavefront.py:
 //
 //   myers_wavefront         _wf_kernel (:66), launched by _wavefront_call
 //                           (:185, pallas_call :205): all query words of the
@@ -41,21 +43,21 @@
 // w mod ns, so a slide moves no data: the slot of the leaving word takes the
 // entering one.  Loads and stores rotate between the two orders.
 //
-// What bounds it on this card: the step barrier.  A step is 13 integer
-// operations per advanced word (advance_word, myers.cu), a few hundred words
-// to a few tens of thousands, against a barrier that every step must cross,
-// because word w's input is word w-1's output one step earlier.  The windows
-// of the banded ladder (<= 4,096 slots) run as ONE block: 1,024 threads of
-// one slot each up to 1,024 slots, else 512 threads of up to 8 slots, the
-// hand-off through shared memory and __syncthreads() per step.  Wider
-// windows (the unbanded sweep of a long query: 31,744 slots for 1 Mbp)
-// spread over the co-resident blocks of a cooperative launch with one
-// grid.sync() per step and the hand-off through a global buffer read past
-// L1 (__ldcg).  The launch checks the occupancy and fails rather than run
-// with blocks that are not all resident.  The banded entry amortises the
-// barrier with the tile schedule below (one barrier a super-step of 32
-// columns) from ns steps and up to 4,096 slots; myers_wavefront keeps a
-// barrier a step.
+// What bounds the step form on this card: the step barrier.  A step is 13
+// integer operations per advanced word (advance_word, myers.cu), a few
+// hundred words to a few thousands, against a barrier that every step must
+// cross, because word w's input is word w-1's output one step earlier.  The
+// windows of the banded ladder (<= 4,096 slots) run as ONE block: 1,024
+// threads of one slot each up to 1,024 slots, else 512 threads of up to 8
+// slots, the hand-off through shared memory and __syncthreads() per step.
+// Wider windows spread over the co-resident blocks of a cooperative launch
+// with one grid.sync() per step and the hand-off through a global buffer
+// read past L1 (__ldcg).  The launch checks the occupancy and fails rather
+// than run with blocks that are not all resident.  The banded entry
+// amortises the barrier with the tile schedule below (one barrier a
+// super-step of 32 columns) from 6,144 steps and up to 4,096 slots.
+// myers_wavefront has no barrier at all: a warp group's words hand on
+// their hout by shuffles and the groups by records, once a tile.
 
 #include <climits>
 #include <cstdint>
@@ -72,17 +74,16 @@ constexpr int kBlockThreads = 512;      // one block, up to kMaxSlots a thread
 constexpr int kGridThreads = 256;       // blocks of the cooperative form
 constexpr int kMaxSlots = 8;            // slots a thread at most
 
+// The banded entry's operands (its top word takes hin (0, +1)).
 struct WfArgs {
   const int32_t* t;      // scan-column symbols, index < t_scan
   const uint32_t* peq;   // (s1, peq_words) profile bit words
   int peq_words;
   int32_t* state;        // (7, ns) logical slots, updated in place
-  int32_t* stream;       // (n_steps,) bottom-word scores, or null
   int32_t* hand;         // (2, ns) hand-off words (cooperative form)
   int d_base, n_steps, ns, n_words, t_scan;
-  uint32_t hin0;
   int col_lo, col_hi;
-  int banded, lo, base_cap, word0;
+  int lo, base_cap;
   int s1;                // profile rows (tile schedule)
   int peq_smem;          // tile schedule: slots keep their profile words
 };
@@ -92,7 +93,6 @@ __device__ __forceinline__ int floor_div33(int x) {
 }
 
 __device__ __forceinline__ int base_of(const WfArgs& a, int d) {
-  if (!a.banded) return a.word0;
   return min(max(floor_div33(d + a.lo - 31), 0), a.base_cap);
 }
 
@@ -185,7 +185,7 @@ wavefront_kernel(WfArgs a) {
         rmin[j] = kWfBig;
         rpos[j] = -1;
       }
-      uint32_t in_n = 0u, in_p = a.hin0;
+      uint32_t in_n = 0u, in_p = 1u;
       if (r > 0) {
         const int32_t v = load_hand<GRID>(prev + (p == 0 ? ns - 1 : p - 1));
         in_n = (v >> 1) & 1;
@@ -216,7 +216,6 @@ wavefront_kernel(WfArgs a) {
         hn[j] = hp[j] = 0u;
       }
       cur[p] = pack(sc[j], hn[j], hp[j]);
-      if (a.stream != nullptr && word == bottom) a.stream[i] = sc[j];
     }
     base = nb;
     barrier<GRID>();
@@ -581,6 +580,534 @@ int launch_wavefront_tiles(int device, WfArgs a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// myers_wavefront's schedule: warp groups linked by per-tile records
+// (ops/cuda_kernel.py wavefront_groups_plain is the same schedule in
+// PyTorch, group by group and tile by tile).
+//
+// A warp holds kGroup consecutive words of the window, one a lane: lane i
+// holds word w = word0 + 32 g + i and advances column d - w at step d, one
+// column behind lane i-1, whose hout of step d-1 it takes from a warp vote
+// (__ballot_sync; __shfl_up_sync in the predicated loop): no barrier inside
+// a group.  The window's top lane takes
+// (0, hin0).  A group runs its steps in tiles of kGroupTile.  Each lane
+// loads the symbols of its next tile's 32 columns while the current tile
+// runs (a symbol and its Eq word are two dependent loads; on the chain they
+// cost more than the step), reads the tile's Eq words at its start (the
+// profile rows of its 32 words in shared memory where s1 rows fit, else
+// through L1), then runs the 32 dependent steps; hout crosses lanes as two
+// votes (the top lane's input spliced in below bit 0), so a step's chain is
+// a vote, a shift, the update and a compare.
+// Where every lane is active for the whole tile the step is the bare
+// update, the score moving once by the popcounts of the hout bits,
+// collected in funnel shifts (a tile cut by the scan's ends, the core's
+// columns or the segment's end runs the predicated loop).  The bottom
+// word's stream and running (min, first argmin) come after the tile, one
+// lane a step, from the bottom lane's hout bits.
+//
+// Between groups: the bottom lane of group g hands on each tile's hout bits
+// as one 16-byte record, two 64-bit words (hp mask, tag) and (hn mask,
+// tag), tag = tile + 1, each written with one relaxed 64-bit store, so a
+// record needs no flag of its own: the top lane of group g+1 polls the two
+// words (relaxed loads at device scope) until both carry its tile's tag,
+// one tile behind group g (bit k of tile j is step d0 + k; the input of
+// step d is step d - 1's hout, so the previous record's bit 31 carries over,
+// and before the first the loaded state's hout of the word above).  The
+// next record is loaded while the tile runs.  Records go into a ring of
+// `ring` tiles, in shared memory between the warps of a block and in global
+// memory between blocks; the reader publishes its consumed count (release)
+// every max(1, ring / 4) tiles and the writer waits (acquire) only while
+// the ring is full, so in steady state no group waits on a slower reader.
+//
+// Placement: a task is one block's groups (wpb <= 8 consecutive groups of
+// one core); blocks are persistent and take tasks in increasing order
+// (core-major) from an atomic counter.  The launch checks the occupancy:
+// every block of the grid is resident and one core's blocks fit at once,
+// else it returns an error (it never waits on a block that cannot run).
+// Because tasks are taken in order, a task that waits for the next task of
+// its core to start is never waited on by an earlier core, whose tasks are
+// all running or done: no deadlock.  A window past the groups one launch
+// keeps resident runs as passes, a launch each: the bottom group of a pass
+// writes every record of the segment (bottom_out) and the next pass's top
+// group reads them (top_in).
+//
+// HW column cores (n_cores > 1, hin0 = 0, word0 = 0, from step 0): core k
+// owns columns [k * core, (k + 1) * core), the first from -inf, the last to
+// +inf, and sweeps from the fresh state (Pv = ~0, Mv = 0, slot s's score
+// (s + 1) * 32, hout 0) at column max(0, k * core - halo), the first core
+// from the loaded state.  This is exact for every word, not only the bottom
+// row: in HW every cell of row i is <= i + 1 (it can start anywhere), so an
+// optimal path to a cell (i, c) costs <= i + 1 and spans at most 2 (i + 1)
+// columns: it starts at or after column c - 2 (i + 1) + 1, which for
+// c >= k * core and every row of the window (i + 1 <= 32 n_words) is at or
+// after the sweep's start when halo = 2 * 32 * n_words
+// (cuda_kernel.split_halo).  The DP from the fresh state there holds every
+// such path, so every cell, and with it every Pv, Mv, hout and score, is
+// exact from column k * core on.  A core stops each word at its last owned
+// column; it writes the exit state of the words whose last column (clamped
+// into the scan) it owns, the stream of the steps whose bottom column it
+// owns, and merges the bottom word's (min, first argmin) over its owned
+// columns into a packed 64-bit key (score << 32 | column) with atomicMin.
+//
+// What bounds it: the dependent chain of a step, about ten integer
+// operations and a vote a word-step, one group per warp, and on the card
+// more than that count (0.08-0.12 us a step, slower with more warps on an
+// SM: not broken down); with the records' hand-off once a tile a group
+// waits only to fill the pipeline, 32 steps a group, at each launch's
+// start.  HW calls hide the chain behind their column cores.
+
+constexpr int kGroup = 32;         // words a warp group
+constexpr int kGroupTile = 32;     // steps a tile
+constexpr int kGroupMaxWarps = 8;  // groups a block
+constexpr size_t kGroupPeqSmem = 64 * 1024;  // profile bytes a block keeps
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+struct GroupArgs {
+  const int32_t* t;        // scan-column symbols, index < t_scan
+  const uint32_t* peq;     // (s1, peq_words) profile bit words
+  int peq_words, s1;
+  const int32_t* state_in;  // (7, ns) logical slots
+  int32_t* state_out;       // (7, ns): the owned words' planes 0-4
+  int32_t* stream;          // (n_steps,) bottom-word scores, or null
+  unsigned long long* key;  // the bottom word's packed (min, argmin), or null
+  ulonglong2* links;        // (n_cores, n_groups, ring) records
+  unsigned* cons;           // (n_cores, n_groups) tiles each reader consumed
+  int* next_task;
+  const ulonglong2* top_in;  // records of the pass above, or null
+  ulonglong2* bottom_out;    // records for the pass below, or null
+  int d_base, n_steps, ns, n_words, t_scan, word0, col_lo, col_hi;
+  uint32_t hin0;
+  int g_lo, n_groups, g_real;  // groups [g_lo, g_lo + n_groups) of g_real
+  int n_cores, core, halo;
+  int ring, wpb, peq_smem;
+};
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// A wait that a correct schedule ends in microseconds to milliseconds; past
+// kSpinLimitNs of the global timer it traps, so a fault fails the launch
+// (the wrapper raises) instead of holding the card.
+constexpr unsigned long long kSpinLimitNs = 60ull * 1000 * 1000 * 1000;
+
+struct Spin {
+  unsigned long long t0 = 0;
+  unsigned n = 0;
+
+  __device__ __forceinline__ void tick() {
+    if ((++n & 1023u) != 0) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (t0 == 0) {
+      t0 = now;
+    } else if (now - t0 > kSpinLimitNs) {
+      __trap();
+    }
+  }
+};
+
+__device__ __forceinline__ unsigned long long record_word(uint32_t bits,
+                                                          int tile) {
+  return (static_cast<unsigned long long>(bits) << 32) |
+         static_cast<unsigned>(tile + 1);
+}
+
+// One warp group of one core: local group gl of this launch, warp `warp`
+// of its block; s_rec/s_cons the block's shared links, s_peq this warp's
+// profile rows.
+__device__ void run_group(const GroupArgs& a, int core, int gl, int warp,
+                          int lane, ulonglong2* s_rec, unsigned* s_cons,
+                          uint32_t* s_peq) {
+  const int g = a.g_lo + gl;
+  const int s = g * kGroup + lane;
+  const int w = a.word0 + s;
+  const bool live = s < a.ns && w < a.n_words;
+  const int ns = a.ns;
+  const int K = a.n_cores;
+  const int w_last = a.word0 + min(a.ns, a.n_words - a.word0) - 1;
+  const int d_end = a.d_base + a.n_steps;
+  // The core's swept columns [cs, ce) and steps [d_lo, d_hi).
+  int cs = 0, ce = a.t_scan, d_lo = a.d_base, d_hi = d_end;
+  if (K > 1) {
+    const long long c0 = (long long)core * a.core;
+    if (core > 0) {
+      cs = static_cast<int>(max(0LL, c0 - a.halo));
+      d_lo = max(a.d_base, cs + a.word0);
+    }
+    if (core < K - 1) {
+      ce = static_cast<int>(min((long long)a.t_scan, c0 + a.core));
+      d_hi = static_cast<int>(min((long long)d_end, (long long)ce + w_last));
+    }
+  }
+  const auto owns = [&](int c) {
+    if (K == 1) return true;
+    c = min(max(c, 0), a.t_scan - 1);
+    return c / a.core == core;
+  };
+  // The loaded state (the first core) or the fresh one; the carry into the
+  // top lane is the hout of the word above at the step before d_lo.
+  const int sl = min(s, ns - 1);
+  uint32_t pv = ~0u, mv = 0u, hn = 0u, hp = 0u, carry_p = 0u, carry_n = 0u;
+  int32_t sc = (s + 1) * 32;
+  if (core == 0) {
+    pv = static_cast<uint32_t>(a.state_in[sl]);
+    mv = static_cast<uint32_t>(a.state_in[ns + sl]);
+    hn = static_cast<uint32_t>(a.state_in[2 * ns + sl]) & 1u;
+    hp = static_cast<uint32_t>(a.state_in[3 * ns + sl]) & 1u;
+    sc = a.state_in[4 * ns + sl];
+    if (g > 0) {
+      const int q = g * kGroup - 1;
+      carry_n = static_cast<uint32_t>(a.state_in[2 * ns + q]) & 1u;
+      carry_p = static_cast<uint32_t>(a.state_in[3 * ns + q]) & 1u;
+    }
+  }
+  // The link into the top lane and the link out of the bottom lane.
+  const ulonglong2* in_rec = nullptr;
+  unsigned* in_cons = nullptr;
+  int in_depth = INT_MAX;
+  if (g > 0) {
+    if (gl == 0) {
+      in_rec = a.top_in;
+    } else if (warp == 0) {
+      const size_t l = (size_t)core * a.n_groups + gl;
+      in_rec = a.links + l * a.ring;
+      in_cons = a.cons + l;
+      in_depth = a.ring;
+    } else {
+      in_rec = s_rec + warp * a.ring;
+      in_cons = s_cons + warp;
+      in_depth = a.ring;
+    }
+  }
+  ulonglong2* out_rec = nullptr;
+  const unsigned* out_cons = nullptr;
+  int out_depth = INT_MAX;
+  if (g + 1 < a.g_real) {
+    if (gl + 1 == a.n_groups) {
+      out_rec = a.bottom_out;
+    } else if (warp + 1 == a.wpb) {
+      const size_t l = (size_t)core * a.n_groups + gl + 1;
+      out_rec = a.links + l * a.ring;
+      out_cons = a.cons + l;
+      out_depth = a.ring;
+    } else {
+      out_rec = s_rec + (warp + 1) * a.ring;
+      out_cons = s_cons + warp + 1;
+      out_depth = a.ring;
+    }
+  }
+  const int wr = min(w, a.n_words - 1);
+  if (a.peq_smem) {
+    for (int r = 0; r < a.s1; ++r)
+      s_peq[r * kGroup + lane] = a.peq[(size_t)r * a.peq_words + wr];
+    __syncwarp();
+  }
+  const int bottom_slot = a.n_words - 1 - a.word0;
+  const int bl = bottom_slot - g * kGroup;
+  const bool bottom_here = bl >= 0 && bl < kGroup && bottom_slot < ns &&
+                           (a.stream != nullptr || a.key != nullptr);
+  int32_t rmin = kWfBig;
+  int rpos = -1;
+  const int every = max(1, a.ring / 4);
+  const int n_tiles = d_hi > d_lo ? (d_hi - d_lo + kGroupTile - 1) / kGroupTile
+                                  : 0;
+  long long seen = 0;  // the reader's consumed count, as last read
+  unsigned long long px = 0ull, py = 0ull;
+  if (in_rec != nullptr && n_tiles > 0) {
+    px = ld_relaxed(&in_rec[0].x);
+    py = ld_relaxed(&in_rec[0].y);
+  }
+  // The symbols of this lane's columns in the next tile, loaded a tile
+  // ahead (clamped into the scan; columns outside it are inactive).
+  int32_t sym[kGroupTile];
+#pragma unroll
+  for (int k = 0; k < kGroupTile; ++k)
+    sym[k] = __ldg(a.t + min(max(d_lo - w + k, 0), a.t_scan - 1));
+  for (int j = 0; j < n_tiles; ++j) {
+    const int d0 = d_lo + kGroupTile * j;
+    const int nk = min(kGroupTile, d_hi - d0);
+    uint32_t tin_p = a.hin0 ? ~0u : 0u, tin_n = 0u;
+    if (g > 0) {
+      const ulonglong2* r = in_rec + (j % in_depth);
+      const unsigned tag = static_cast<unsigned>(j + 1);
+      Spin spin;
+      while (static_cast<unsigned>(px) != tag) {
+        spin.tick();
+        px = ld_relaxed(&r->x);
+      }
+      while (static_cast<unsigned>(py) != tag) {
+        spin.tick();
+        py = ld_relaxed(&r->y);
+      }
+      const uint32_t rp = static_cast<uint32_t>(px >> 32);
+      const uint32_t rn = static_cast<uint32_t>(py >> 32);
+      tin_p = (rp << 1) | carry_p;
+      tin_n = (rn << 1) | carry_n;
+      carry_p = rp >> 31;
+      carry_n = rn >> 31;
+      if (in_cons != nullptr && (j + 1) % every == 0 && lane == 0)
+        st_release(in_cons, static_cast<unsigned>(j + 1));
+      if (j + 1 < n_tiles) {  // the next record, while this tile runs
+        const ulonglong2* q = in_rec + ((j + 1) % in_depth);
+        px = ld_relaxed(&q->x);
+        py = ld_relaxed(&q->y);
+      }
+    }
+    const int cb = d0 - w;  // this lane's column at step d0
+    const bool any = __any_sync(kFull, live && cb + nk > cs && cb < ce);
+    const bool whole =
+        __all_sync(kFull, live && cb >= cs && cb + kGroupTile <= ce) &&
+        nk == kGroupTile;
+    const int32_t sc0 = sc;
+    uint32_t o_p = 0u, o_n = 0u;
+    // The tile's Eq words from the symbols loaded during the last tile, then
+    // the next tile's symbols, in flight while this tile's chain runs.
+    uint32_t eq[kGroupTile];
+    if (a.peq_smem) {
+#pragma unroll
+      for (int k = 0; k < kGroupTile; ++k)
+        eq[k] = s_peq[sym[k] * kGroup + lane];
+    } else {
+#pragma unroll
+      for (int k = 0; k < kGroupTile; ++k)
+        eq[k] = __ldg(a.peq + (size_t)sym[k] * a.peq_words + wr);
+    }
+#pragma unroll
+    for (int k = 0; k < kGroupTile; ++k)
+      sym[k] = __ldg(a.t + min(max(cb + kGroupTile + k, 0), a.t_scan - 1));
+    if (!any) {
+      hn = hp = 0u;
+    } else {
+      // hout crosses lanes as two words (hn, hp): votes in whole tiles,
+      // shuffles in the predicated loop, no packing on the chain.
+      if (whole) {
+        // The lanes' hout as two votes: lane i takes bit i - 1, the top
+        // lane the tile's input bit spliced in below bit 0.
+        uint32_t bn = __ballot_sync(kFull, hn != 0u);
+        uint32_t bp = __ballot_sync(kFull, hp != 0u);
+#pragma unroll
+        for (int k = 0; k < kGroupTile; ++k) {
+          const uint32_t in_n = (((bn << 1) | ((tin_n >> k) & 1u)) >> lane) & 1u;
+          const uint32_t in_p = (((bp << 1) | ((tin_p >> k) & 1u)) >> lane) & 1u;
+          const uint32_t e = eq[k];
+          const uint32_t xv = e | mv;
+          const uint32_t e2 = e | in_n;
+          const uint32_t xh = (((e2 & pv) + pv) ^ pv) | e2;
+          const uint32_t ph = mv | ~(xh | pv);
+          const uint32_t mh = pv & xh;
+          const uint32_t phs = (ph << 1) | in_p;
+          const uint32_t mhs = (mh << 1) | in_n;
+          pv = mhs | ~(xv | phs);
+          mv = phs & xv;
+          bn = __ballot_sync(kFull, static_cast<int32_t>(mh) < 0);
+          bp = __ballot_sync(kFull, static_cast<int32_t>(ph) < 0);
+          o_p = __funnelshift_l(ph, o_p, 1);
+          o_n = __funnelshift_l(mh, o_n, 1);
+        }
+        hn = o_n & 1u;  // the last step's, before the reversal
+        hp = o_p & 1u;
+        o_p = __brev(o_p);
+        o_n = __brev(o_n);
+        sc += __popc(o_p) - __popc(o_n);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kGroupTile; ++k) {
+          if (k >= nk) break;
+          uint32_t in_n = __shfl_up_sync(kFull, hn, 1);
+          uint32_t in_p = __shfl_up_sync(kFull, hp, 1);
+          if (lane == 0) {
+            in_n = (tin_n >> k) & 1u;
+            in_p = (tin_p >> k) & 1u;
+          }
+          const int c = cb + k;
+          const bool act = live && c >= cs && c < ce;
+          const uint32_t e = eq[k];
+          const uint32_t xv = e | mv;
+          const uint32_t e2 = e | in_n;
+          const uint32_t xh = (((e2 & pv) + pv) ^ pv) | e2;
+          const uint32_t ph = mv | ~(xh | pv);
+          const uint32_t mh = pv & xh;
+          const uint32_t phs = (ph << 1) | in_p;
+          const uint32_t mhs = (mh << 1) | in_n;
+          if (act) {
+            pv = mhs | ~(xv | phs);
+            mv = phs & xv;
+            hp = ph >> 31;
+            hn = mh >> 31;
+            sc += static_cast<int32_t>(hp) - static_cast<int32_t>(hn);
+            o_p |= hp << k;
+            o_n |= hn << k;
+          } else {
+            hn = hp = 0u;
+          }
+        }
+      }
+    }
+    if (bottom_here) {
+      // Lane k gives the bottom word's score after step d0 + k from the
+      // bottom lane's hout bits (inactive steps have none).
+      const int32_t s0b = __shfl_sync(kFull, sc0, bl);
+      const uint32_t bp = __shfl_sync(kFull, o_p, bl);
+      const uint32_t bn = __shfl_sync(kFull, o_n, bl);
+      const uint32_t m = (2u << lane) - 1u;
+      const int32_t v = s0b + __popc(bp & m) - __popc(bn & m);
+      const int c = d0 + lane - (a.n_words - 1);
+      const bool step = lane < nk && owns(c);
+      if (a.stream != nullptr && step) a.stream[d0 + lane - a.d_base] = v;
+      if (a.key != nullptr) {
+        const bool cand = step && c >= cs && c < ce && c >= a.col_lo &&
+                          c < a.col_hi;
+        const int32_t best = __reduce_min_sync(kFull, cand ? v : kWfBig);
+        if (best < rmin) {
+          rmin = best;
+          rpos = d0 + __ffs(__ballot_sync(kFull, cand && v == best)) - 1 -
+                 (a.n_words - 1);
+        }
+      }
+    }
+    if (out_rec != nullptr) {
+      Spin spin;
+      while (out_cons != nullptr && j - seen >= out_depth) {
+        spin.tick();
+        seen = ld_acquire(out_cons);
+      }
+      if (lane == kGroup - 1) {
+        ulonglong2* r = out_rec + (j % out_depth);
+        st_relaxed(&r->x, record_word(o_p, j));
+        st_relaxed(&r->y, record_word(o_n, j));
+      }
+    }
+  }
+  if (live && owns(d_end - 1 - w)) {
+    a.state_out[s] = static_cast<int32_t>(pv);
+    a.state_out[ns + s] = static_cast<int32_t>(mv);
+    a.state_out[2 * ns + s] = static_cast<int32_t>(hn);
+    a.state_out[3 * ns + s] = static_cast<int32_t>(hp);
+    a.state_out[4 * ns + s] = sc;
+  }
+  if (bottom_here && a.key != nullptr && lane == 0 && rpos >= 0)
+    atomicMin(a.key, (static_cast<unsigned long long>(
+                          static_cast<uint32_t>(rmin)) << 32) |
+                         static_cast<uint32_t>(rpos));
+}
+
+__global__ void __launch_bounds__(kGroupMaxWarps * 32)
+wavefront_groups_kernel(GroupArgs a) {
+  extern __shared__ __align__(16) unsigned char gsm[];
+  ulonglong2* s_rec = reinterpret_cast<ulonglong2*>(gsm);  // [wpb][ring]
+  unsigned* s_cons = reinterpret_cast<unsigned*>(s_rec + a.wpb * a.ring);
+  uint32_t* s_peq = reinterpret_cast<uint32_t*>(s_cons + a.wpb);
+  __shared__ int task_s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bpc = (a.n_groups + a.wpb - 1) / a.wpb;  // tasks a core
+  const int n_tasks = a.n_cores * bpc;
+  for (;;) {
+    __syncthreads();
+    if (threadIdx.x == 0) task_s = atomicAdd(a.next_task, 1);
+    for (int i = threadIdx.x; i < a.wpb * a.ring; i += blockDim.x)
+      s_rec[i] = make_ulonglong2(0ull, 0ull);
+    for (int i = threadIdx.x; i < a.wpb; i += blockDim.x) s_cons[i] = 0u;
+    __syncthreads();
+    const int task = task_s;
+    if (task >= n_tasks) return;
+    const int gl = (task % bpc) * a.wpb + warp;
+    if (gl < a.n_groups)
+      run_group(a, task / bpc, gl, warp, lane, s_rec, s_cons,
+                s_peq + (size_t)warp * a.s1 * kGroup);
+  }
+}
+
+size_t group_smem(int wpb, int ring, int s1, bool peq_smem) {
+  return (size_t)wpb * ring * sizeof(ulonglong2) + wpb * sizeof(unsigned) +
+         (peq_smem ? (size_t)wpb * s1 * kGroup * sizeof(uint32_t) : 0);
+}
+
+bool group_peq_smem(int s1) {
+  return (size_t)kGroupMaxWarps * s1 * kGroup * sizeof(uint32_t) <=
+         kGroupPeqSmem;
+}
+
+// Blocks of `wpb` warps that stay resident on the card at once (*blocks).
+int group_residency(int device, int wpb, size_t smem, int* blocks) {
+  int n_sm = 0, per_sm = 0;
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          wavefront_groups_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem)))
+    return static_cast<int>(e);
+  if (const cudaError_t e = cudaDeviceGetAttribute(
+          &n_sm, cudaDevAttrMultiProcessorCount, device))
+    return static_cast<int>(e);
+  if (const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, wavefront_groups_kernel, wpb * 32, smem))
+    return static_cast<int>(e);
+  *blocks = per_sm * n_sm;
+  return 0;
+}
+
+// The warps a block: a group-step slows as warps share an SM (and its
+// schedulers), so the fewest warps on the busiest SM when every task's block
+// is spread one a SM in turn, the larger block (more links in shared
+// memory) among equals.
+int group_block_warps(int device, int n_groups, int n_cores) {
+  int n_sm = 132;
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  int best = kGroupMaxWarps;
+  long long best_load = LLONG_MAX;
+  for (int wpb = kGroupMaxWarps; wpb >= 1; --wpb) {
+    const long long blocks =
+        (long long)n_cores * ((n_groups + wpb - 1) / wpb);
+    const long long load = (blocks + n_sm - 1) / n_sm * wpb;
+    if (load < best_load) {
+      best_load = load;
+      best = wpb;
+    }
+  }
+  return best;
+}
+
+int launch_wavefront_groups(int device, GroupArgs a, void* stream) {
+  if (a.n_steps <= 0 || a.n_groups <= 0) return 0;
+  if (a.ns < 1 || a.n_words < 1 || a.peq_words < a.n_words || a.s1 < 1 ||
+      a.ring < 1 || a.n_cores < 1 || a.core < 1 || a.halo < 0 ||
+      a.g_lo < 0 || a.g_lo + a.n_groups > a.g_real ||
+      (long long)a.n_cores * a.core < a.t_scan ||
+      (a.n_cores > 1 && (a.g_lo > 0 || a.top_in != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  a.peq_smem = group_peq_smem(a.s1);
+  a.wpb = group_block_warps(device, a.n_groups, a.n_cores);
+  const size_t smem = group_smem(a.wpb, a.ring, a.s1, a.peq_smem);
+  int capacity = 0;
+  if (const int e = group_residency(device, a.wpb, smem, &capacity)) return e;
+  const int bpc = (a.n_groups + a.wpb - 1) / a.wpb;
+  if (capacity < 1 || bpc > capacity)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int blocks =
+      static_cast<int>(min((long long)a.n_cores * bpc, (long long)capacity));
+  wavefront_groups_kernel<<<blocks, a.wpb * 32, smem,
+                            static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_wavefront(int device, WfArgs a, void* stream) {
   if (a.n_steps <= 0) return 0;
   if (a.ns < 1 || a.n_words < 1 || a.peq_words < a.n_words)
@@ -656,19 +1183,73 @@ extern "C" {
 // hpos, score, runmin, runpos] in logical slot order, advanced in place by
 // n_steps steps from absolute step d_base; hand int32 (2, ns) scratch.
 //
-// myers_wavefront: the fixed window [word0, word0 + ns), top hin (0, hin0);
-// stream int32 (n_steps,) receives the bottom word's score after each step
-// (null: none).
+// myers_wavefront: the fixed window [word0, word0 + ns), top hin (0, hin0),
+// warp groups linked by per-tile records (above).  state_in is read,
+// state_out (a copy of it, its hout planes zeroed from slot n_words - word0
+// on) receives planes 0-4 of every word below n_words; stream int32
+// (n_steps,) the bottom word's score after each step (null: none); key
+// uint64 (1,) the bottom word's (runmin << 32 | runpos), merged with
+// atomicMin over the columns [col_lo, col_hi) (null: no tracking).  This
+// launch runs groups [g_lo, g_lo + n_groups) of the g_real groups holding a
+// word below n_words, ceil(min(ns, n_words - word0) / 32); n_cores cores of
+// `core` columns (n_cores * core >= t_scan; n_cores > 1 only for HW from
+// step 0 with word0 = 0 and one pass), halo columns before each; scratch
+// the zeroed links, consumed counts and task counter (GroupArgs), each link
+// `ring` records; top_in / bottom_out: the records between passes (16-byte
+// records of ceil(n_steps / 32) tiles), or null.
 int myers_wavefront(int device, const void* t, const void* peq, int peq_words,
-                    void* state, void* hand, int d_base, int n_steps, int ns,
-                    int n_words, int t_scan, int hin0, int col_lo, int col_hi,
-                    int word0, void* stream_out, void* stream) {
-  WfArgs a = wf_args(t, peq, peq_words, state, hand, d_base, n_steps, ns,
-                     n_words, t_scan, col_lo, col_hi);
-  a.hin0 = hin0 ? 1u : 0u;
-  a.word0 = word0;
+                    int s1, const void* state_in, void* state_out, int d_base,
+                    int n_steps, int ns, int n_words, int t_scan, int hin0,
+                    int col_lo, int col_hi, int word0, void* stream_out,
+                    void* key, int g_lo, int n_groups, int n_cores, int core,
+                    int halo, void* scratch, int ring, const void* top_in,
+                    void* bottom_out, void* stream) {
+  GroupArgs a{};
+  a.t = static_cast<const int32_t*>(t);
+  a.peq = static_cast<const uint32_t*>(peq);
+  a.peq_words = peq_words;
+  a.s1 = s1;
+  a.state_in = static_cast<const int32_t*>(state_in);
+  a.state_out = static_cast<int32_t*>(state_out);
   a.stream = static_cast<int32_t*>(stream_out);
-  return launch_wavefront(device, a, stream);
+  a.key = static_cast<unsigned long long*>(key);
+  const size_t links = (size_t)n_cores * n_groups;
+  a.links = static_cast<ulonglong2*>(scratch);
+  a.cons = reinterpret_cast<unsigned*>(a.links + links * ring);
+  a.next_task = reinterpret_cast<int*>(a.cons + links);
+  a.top_in = static_cast<const ulonglong2*>(top_in);
+  a.bottom_out = static_cast<ulonglong2*>(bottom_out);
+  a.d_base = d_base;
+  a.n_steps = n_steps;
+  a.ns = ns;
+  a.n_words = n_words;
+  a.t_scan = t_scan;
+  a.word0 = word0;
+  a.col_lo = col_lo;
+  a.col_hi = col_hi;
+  a.hin0 = hin0 ? 1u : 0u;
+  a.g_lo = g_lo;
+  a.n_groups = n_groups;
+  a.g_real = (min(ns, n_words - word0) + kGroup - 1) / kGroup;
+  a.n_cores = n_cores;
+  a.core = core;
+  a.halo = halo;
+  a.ring = ring;
+  return launch_wavefront_groups(device, a, stream);
+}
+
+// The groups one myers_wavefront launch keeps resident for s1 profile rows
+// and rings of `ring` tiles (*groups): a window of more runs as passes.
+int myers_wavefront_capacity(int device, int s1, int ring, int* groups) {
+  if (s1 < 1 || ring < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  int blocks = 0;
+  if (const int e = group_residency(
+          device, kGroupMaxWarps,
+          group_smem(kGroupMaxWarps, ring, s1, group_peq_smem(s1)), &blocks))
+    return e;
+  *groups = blocks * kGroupMaxWarps;
+  return 0;
 }
 
 // myers_wavefront_banded: the window slides along the band of lower diagonal
@@ -682,8 +1263,6 @@ int myers_wavefront_banded(int device, const void* t, const void* peq,
                            void* stream) {
   WfArgs a = wf_args(t, peq, peq_words, state, hand, d_base, n_steps, ns,
                      n_words, t_scan, col_lo, col_hi);
-  a.hin0 = 1u;
-  a.banded = 1;
   a.lo = lo;
   a.base_cap = n_words > ns ? n_words - ns : 0;
   a.s1 = s1;

@@ -63,6 +63,7 @@ materialises the repeated profiles or targets.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -742,7 +743,9 @@ _KEY_LAST_NONE = 0xFFFFFFFF
 def split_halo(n_words: int) -> int:
     """Columns a core's sweep starts before its core: 2R, R = 32 * NW.
     Every HW bottom-row score is <= R, and an alignment of cost d spans at
-    most R + d columns."""
+    most R + d columns; so does every row's: a cell of row i is <= i + 1
+    and its optimal path spans <= 2 (i + 1) <= 2R columns, which makes
+    every word's state exact from the core on (the wavefront's cores)."""
     return 2 * n_words * WORD_SIZE
 
 
@@ -900,6 +903,93 @@ def split_shared_plain(peq_t, target, hin0: int, col_lo: int, col_hi: int,
         torch.full((B,), col_hi, dtype=_I32, device=dev), lanes,
         torch.zeros(B, dtype=_I32, device=dev), hin0, c)
     return best, pfirst
+
+
+def resume_cores(n_lanes: int, n_cols: int, n_words: int, hin0: int,
+                 core=None):
+    """(core, cores a lane) of reduce_resume's split-lane plan: every lane's
+    n_cols columns cut into cores of split_core columns from column 0 (the
+    exit state needs the last one, the carry the first)."""
+    c = split_core(n_lanes, n_cols, n_words, hin0, core)
+    return c, -(-n_cols // c) if n_cols else 0
+
+
+def split_resume_plain(peq, targets, lo, hi, prow, trow, pv0, mv0, s0,
+                       hin0: int, core=None):
+    """reduce_resume's split-lane schedule in plain PyTorch: every (lane,
+    core) swept from the carried state where its sweep starts at column 0
+    (c_lo - split_halo <= 0, or hin0 = 1: one core a lane), else from the
+    fresh state a halo before its core; each reduces [lo, hi) over its core
+    and merges by packed keys, the core holding hi - 1 gives last and the
+    one holding T - 1 the exit state.  Operands and outputs as
+    reduce_resume, equal to reduce_resume_plain where the carry is an HW
+    sweep's state (hin0 = 0) or any carry (hin0 = 1).  The halo argument
+    of the split-lane schedule holds across the carry: every cell of row i
+    is <= i + 1 from the top row, and a path from the carried column
+    costs its row's carried value (>= 0) plus at least the columns it
+    crosses less its rows, more than that from 2 (i + 1) columns on."""
+    n, T, nw = lo.shape[0], targets.shape[1], peq.shape[2]
+    dev = lo.device
+    c, K = resume_cores(n, T, nw, hin0, core)
+    if K == 1:      # one core a lane: the plain sweep from the carry
+        return reduce_resume_plain(peq, targets, lo, hi, prow, trow, pv0,
+                                   mv0, s0, hin0)
+    keys = _new_keys(n, 2, dev)
+    last = torch.full((n,), _BIG, dtype=_I32, device=dev)
+    pv1, mv1, s1 = pv0.clone(), mv0.clone(), s0.clone()
+    if not (n and K):
+        return _unpack_keys(keys) + (last, pv1, mv1, s1)
+    # Several cores a lane: HW at 1-8 words (resume_cores).
+    lane = torch.arange(n, device=dev).repeat_interleave(K)
+    c_lo = torch.arange(K, device=dev).repeat(n) * c
+    c_hi = torch.clamp(c_lo + c, max=T)
+    start = (c_lo - split_halo(nw)).clamp(min=0)
+    carried = start == 0
+    m = lane.shape[0]
+    pv = torch.where(carried[:, None], pv0[lane], -1)
+    mv = torch.where(carried[:, None], mv0[lane], 0)
+    score = torch.where(carried, s0[lane], nw * WORD_SIZE)
+    prof = peq[prow.long()[lane]]
+    tg = targets[trow.long()[lane]]
+    rows = torch.arange(m, device=dev)
+    lo_v = torch.maximum(lo.long()[lane], c_lo)
+    hi_v = hi.long()[lane]
+    best = torch.full((m,), _BIG, dtype=_I32, device=dev)
+    pf = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    pl = pf.clone()
+    lst = best.clone()
+    zero = torch.zeros(m, dtype=_I32, device=dev)
+    hpos0 = torch.full((m,), hin0, dtype=_I32, device=dev)
+    for i in range(int((c_hi - start).max())):
+        col = start + i
+        on = col < c_hi
+        words = prof[rows, tg[rows, col.clamp(max=T - 1)].long()]
+        hneg, hpos = zero, hpos0
+        pv2, mv2 = pv.clone(), mv.clone()
+        for w in range(nw):
+            pv2[:, w], mv2[:, w], hneg, hpos = _advance_word(
+                pv[:, w], mv[:, w], words[:, w], hneg, hpos)
+        pv = torch.where(on[:, None], pv2, pv)
+        mv = torch.where(on[:, None], mv2, mv)
+        score = torch.where(on, score + hpos - hneg, score)
+        win = on & (col >= lo_v) & (col < hi_v)
+        pl = torch.where(win & (score <= best), col, pl)
+        upd = win & (score < best)
+        pf = torch.where(upd, col, pf)
+        best = torch.where(upd, score, best)
+        lst = torch.where(on & (col == hi_v - 1), score, lst)
+    seen = pf >= 0
+    b = best.long()[seen]
+    keys[0].scatter_reduce_(0, lane[seen], (b << 32) | pf[seen], "amin")
+    keys[1].scatter_reduce_(0, lane[seen], ((_BIG - b) << 32) | pl[seen],
+                            "amax")
+    holds = (hi_v - 1 >= c_lo) & (hi_v - 1 < c_hi)
+    last[lane[holds]] = lst[holds]
+    ends = c_hi == T
+    pv1[lane[ends]] = pv[ends]
+    mv1[lane[ends]] = mv[ends]
+    s1[lane[ends]] = score[ends]
+    return _unpack_keys(keys) + (last, pv1, mv1, s1)
 
 
 # ---------------------------------------------------------------------------
@@ -1144,6 +1234,244 @@ def wavefront_banded_tiles_plain(t, peq, state, d_base: int, n_steps: int,
     out = torch.empty_like(state)
     out[:, w - b_end] = torch.stack([pv, mv, hn, hp, sc, rmin, rpos])
     return out
+
+
+# The fixed-window wavefront's group schedule (csrc/wavefront.cu
+# wavefront_groups_kernel).  A warp holds WF_GROUP consecutive words, one a
+# lane, lane i one column behind lane i-1 (its input by a vote), and
+# runs the segment in tiles of WF_TILE steps.  The bottom lane of group g
+# publishes each tile's hout bits as one record (hp, hn masks, bit k = step
+# d0 + k) into a ring of `ring` tiles; group g+1's top lane reads it before
+# its own tile, one tile behind.  A record carries its tile's tag, so the
+# reader needs no separate flag; the reader publishes the tiles it has
+# consumed every max(1, ring // 4) tiles and the writer waits while the
+# ring is full.  Windows wider than one launch holds run as passes of
+# consecutive groups, the bottom group of a pass writing every record of
+# the segment for the next pass's top group.  In HW (hin0 = 0) from step 0
+# with word0 = 0 the scan's columns are cut into cores (wavefront_core):
+# core k owns columns [k * core, (k + 1) * core) (the first from -inf, the
+# last to +inf) and sweeps from the fresh state split_halo(n_words)
+# columns before them, the first from the loaded state.  Every cell of row i
+# is <= i + 1 in HW, so an optimal path to a cell of that row spans at most
+# 2 (i + 1) columns: every word's state, not only the bottom row's, is exact
+# from the core's first owned column on.  A core writes the exit state of
+# the words whose last column it owns, the stream of the steps whose bottom
+# column it owns, and merges the bottom word's (min, first argmin) over its
+# owned columns as a packed key.
+WF_GROUP = 32
+_WF_RING = 64            # tiles a link's ring holds
+_WF_FILL_WARPS = 132 * 8  # HW cores: enough groups for 8 warps an SM
+_WF_BLOCK_WARPS = 8      # groups a block of the group kernel, at most
+
+
+def wavefront_core(ns: int, n_words: int, t_scan: int, d_base: int,
+                   hin0: int, word0: int, core=None) -> int:
+    """Columns each core of a wavefront call owns (t_scan or more: one
+    core).  Only HW (hin0 = 0) calls from step 0 with word0 = 0 are cut:
+    into cores of at least split_halo(n_words) columns, enough of them for
+    _WF_FILL_WARPS warps.  `core` forces the length (checks only)."""
+    if hin0 or word0 or d_base:
+        return t_scan
+    if core is not None:
+        return max(1, int(core))
+    groups = -(-min(ns, n_words) // WF_GROUP)
+    return max(split_halo(n_words),
+               -(-t_scan // max(1, _WF_FILL_WARPS // groups)))
+
+
+def wavefront_form(ns: int, n_words: int, t_scan: int, d_base: int,
+                   hin0: int, word0: int, core=None) -> dict:
+    """The launch plan of a wavefront call: its cores and their length,
+    and its warp groups (the words of the window below n_words)."""
+    real = min(ns, n_words - word0)
+    c = wavefront_core(ns, n_words, t_scan, d_base, hin0, word0, core)
+    return dict(cores=-(-t_scan // c), core=c,
+                groups=max(0, -(-real // WF_GROUP)))
+
+
+def _wf_core_span(k: int, K: int, clen: int, halo: int, t_scan: int,
+                  d_base: int, d_end: int, word0: int, w_last: int):
+    """Core k's swept columns [cs, ce) and steps [d_lo, d_hi)."""
+    cs = 0 if k == 0 else max(0, k * clen - halo)
+    ce = t_scan if k == K - 1 else min(t_scan, (k + 1) * clen)
+    d_lo = d_base if k == 0 else max(d_base, cs + word0)
+    d_hi = d_end if k == K - 1 else min(d_end, ce + w_last)
+    return cs, ce, d_lo, d_hi
+
+
+def _bits(mask: int, dev) -> torch.Tensor:
+    return torch.tensor([(mask >> k) & 1 for k in range(WF_TILE)],
+                        dtype=_I32, device=dev)
+
+
+def wavefront_groups_plain(t, peq, state, d_base: int, n_steps: int,
+                           n_words: int, t_scan: int, hin0: int, col_lo: int,
+                           col_hi: int, word0: int, emit_stream: bool, *,
+                           core=None, ring=None, pass_groups=None,
+                           block_groups=None, blocks=None):
+    """The group schedule of wavefront in plain PyTorch, group by group and
+    tile by tile as the kernel runs it (lanes vectorised): operands and
+    outputs as wavefront, equal to wavefront_plain.  core, ring and
+    pass_groups force the core length, the ring depth and the groups a
+    launch holds; block_groups and blocks the groups a block takes (a task)
+    and the blocks resident at once, tasks taken in increasing order.  The
+    running groups take turns, each running tiles until it waits on a
+    record or on ring space; a turn in which none advances raises."""
+    ns = state.shape[1]
+    dev = state.device
+    out = state.clone()
+    stream = _wavefront_stream(n_steps, emit_stream, dev)
+    if n_steps == 0:
+        return out, stream
+    real = min(ns, n_words - word0)
+    out[2:4, max(real, 0):] = 0
+    if real <= 0:
+        return out, stream
+    G = -(-real // WF_GROUP)
+    clen = wavefront_core(ns, n_words, t_scan, d_base, hin0, word0, core)
+    P = pass_groups or G
+    if P < G:
+        clen = t_scan                  # passes run one core
+    K = -(-t_scan // clen)
+    ring = ring or _WF_RING
+    wpb = block_groups or _WF_BLOCK_WARPS
+    bottom = n_words - 1 - word0
+    track = col_hi > col_lo and 0 <= bottom < ns
+    key = [(int(state[5, bottom]), int(state[6, bottom]) & 0xFFFFFFFF)]
+    halo = split_halo(n_words)
+    w_last = word0 + real - 1
+    d_end = d_base + n_steps
+    pw = peq.shape[1]
+    flat = peq.reshape(-1)
+    lane = torch.arange(WF_GROUP, dtype=torch.int64, device=dev)
+
+    def owner(c):
+        return 0 if K == 1 else min(max(c, 0), t_scan - 1) // clen
+
+    def group(k, g, gl, n_pass, link_in, link_out, top_in, bottom_out):
+        cs, ce, d_lo, d_hi = _wf_core_span(k, K, clen, halo, t_scan, d_base,
+                                           d_end, word0, w_last)
+        s = WF_GROUP * g + lane
+        w = word0 + s
+        live = (s < ns) & (w < n_words)
+        sl = s.clamp(max=ns - 1)
+        if k == 0:
+            pv, mv, sc = state[0, sl], state[1, sl], state[4, sl]
+            hn, hp = state[2, sl] & 1, state[3, sl] & 1
+            carry = ((int(state[2, s[0] - 1]) & 1, int(state[3, s[0] - 1]) & 1)
+                     if g else (0, hin0))
+        else:
+            pv = torch.full((WF_GROUP,), -1, dtype=_I32, device=dev)
+            mv = torch.zeros(WF_GROUP, dtype=_I32, device=dev)
+            sc = ((s + 1) * WORD_SIZE).to(_I32)
+            hn = hp = torch.zeros(WF_GROUP, dtype=_I32, device=dev)
+            carry = (0, hin0 if g == 0 else 0)
+        bl = bottom - WF_GROUP * g
+        has_bottom = 0 <= bl < WF_GROUP
+        every = max(1, ring // 4)
+        n_tiles = -(-(d_hi - d_lo) // WF_TILE) if d_hi > d_lo else 0
+        for j in range(n_tiles):
+            d0 = d_lo + WF_TILE * j
+            nk = min(WF_TILE, d_hi - d0)
+            if g == 0:
+                tin_p, tin_n = (hin0 << WF_TILE) - hin0, 0
+            else:
+                if top_in is not None:
+                    rec = top_in[j]
+                else:
+                    while link_in["rec"][j % ring][0] != j + 1:
+                        yield False
+                    rec = link_in["rec"][j % ring]
+                    if (j + 1) % every == 0:
+                        link_in["cons"] = j + 1
+                tin_n = ((rec[2] << 1) | carry[0]) & 0xFFFFFFFF
+                tin_p = ((rec[1] << 1) | carry[1]) & 0xFFFFFFFF
+                carry = (rec[2] >> 31, rec[1] >> 31)
+            bits_n, bits_p = _bits(tin_n, dev), _bits(tin_p, dev)
+            o_p = o_n = 0
+            for i in range(nk):
+                d = d0 + i
+                x_n = torch.cat([bits_n[i:i + 1], hn[:-1]])
+                x_p = torch.cat([bits_p[i:i + 1], hp[:-1]])
+                c = d - w
+                act = live & (c >= cs) & (c < ce)
+                eq = flat[t[c.clamp(0, t_scan - 1)].long() * pw
+                          + w.clamp(0, pw - 1)]
+                pv2, mv2, on, op = _advance_word(pv, mv, eq, x_n, x_p)
+                pv = torch.where(act, pv2, pv)
+                mv = torch.where(act, mv2, mv)
+                sc = sc + torch.where(act, op - on, 0)
+                hn = torch.where(act, on, 0)
+                hp = torch.where(act, op, 0)
+                o_p |= int(hp[-1]) << i
+                o_n |= int(hn[-1]) << i
+                if has_bottom:
+                    cb = d - (n_words - 1)
+                    if owner(cb) == k:
+                        if stream is not None:
+                            stream[d - d_base] = sc[bl]
+                        # The kernel's packed key: (score, column) least.
+                        if (track and bool(act[bl]) and col_lo <= cb < col_hi
+                                and (int(sc[bl]), cb) < key[0]):
+                            key[0] = (int(sc[bl]), cb)
+            if bottom_out is not None and gl == n_pass - 1:
+                bottom_out.append((j + 1, o_p, o_n))
+            elif link_out is not None:
+                while j - link_out["cons"] >= ring:
+                    yield False
+                link_out["rec"][j % ring] = (j + 1, o_p, o_n)
+            yield True
+        # The exit state of the words whose last column this core owns.
+        for i in range(WF_GROUP):
+            if bool(live[i]) and owner(d_end - 1 - int(w[i])) == k:
+                out[[0, 1, 2, 3, 4], int(s[i])] = torch.stack(
+                    [pv[i], mv[i], hn[i], hp[i], sc[i]])
+
+    # Tasks (core, a block's groups) in increasing order, at most `blocks`
+    # running; passes one after another, each a launch of its own.
+    top_in = None
+    for p0 in range(0, G, P):
+        n_pass = min(P, G - p0)
+        bottom_out = [] if p0 + n_pass < G else None
+        links = {}
+        tasks = [(k, b) for k in range(K)
+                 for b in range(-(-n_pass // wpb))]
+        running = []
+        while tasks or running:
+            while tasks and (blocks is None or len(running) < blocks):
+                k, b = tasks.pop(0)
+                gens = []
+                for gl in range(b * wpb, min((b + 1) * wpb, n_pass)):
+                    li = links.setdefault((k, gl), {"rec": [(0, 0, 0)] * ring,
+                                                    "cons": 0})
+                    lo_ = links.setdefault((k, gl + 1),
+                                           {"rec": [(0, 0, 0)] * ring,
+                                            "cons": 0})
+                    gens.append(group(k, p0 + gl, gl, n_pass,
+                                      li if gl else None,
+                                      lo_ if p0 + gl + 1 < G else None,
+                                      top_in if gl == 0 and p0 else None,
+                                      bottom_out))
+                running.append(gens)
+            moved = False
+            for gens in running:
+                for gen in list(gens):
+                    try:
+                        while next(gen):
+                            moved = True
+                    except StopIteration:
+                        gens.remove(gen)
+                        moved = True
+            running = [gens for gens in running if gens]
+            if not moved:
+                raise RuntimeError("wavefront_groups_plain: no group can "
+                                   "advance (the schedule deadlocks)")
+        top_in = bottom_out
+    if track:
+        rmin, rpos = key[0]
+        out[5, bottom] = rmin
+        out[6, bottom] = rpos - (1 << 32) if rpos >= 1 << 31 else rpos
+    return out, stream
 
 
 # ---------------------------------------------------------------------------
@@ -1589,7 +1917,8 @@ def sweep_scores_resume(peq, targets, prow, trow, pv0, mv0, s0, hin0: int):
     return (out.t(),) + state
 
 
-def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int):
+def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int,
+                  *, core=None):
     """The resumable reduce (kernel reduce_resume): every lane sweeps ALL
     T columns of its target row from the carried state pv0, mv0 int32
     (B, NW), s0 int32 (B,), and reduces the columns in [lo, hi) as
@@ -1597,7 +1926,12 @@ def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int):
     column of this segment).  Returns (best, pfirst, plast, last, pv, mv,
     score), the last three the state after column T-1: segments chained
     through it equal one sweep of their concatenation.  A fresh start is
-    pv0 = -1 (all ones), mv0 = 0, s0 = NW * 32."""
+    pv0 = -1 (all ones), mv0 = 0, s0 = NW * 32.  At 1-8 words the kernel
+    runs the split-lane schedule with the carry (resume_cores,
+    split_resume_plain): at hin0 = 0 its cores past the first halo start
+    from the fresh state, so the carry must be a state an HW sweep leaves
+    (every row's value >= 0, the score the bottom row's), as the pipelines'
+    carries are.  `core` forces its core length, for checks only."""
     name = "reduce_resume"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
@@ -1607,16 +1941,30 @@ def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int):
         return reduce_resume_plain(peq, targets, lo, hi, prow, trow, pv0, mv0,
                                    s0, hin0)
     s1, nw = peq.shape[1], peq.shape[2]
+    T = targets.shape[1]
     dev = peq.device
-    out = _lane_outputs(n, dev)
+    if not (n and T):
+        return (torch.full((n,), _BIG, dtype=_I32, device=dev),
+                torch.full((n,), -1, dtype=_I32, device=dev),
+                torch.full((n,), -1, dtype=_I32, device=dev),
+                torch.full((n,), _BIG, dtype=_I32, device=dev),
+                pv0.clone(), mv0.clone(), s0.clone())
     state = _carry_out(n, nw, dev)
-    if n == 0:
-        return tuple(out) + state
+    c, n_cores = resume_cores(n, T, nw, hin0, core)
+    # Several cores a lane merge packed keys; one core writes its lane.
+    keys = _new_keys(n, 2, dev) if n_cores > 1 else None
+    out = _lane_outputs(n, dev)
+    if keys is not None:
+        out[3].fill_(_BIG)
+    targets = _aligned(targets)
     _launch(name, "myers_reduce_resume", dev.index, peq.data_ptr(), s1, nw,
-            targets.data_ptr(), targets.shape[1],
-            *_ptrs(lo, hi, prow, trow), n, int(hin0),
-            *_ptrs(pv0, mv0, s0, *out, *state),
-            _scratch(nw, n, dev).data_ptr(), _stream(dev))
+            targets.data_ptr(), T, *_ptrs(lo, hi, prow, trow), n, int(hin0),
+            *_ptrs(pv0, mv0, s0), n_cores, c, split_halo(nw),
+            *([None, None] if keys is None else _ptrs(*keys)),
+            *_ptrs(*out), *_ptrs(*state), _scratch(nw, n, dev).data_ptr(),
+            _stream(dev))
+    if keys is not None:
+        out[:3] = _unpack_keys(keys)
     return tuple(out) + state
 
 
@@ -1743,9 +2091,34 @@ def _check_wavefront(name, t, peq, state, d_base: int, n_steps: int,
                          "outside [0, 2^31)")
 
 
+_WF_CAPACITY = {}
+
+
+def _wf_capacity(dev, s1: int, ring: int) -> int:
+    """Warp groups one launch of the group kernel keeps resident on the
+    card (every block at once), for s1 profile rows and a ring of `ring`
+    tiles."""
+    key = (dev.index, s1, ring)
+    if key not in _WF_CAPACITY:
+        lib = _build.load()
+        groups = ctypes.c_int(0)
+        _build.check(lib, lib.myers_wavefront_capacity(
+            dev.index, s1, ring, ctypes.byref(groups)), "wavefront")
+        _WF_CAPACITY[key] = groups.value
+    return _WF_CAPACITY[key]
+
+
+def _wf_scratch_words(n_cores: int, n_groups: int, ring: int) -> int:
+    """int32 words of a group launch's zeroed scratch (csrc/wavefront.cu
+    GroupScratch): each link's ring of 16-byte records, each link's
+    consumed count, and the task counter."""
+    links = n_cores * n_groups
+    return links * ring * 4 + links + 1
+
+
 def wavefront(t, peq, state, d_base: int, n_steps: int, n_words: int,
               t_scan: int, hin0: int, col_lo: int, col_hi: int, word0: int,
-              emit_stream: bool):
+              emit_stream: bool, *, core=None, ring=None, pass_groups=None):
     """n_steps wavefront steps of one pair from absolute step d_base over
     the fixed word window [word0, word0 + NS) (kernel wavefront).
 
@@ -1755,9 +2128,18 @@ def wavefront(t, peq, state, d_base: int, n_steps: int, n_words: int,
     keeps its running (min, first argmin) over columns [col_lo, col_hi).
     Returns (new state, stream): stream int32 (n_steps,) holds the bottom
     word's score after each step (None unless emit_stream; _BIG where the
-    bottom word is outside the window).  The input state is not changed."""
+    bottom word is outside the window).  The input state is not changed.
+
+    The kernel runs warp groups linked by per-tile records
+    (wavefront_groups_plain), in passes where the window holds more groups
+    than one launch keeps resident (a launch each), and in HW from step 0
+    over column cores (wavefront_core; such a call must start from
+    initial_state).  core, ring and pass_groups force the core length, the
+    ring's depth in tiles and the groups a pass holds, for checks only."""
     name = "wavefront"
     _check_wavefront(name, t, peq, state, d_base, n_steps, n_words, t_scan)
+    if ring is not None and ring < 1:
+        raise ValueError(f"{name}: ring={ring} < 1")
     dev = state.device
     if not _on_cuda(name, t, peq, state):
         return wavefront_plain(t, peq, state, d_base, n_steps, n_words,
@@ -1765,14 +2147,49 @@ def wavefront(t, peq, state, d_base: int, n_steps: int, n_words: int,
                                emit_stream)
     out = state.clone()
     stream = _wavefront_stream(n_steps, emit_stream, dev)
-    if n_steps:
-        hand = torch.empty(2 * state.shape[1], dtype=_I32, device=dev)
+    ns = state.shape[1]
+    real = min(ns, n_words - word0)
+    if not n_steps:
+        return out, stream
+    out[2:4, max(real, 0):] = 0
+    if real <= 0:
+        return out, stream
+    ring = ring or _WF_RING
+    s1 = peq.shape[0]
+    G = -(-real // WF_GROUP)
+    cap = _wf_capacity(dev, s1, ring)
+    if pass_groups is not None:
+        cap = max(1, min(cap, int(pass_groups)))
+    clen = (t_scan if G > cap else
+            wavefront_core(ns, n_words, t_scan, d_base, hin0, word0, core))
+    K = -(-t_scan // clen)
+    bottom = n_words - 1 - word0
+    key = None
+    if col_hi > col_lo and 0 <= bottom < ns:
+        key = ((state[5, bottom:bottom + 1].long() << 32)
+               | (state[6, bottom:bottom + 1].long() & 0xFFFFFFFF))
+    n_tiles = -(-n_steps // WF_TILE)
+    top = None
+    for g_lo in range(0, G, cap):
+        n = min(cap, G - g_lo)
+        scratch = torch.zeros(_wf_scratch_words(K, n, ring), dtype=_I32,
+                              device=dev)
+        below = (torch.zeros(4 * n_tiles, dtype=_I32, device=dev)
+                 if g_lo + n < G else None)
         _launch(name, "myers_wavefront", dev.index, t.data_ptr(),
-                peq.data_ptr(), peq.shape[1], out.data_ptr(),
-                hand.data_ptr(), int(d_base), int(n_steps), state.shape[1],
-                int(n_words), int(t_scan), int(hin0), int(col_lo),
-                int(col_hi), int(word0),
-                None if stream is None else stream.data_ptr(), _stream(dev))
+                peq.data_ptr(), peq.shape[1], s1, state.data_ptr(),
+                out.data_ptr(), int(d_base), int(n_steps), ns, int(n_words),
+                int(t_scan), int(hin0), int(col_lo), int(col_hi), int(word0),
+                None if stream is None else stream.data_ptr(),
+                None if key is None else key.data_ptr(), g_lo, n, K, clen,
+                split_halo(n_words), scratch.data_ptr(), ring,
+                None if top is None else top.data_ptr(),
+                None if below is None else below.data_ptr(), _stream(dev))
+        top = below
+    if key is not None:
+        w = key.view(_I32)                   # (low, high): see _unpack_keys
+        out[5, bottom] = w[1]
+        out[6, bottom] = w[0]
     return out, stream
 
 

@@ -108,12 +108,15 @@ class _Prepared(NamedTuple):
 class Wavefront:
     """Host side of the unbanded wavefront kernel.
 
-    Long runs are split into segments of seg_chunks * chunk steps (the JAX
-    package's segment grain) with the state carried between calls; the last
+    NW and SHW runs (hin0 = 1) are split into segments of seg_chunks *
+    chunk steps, 2^18 by default (the JAX package's grain is 16,384: a
+    segment here refills the kernel's pipeline of warp groups, and the
+    carried state makes the cut invisible in the results); the last
     segment stops at the run's last step, where the JAX package runs inert
-    steps to a whole segment."""
+    steps to a whole segment.  An HW run (hin0 = 0) is one call from step
+    0, which the kernel cuts into column cores (cuda_kernel.wavefront_core)."""
 
-    def __init__(self, chunk: int = 512, seg_chunks: int = 32, device=None):
+    def __init__(self, chunk: int = 512, seg_chunks: int = 512, device=None):
         self.chunk = chunk
         self.seg_chunks = seg_chunks
         self.device = hw.resolve_device(device)
@@ -135,7 +138,7 @@ class Wavefront:
         """(final state, stream by step or None) of the whole run."""
         state = initial_state(p.ns, self.device)
         streams = []
-        seg = self.chunk * self.seg_chunks
+        seg = p.n_steps if hin0 == 0 else self.chunk * self.seg_chunks
         for d in range(0, p.n_steps, seg):
             state, stream = ck.wavefront(p.t, p.peq, state, d,
                                          min(seg, p.n_steps - d), p.n_words,
