@@ -11,8 +11,9 @@ Phases, each of which exits non-zero on any failure:
    hin0, with and without Ph/Mh, over a ragged last chunk; the score-stream
    and eq-stream kernels at NW 1, 4 (registers) and 9 (scratch), both
    hin0, over a ragged 197 columns; every per-lane kernel in the wave form
-   (one block a lane) at 256 and a ragged 300 words; and sweep_scores and
-   reduce_lanes at 12,300 words (past the wave form: one thread a lane);
+   (one block a lane; sweep_scores in warp groups) at 256 and a ragged 300
+   words; and sweep_scores (warp groups) and reduce_lanes (past the wave
+   form: one thread a lane) at 12,300 words;
    the resumable reduce and the carry form of the score stream, per-lane
    and shared rows, both hin0, NW 1, 4, 9 and 300, from a fresh and a
    random state, two chained segments equal to one reduce_lanes /
@@ -35,7 +36,15 @@ Phases, each of which exits non-zero on any failure:
    the first; and the resumable reduce's split-lane cores with a carry at
    NW 1, 4 and 8, both hin0, forced cores of 1-40 columns, per-lane and
    shared rows, the edge lanes, fresh and carried states (at hin0 = 0 an HW
-   sweep's state), chained segments equal to one sweep.
+   sweep's state), chained segments equal to one sweep; the word-parallel
+   lane (reduce_resume with one core a lane, sweep_scores and its carry
+   form) at NW 2-8 (segments of 2, 4 and 8 threads), both hin0, fresh and
+   random carries, the edge lanes, rows of 101, 5 and 2 columns, chained
+   segments; and the score stream's warp groups at 256, 300 and 4,096
+   words, rings of 1, 2 and 64 tiles, fresh and carried, in one launch and
+   in forced passes, chained segments, and a 140,000-word lane in passes
+   unforced against the wavefront; the plain emulation of each schedule
+   beside a first case; each call's reported form checked.
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -98,7 +107,10 @@ Phases, each of which exits non-zero on any failure:
    K3's, K2's and the resumable reduce's calls also give their core
    length, threads and the time with one core a lane (whole_ms); K3's calls
    also a traced batch (its kernels' device time a call and the device's
-   idle share).  The resumable reduce has an entry at each hin0.
+   idle share).  The resumable reduce has an entry at each hin0; its calls
+   and the score stream's give their plan as the kernel reports it (form,
+   blocks and threads, and the segment width or the warp groups a lane,
+   ring and passes).
 14-17. Long single pairs through nw_distance_long, shw_best_long,
    semiglobal_locations_long and align, each with its launch counts, a
    warm repeat that must agree, and its k ladder rung by rung (k, banded
@@ -503,6 +515,27 @@ def max_abs_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
+def on_host(fn, *args, **kw):
+    """A plain version run on host copies of its tensor operands, its
+    outputs moved back to the card: the same integers, at a small shape far
+    sooner than one launch an operation on the card."""
+    import torch
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    out = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
+             **kw)
+    if isinstance(out, torch.Tensor):
+        return out.to(dev)
+    return type(out)(o.to(dev) for o in out)
+
+
+def check_form(name, plan, form, **want) -> None:
+    """The plan a wrapper reported (plan=) names `form` and the figures in
+    want."""
+    if plan.get("form") != form or any(plan.get(k) != v
+                                       for k, v in want.items()):
+        fail(f"{name}: launched {plan}, not the {form} form {want}")
+
+
 def check_equal(name, got, want) -> float:
     import torch
     torch.cuda.synchronize()
@@ -646,14 +679,14 @@ def check_kernels(rng, dev, ck):
         check_equal(f"hits_bitplane nw={nw} hin0={hin0}",
                     [ck.hits_bitplane(*hargs)],
                     [ck.hits_bitplane_plain(*hargs)])
-    # Lanes past the wave form's 4,096 words take one thread each again:
-    # 12,300 words, a few columns.
+    # Lanes past the wave form's 4,096 words take one thread each again
+    # (the score stream: warp groups): 12,300 words, a few columns.
     peq, targets, lo, hi, prow, trow = lane_operands(
         rng, dev, n_lanes=3, n_rows=2, T=3, s1=5, nw=12_300)
     hi[:] = 3
     rows = (peq, targets, prow, trow, 0)
     check_equal("sweep_scores nw=12300 hin0=0", [ck.sweep_scores(*rows)],
-                [ck.sweep_scores_plain(*rows)])
+                [on_host(ck.sweep_scores_plain, *rows)])
     lanes = (peq, targets, lo, hi, prow, trow, 1)
     check_equal("reduce_lanes nw=12300 hin0=1", ck.reduce_lanes(*lanes),
                 ck.reduce_lanes_plain(*lanes))
@@ -896,6 +929,167 @@ def check_resume_split(rng, dev, ck):
                         f"hin0={hin0}", r2[4:], ck.reduce_resume_plain(
                             peq, targets, lo, hi, prow, trow, *fresh,
                             hin0)[4:])
+
+
+def check_word_lanes(rng, dev, ck):
+    """The word-parallel lane == the plain versions: reduce_resume where its
+    plan is one core a lane (hin0 = 1; at hin0 = 0 one core forced), and
+    sweep_scores and sweep_scores_resume, at NW 2-8 (segments of 2, 4 and 8
+    threads, NW 3, 5, 6 and 7 padded), 70 lanes (at every width the last
+    warp part empty), both hin0, from the fresh state and a random carry,
+    the edge lanes (hi = 0, an empty window, lo past hi, hi past the row,
+    both past it), ragged rows of 101 columns and rows of 2 and 5 columns
+    (fewer columns than words), every output and every word of the exit
+    state; two chained segments equal one sweep; the schedule's plain
+    emulation beside the first.  The form and segment width each call
+    reports are checked; the plain versions run on the host."""
+    import torch
+    n = 70
+    for nw in range(2, 9):
+        for T in ((101, 2, 5) if nw in (3, 8) else (101,)):
+            peq, targets, lo, hi, prow, trow = lane_operands(
+                rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+            hi[1::7] = lo[1::7]                   # empty window
+            lo[2::7] = hi[2::7] + 3               # lo past hi
+            hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
+            lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+            words = rng.randint(0, 1 << 32, (2, n, nw), dtype=np.uint64)
+            pv0, mv0 = torch.from_numpy(
+                words.astype(np.uint32).view(np.int32)).to(dev)
+            random = (pv0, mv0 & ~pv0, torch.from_numpy(
+                rng.randint(0, 400, n).astype(np.int32)).to(dev))
+            fresh = (torch.full((n, nw), -1, dtype=torch.int32, device=dev),
+                     torch.zeros((n, nw), dtype=torch.int32, device=dev),
+                     torch.full((n,), nw * 32, dtype=torch.int32, device=dev))
+            rows = (peq, targets, prow, trow)
+            width = 2 if nw <= 2 else 4 if nw <= 4 else 8
+            for hin0 in (0, 1):
+                core = None if hin0 else T
+                tag = f"nw={nw} T={T} hin0={hin0}"
+                for what, carry in (("fresh", fresh), ("carried", random)):
+                    ops = (peq, targets, lo, hi, prow, trow) + carry + (hin0,)
+                    want = on_host(ck.reduce_resume_plain, *ops)
+                    plan = {}
+                    check_equal(f"reduce_resume words {tag} {what}",
+                                ck.reduce_resume(*ops, core=core, plan=plan),
+                                want)
+                    check_form(f"reduce_resume {tag}", plan, "words",
+                               width=width, cores=1)
+                    if (nw, T, hin0, what) == (2, 101, 0, "carried"):
+                        check_equal(f"reduce_resume_words_plain {tag} {what}",
+                                    on_host(ck.reduce_resume_words_plain,
+                                            *ops), want)
+                    whole = on_host(ck.sweep_scores_resume_plain, *rows,
+                                    *carry, hin0)
+                    check_equal(f"sweep_scores_resume words {tag} {what}",
+                                ck.sweep_scores_resume(*rows, *carry, hin0,
+                                                       plan=plan),
+                                whole)
+                    check_form(f"sweep_scores_resume {tag}", plan, "words",
+                               width=width)
+                check_equal(f"sweep_scores words {tag}",
+                            [ck.sweep_scores(*rows, hin0, plan=plan)],
+                            [on_host(ck.sweep_scores_plain, *rows, hin0)])
+                check_form(f"sweep_scores {tag}", plan, "words", width=width)
+                if T < 100:
+                    continue
+                cut = T // 2 + 1
+                halves = (targets[:, :cut].contiguous(),
+                          targets[:, cut:].contiguous())
+                r1 = ck.reduce_resume(peq, halves[0], lo, hi, prow, trow,
+                                      *random, hin0, core=core and cut)
+                r2 = ck.reduce_resume(peq, halves[1], lo, hi, prow, trow,
+                                      *r1[4:], hin0, core=core and T - cut)
+                s1 = ck.sweep_scores_resume(peq, halves[0], prow, trow,
+                                            *random, hin0)
+                s2 = ck.sweep_scores_resume(peq, halves[1], prow, trow,
+                                            *s1[1:], hin0)
+                # whole: the carried sweep's plain version, from the loop.
+                check_equal(f"word lanes chained {tag}",
+                            [r2[4], r2[5], r2[6],
+                             torch.cat([s1[0], s2[0]], 1)] + list(s2[1:]),
+                            list(whole[1:]) + list(whole))
+
+
+def check_score_groups(rng, dev, ck):
+    """The score stream's warp groups == the plain versions: lanes of 256,
+    300 (a ragged last group) and 4,096 words with per-lane rows, rings of
+    1, 2 and 64 tiles, both hin0, from the fresh state and a random carry
+    (sweep_scores, sweep_scores_resume: the scores and every word of the
+    exit state), in one launch and in passes forced to 4 and 48 groups
+    (3 passes each: two lanes' records handed on between launches); two
+    chained segments equal one sweep; the schedule's plain emulation beside
+    the first.  The form, ring and passes each call reports are checked;
+    the plain versions run on the host.  Last a lane too long for one
+    launch, in passes unforced, against the wavefront."""
+    import torch
+    for nw, n, T, ring, hin0, passes in (
+            (256, 2, 64, 1, 0, None), (300, 2, 49, 2, 1, None),
+            (300, 2, 40, 64, 0, None), (300, 2, 45, 2, 1, 4),
+            (4096, 1, 8, 2, 1, None), (4096, 2, 6, 64, 0, 48)):
+        peq, targets, _, _, prow, trow = lane_operands(
+            rng, dev, n_lanes=n, n_rows=2, T=T, s1=5, nw=nw)
+        groups = -(-nw // 32)
+        form = dict(groups=groups, ring=ring,
+                    passes=-(-groups // (passes or groups)))
+        rows = (peq, targets, prow, trow)
+        words = rng.randint(0, 1 << 32, (2, n, nw), dtype=np.uint64)
+        pv0, mv0 = torch.from_numpy(
+            words.astype(np.uint32).view(np.int32)).to(dev)
+        carry = (pv0, mv0 & ~pv0, torch.from_numpy(
+            rng.randint(0, 400, n).astype(np.int32)).to(dev))
+        tag = (f"nw={nw} lanes={n} T={T} ring={ring} hin0={hin0} "
+               f"passes of {passes or groups}")
+        kw = dict(ring=ring, pass_groups=passes)
+        plan = {}
+        want = on_host(ck.sweep_scores_plain, *rows, hin0)
+        check_equal(f"sweep_scores groups {tag}",
+                    [ck.sweep_scores(*rows, hin0, plan=plan, **kw)], [want])
+        check_form(f"sweep_scores {tag}", plan, "groups", **form)
+        if nw == 256 and ring == 1:    # one lane of the emulation
+            one = (peq, targets, prow[:1], trow[:1])
+            check_equal(f"sweep_scores_groups_plain {tag}",
+                        [on_host(ck.sweep_scores_groups_plain, *one, hin0,
+                                 ring=ring)[0]],
+                        [want[:1]])
+        if nw == 4096 and not passes:
+            continue
+        whole = on_host(ck.sweep_scores_resume_plain, *rows, *carry, hin0)
+        check_equal(f"sweep_scores_resume groups {tag}",
+                    ck.sweep_scores_resume(*rows, *carry, hin0, plan=plan,
+                                           **kw),
+                    whole)
+        check_form(f"sweep_scores_resume {tag}", plan, "groups", **form)
+        if nw == 4096:
+            continue
+        cut = T // 2 + 3
+        s1 = ck.sweep_scores_resume(peq, targets[:, :cut].contiguous(), prow,
+                                    trow, *carry, hin0, **kw)
+        s2 = ck.sweep_scores_resume(peq, targets[:, cut:].contiguous(), prow,
+                                    trow, *s1[1:], hin0, **kw)
+        check_equal(f"sweep_scores_resume groups chained {tag}",
+                    [torch.cat([s1[0], s2[0]], 1)] + list(s2[1:]),
+                    list(whole))
+    # A lane past the groups one launch keeps resident (4,375 groups, a
+    # 4.48 Mbp query): passes with nothing forced, held against the
+    # fixed-window wavefront's stream of the same pair.
+    from edlib_tpu_torch.ops.wavefront import initial_state
+    nw, T = 140_000, 64
+    peq, targets, _, _, prow, trow = lane_operands(
+        rng, dev, n_lanes=1, n_rows=1, T=T, s1=5, nw=nw)
+    plan = {}
+    t0 = time.perf_counter()
+    got = ck.sweep_scores(peq, targets, prow, trow, 0, plan=plan)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if plan.get("form") != "groups" or plan.get("passes", 0) < 2:
+        fail(f"sweep_scores nw={nw}: launched {plan}, not groups in passes")
+    _, stream = ck.wavefront(targets[0], peq[0], initial_state(nw, dev), 0,
+                             T + nw - 1, nw, T, 0, 0, 0, 0, True)
+    check_equal(f"sweep_scores groups nw={nw} in passes vs the wavefront",
+                [got[0]], [stream[nw - 1:]])
+    log(f"sweep_scores nw={nw} x {T} cols: {plan['passes']} passes of "
+        f"{plan['pass_groups']} groups, {ms:.1f} ms, equal the wavefront")
 
 
 def check_resumable_kernels(rng, dev, ck):
@@ -1567,6 +1761,10 @@ def measure(ck, name, calls):
         if name in ("reduce_lanes", "reduce_bitplane", "sweep_shared",
                     "reduce_resume"):
             call.update(split_vs_whole(ck, name, args, reps))
+        if name in ("reduce_resume", "sweep_scores", "sweep_scores_resume"):
+            # What the kernel launched on these operands, as it reports it.
+            call["plan"] = {}
+            kernel(*args, plan=call["plan"])
         out["calls"].append(call)
         log(f"{name} call: {n} lanes x {end} cols (nw {nw}), kernel "
             f"{ms:.3f} ms, plain {plain_ms:.1f} ms over {plain_cols} cols"
@@ -1575,7 +1773,8 @@ def measure(ck, name, calls):
                f"idle {traced['idle_share']:.3f})" if traced else "")
             + (f"; {call['threads']} threads of {call['core']} cols, one "
                f"core a lane {call['whole_ms']:.3f} ms, equal"
-               if "core" in call else ""))
+               if "core" in call else "")
+            + (f"; plan {call['plan']}" if "plan" in call else ""))
         torch.cuda.empty_cache()
     out["bound_by"] = bound(out["nbytes"], out["ops"])[1]
     return out
@@ -2152,6 +2351,12 @@ def main(argv=None) -> int:
     extra = np.random.RandomState(args.seed + 2)
     check_wavefront_groups(extra, dev, ck)
     check_resume_split(extra, dev, ck)
+    # The word-parallel lane's and the score stream's groups' checks, on a
+    # generator of their own.
+    extra = np.random.RandomState(args.seed + 3)
+    check_word_lanes(extra, dev, ck)
+    log("the word-parallel lane equals its plain versions")
+    check_score_groups(extra, dev, ck)
     log("kernels equal their plain versions at small shapes")
 
     rec = Recorder(ck)

@@ -2,10 +2,11 @@
 
 At first use ``csrc/myers.cu`` and ``csrc/wavefront.cu`` are compiled for
 ``sm_90a`` by one nvcc each, both started together, and linked into one
-shared library with a plain C interface.
+shared library with a plain C interface; both include ``csrc/groups.cuh``.
 The library goes to ``build/edlib_tpu_torch/`` at the root of the checkout,
-named by a hash of the sources and flags, so a changed source builds anew
-and an unchanged one is reused.  A failed build raises with nvcc's output.
+named by a hash of the sources, the header and the flags, so a changed
+file builds anew and an unchanged one is reused.  A failed build raises
+with nvcc's output.
 ptxas's register and spill report is kept beside the library (``.log``).
 """
 
@@ -24,6 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # Linked into one library: the per-lane sweeps and the
 # single-pair wavefront sweeps.
 SOURCES = (CSRC / "myers.cu", CSRC / "wavefront.cu")
+# Included by both: the warp groups' machinery.
+HEADERS = (CSRC / "groups.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "edlib_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,10 +56,12 @@ SIGNATURES = {
                               _P, _P, _P, _I, _P, _P, _I, _P, _P],
     "myers_capture": [_I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "myers_sweep_scores": [_I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P],
+                           _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "myers_sweep_scores_plan": [_I, _I, _I, _I, _I, _I, _I, _P,
+                                ctypes.POINTER(_L)],
     "myers_reduce_resume": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I,
                             _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _P],
+                            _P, _P, _P, _P, _P, _P],
     "myers_hw_adaptive": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "myers_reduce_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
@@ -77,7 +82,7 @@ _lib = None
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmyers-{h.hexdigest()[:16]}.so"
 

@@ -3,9 +3,11 @@
 // the stream arrive as void*, every function returns the cudaError_t of its
 // launch (0 = cudaSuccess) and never synchronises or allocates.
 //
-// Fourteen kernels, one thread per alignment lane (one per core of a lane
-// in K1 and K2 at 1-8 words; a block, in the wave form below; a block per
-// 1,024-lane tile for myers_hw_adaptive).  Each replaces a kernel of
+// Fourteen kernels, one thread per alignment lane (one per core of a
+// lane in K1, K2 and K3 at 1-8 words; a block, in the wave form below; a
+// segment of 2-8 threads in the word-parallel lane; warp groups for the
+// score stream's long lanes; a block per 1,024-lane tile for
+// myers_hw_adaptive).  Each replaces a kernel of
 // edlib_tpu/ops/pallas_kernel.py:
 //
 //   myers_reduce_lanes     _reduce_kernel (:434), per-lane form, launched by
@@ -39,7 +41,9 @@
 //                          bottom-row score of every column of every lane,
 //                          stored instead of reduced.  Peq is read per lane,
 //                          so it takes any alphabet (the TPU kernel's S1-way
-//                          select capped it at 64 rows).
+//                          select capped it at 64 rows).  At 2-8 words the
+//                          word-parallel lane, from 256 words warp groups
+//                          (below).
 //   myers_reduce_eqstream  _reduce_kernel with eq_stream=True, launched by
 //                          _sweep_reduce_eqstream_call (:1851, pallas_call
 //                          :1869): Eq words pre-gathered per column.
@@ -55,7 +59,9 @@
 //                          sweeps exactly the segment's columns (the TPU
 //                          wrapper asserts T % chunk == 0, since swept pad
 //                          columns would corrupt the carry); split-lane at
-//                          1-8 words, the cores at column 0 from the carry.
+//                          1-8 words, the cores at column 0 from the carry;
+//                          one core a lane at 2-8 words is the
+//                          word-parallel lane (below).
 //   myers_hw_adaptive      _hw_adaptive_kernel (:1469), launched by
 //                          sweep_hw_adaptive_pallas (:1636, pallas_call
 //                          :1669): the value-adaptive banded HW/SHW reduce,
@@ -125,7 +131,18 @@
 // a word, so instead each thread holds kWaveWords words in registers and
 // runs one column behind the thread above it, which makes the block an
 // anti-diagonal pipeline on one SM, one barrier a column step.  Other lanes
-// keep their state in the global scratch buffer, one thread a lane.
+// keep their state in the global scratch buffer, one thread a lane.  The
+// score stream runs lanes of kWaveMinWords words and more as warp groups
+// linked by per-tile records instead (csrc/groups.cuh), spread over the
+// SMs with no barrier, in passes where a lane holds more groups than one
+// launch keeps resident.
+//
+// Where a lane cannot be cut into column cores (the resumable reduce at
+// hin0 = 1, NW and SHW being prefix-anchored; the score stream, which
+// writes every column) and has 2-8 words, its words run on a segment of
+// threads of one warp, each a tile of 16 columns behind the one above, the
+// word-parallel lane (below): a tile's carries go down in one shuffle, and a
+// column's chain is the word update's Pv recurrence.
 //
 // Semantics are the TPU kernels' exactly:
 //   score starts at NW*32 (the padded bottom cell of column -1), hin of the
@@ -152,6 +169,8 @@
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "groups.cuh"
 
 namespace {
 
@@ -248,10 +267,20 @@ struct Reduction {
 };
 
 // Reduction over [lo, hi) of a sweep that runs past hi (the resumable
-// reduce sweeps its whole segment, for the exit state).
+// reduce sweeps its whole segment, for the exit state).  take is update
+// written with selects: in the word-parallel lane branches would split the
+// warp between its shuffles every column (measured slower on the card).
 struct WindowReduction : Reduction {
   __device__ __forceinline__ void update(int32_t score, int c, bool live) {
     if (c < hi) Reduction::update(score, c, live);
+  }
+  __device__ __forceinline__ void take(int32_t score, int c, bool live) {
+    const bool in = live && c >= lo && c < hi;
+    plast = in && score <= best ? c : plast;
+    const bool lt = in && score < best;
+    pfirst = lt ? c : pfirst;
+    best = lt ? score : best;
+    last = live && c == hi - 1 ? score : last;
   }
 };
 
@@ -294,6 +323,9 @@ struct ScoreStream {
 
   __device__ __forceinline__ void update(int32_t score, int c, bool) {
     out[(size_t)c * stride] = score;
+  }
+  __device__ __forceinline__ void take(int32_t score, int c, bool live) {
+    if (live) out[(size_t)c * stride] = score;
   }
   __device__ __forceinline__ void finish(int) {}
 };
@@ -738,9 +770,11 @@ hits_bitplane_kernel(const uint32_t* __restrict__ planes,
                  scratch_mv(a, nw, lane), (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), h);
 }
 
-// Every column of every lane; out (n_cols, n_lanes).
+// Every column of every lane; out (n_cols, n_lanes).  A thread a lane: at
+// 1 word, and at 9 to kWaveMinWords - 1 words with its state in scratch
+// (2-8 words take words_kernel, longer lanes sweep_scores_groups_kernel).
 template <int NW>
-__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+__global__ void __launch_bounds__(kThreads)
 sweep_scores_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
                     LaneArgs a, int32_t* out) {
   const int lane = lane_index(a);
@@ -943,6 +977,10 @@ struct EqRows {
 #pragma unroll
     for (int w = 0; w < NW; ++w) e[w] = r[(size_t)w * w_stride];
   }
+  // One word, a row's offsets in 32 bits (profile rows are far smaller).
+  __device__ __forceinline__ uint32_t word(int32_t sym, int w) const {
+    return base[(sym & sym_mask) * sym_stride + w * w_stride];
+  }
 };
 
 // K3's Eq built per column from one profile row's bit planes (the
@@ -1144,18 +1182,20 @@ __device__ __forceinline__ bool split_place(const LaneArgs& a,
 }
 
 // The block's distinct profile rows of s1 * NW words, staged after the
-// threads' rings in shared memory where they fit sp.peq_words (every thread
-// of the block calls it); the Eq rows of this thread's profile row, there
-// or in global memory.  An inactive thread's rows are not to be read.
+// threads' rings of ring_words words in shared memory where they fit
+// sp.peq_words (every thread of the block calls it); the Eq rows of this
+// thread's profile row, there or in global memory.  An inactive thread's
+// rows are not to be read.
 template <int NW>
 __device__ __forceinline__ EqRows stage_rows(const uint32_t* peq, int s1,
                                              const SplitArgs& sp,
                                              const SplitPlace& p,
                                              const int* slot_row,
-                                             uint32_t* dyn) {
+                                             uint32_t* dyn,
+                                             int ring_words = kRingWords) {
   const int T = blockDim.x;
   const int rw = s1 * NW;
-  uint32_t* rows = dyn + T * kRingWords;
+  uint32_t* rows = dyn + T * ring_words;
   const bool in_smem = p.n_slots * rw <= sp.peq_words;
   if (in_smem)
     for (int i = threadIdx.x; i < p.n_slots * rw; i += T)
@@ -1257,6 +1297,296 @@ reduce_resume_split_kernel(const uint32_t* __restrict__ peq, int s1,
     for (int w = 0; w < NW; ++w) cr.keep(w, pv[w], mv[w]);
     cr.keep_score(score);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The word-parallel lane (ops/cuda_kernel.py word_lanes_plain is the same
+// schedule in PyTorch): the resumable reduce where its plan is one core a
+// lane (hin0 = 1, or a segment shorter than a core) and the score stream,
+// at 2-8 words.  NW and SHW are prefix-anchored, so no halo split exists;
+// the only parallelism left inside a lane runs across its words.
+//
+// A lane's NW words go to a segment of word_threads<NW>() (2, 4 or 8)
+// threads of one warp, word w in thread w (threads past NW run on clamped
+// words and write nothing), so a warp holds 32 / width lanes.  Thread w
+// advances the kWordTile columns [kWordTile (s - w), + kWordTile) at step
+// s; the tile's horizontal carries out of word w, two kWordTile-bit masks
+// (hneg above hpos), reach thread w + 1 at step s + 1 in one
+// __shfl_up_sync inside the segment.  A column of one step's tile then
+// depends on the step's shuffle only through its carry bit, and on the
+// column before it through the word's Pv and Mv: one shuffle is paid a
+// tile, and the chain a column is the word update's Pv recurrence.  (A
+// tile of one column, the carry and the next symbol packed in one
+// shuffle, ran slower on the card: the shuffle and the bit handling sat
+// on every column's chain.)  Each thread reads its own
+// tile's symbols a step ahead and its Eq words from the block's staged
+// profile rows at the step's start.  Steps where every thread's tile lies
+// inside the row run the bare updates; the first and last steps predicate
+// each column.  After each step the bottom word's two masks go to every
+// thread of the segment (two more shuffles, off the chain), and each thread
+// scores and visits every width-th column of the tile from them (popcounts
+// of the masks' prefixes), branch-free (take): a warp instruction of that
+// work serves width columns.  Every thread carries the bottom word's score;
+// the reduce merges its threads' partial reductions at the end
+// (merge_words).  Each thread starts from its word of the carry and the
+// carried score and keeps its word of the exit state; any carry stays
+// exact.  Every lane of a launch sweeps all n_cols columns, so the warp's
+// steps are uniform; the threads past the last lane run the last lane's
+// sweep and write nothing.
+
+constexpr int kWordTile = 16;  // columns a thread advances a step
+
+__host__ __device__ constexpr int word_width(int nw) {
+  return nw <= 2 ? 2 : nw <= 4 ? 4 : 8;
+}
+
+template <int NW>
+__host__ __device__ constexpr int word_threads() {
+  return word_width(NW);
+}
+
+// Thread w of a lane's segment sweeps word w over every column of the
+// target row tg (n_cols >= 1) from (pv, mv), left there after the last
+// column, and carries the bottom word's score from `score`; with emit it
+// calls v.take(score, c, true) for the columns c = w mod width of the row
+// (and takes with false where it has no such column).  Every thread of the
+// warp calls it.
+template <int NW, class Visit>
+__device__ __forceinline__ void sweep_words(const int32_t* tg, int n_cols,
+                                            const EqRows& eq,
+                                            uint32_t hin_pos, int w,
+                                            bool emit, uint32_t& pv,
+                                            uint32_t& mv, int32_t& score,
+                                            Visit& v) {
+  constexpr int kWidth = word_threads<NW>();
+  constexpr uint32_t kMask = (1u << kWordTile) - 1u;
+  const int wr = min(w, NW - 1);
+  const bool top = w == 0;
+  const int n_steps = (n_cols + kWordTile - 1) / kWordTile + NW - 1;
+  const int last = n_cols - 1;
+  uint32_t out = 0u;  // the last step's masks: hneg << kWordTile | hpos
+  int32_t sym[kWordTile];
+#pragma unroll
+  for (int k = 0; k < kWordTile; ++k)
+    sym[k] = __ldg(tg + min(max(k - kWordTile * w, 0), last));
+  for (int s = 0; s < n_steps; ++s) {
+    const int c0 = kWordTile * (s - w);
+    uint32_t e[kWordTile];
+#pragma unroll
+    for (int k = 0; k < kWordTile; ++k) e[k] = eq.word(sym[k], wr);
+#pragma unroll
+    for (int k = 0; k < kWordTile; ++k)
+      sym[k] = __ldg(tg + min(max(c0 + kWordTile + k, 0), last));
+    const uint32_t x = __shfl_up_sync(kFull, out, 1, kWidth);
+    const uint32_t hp_in = top ? (hin_pos ? kMask : 0u) : x & kMask;
+    const uint32_t hn_in = top ? 0u : x >> kWordTile;
+    const bool whole =
+        __all_sync(kFull, c0 >= 0 && c0 + kWordTile <= n_cols);
+    uint32_t o_p = 0u, o_n = 0u;
+    if (whole) {
+#pragma unroll
+      for (int k = 0; k < kWordTile; ++k) {
+        uint32_t hneg = (hn_in >> k) & 1u, hpos = (hp_in >> k) & 1u;
+        advance_word(pv, mv, e[k], hneg, hpos);
+        o_p |= hpos << k;
+        o_n |= hneg << k;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWordTile; ++k) {
+        const int c = c0 + k;
+        const bool act = c >= 0 && c < n_cols;
+        uint32_t hneg = (hn_in >> k) & 1u, hpos = (hp_in >> k) & 1u;
+        uint32_t p = pv, m = mv;
+        advance_word(p, m, e[k], hneg, hpos);
+        pv = act ? p : pv;
+        mv = act ? m : mv;
+        hneg = act ? hneg : 0u;
+        hpos = act ? hpos : 0u;
+        o_p |= hpos << k;
+        o_n |= hneg << k;
+      }
+    }
+    out = (o_n << kWordTile) | o_p;
+    // The bottom word's tile, columns cb + k: thread w scores and visits
+    // k = w, w + width, ... (the score after column cb + k is the score
+    // before the tile plus the carries of its columns up to k).
+    const uint32_t bp = __shfl_sync(kFull, o_p, NW - 1, kWidth);
+    const uint32_t bn = __shfl_sync(kFull, o_n, NW - 1, kWidth);
+    const int cb = kWordTile * (s - (NW - 1));
+#pragma unroll
+    for (int i = 0; i < kWordTile / kWidth; ++i) {
+      const int k = w + i * kWidth;
+      const uint32_t m = (2u << k) - 1u;
+      const int c = cb + k;
+      v.take(score + __popc(bp & m) - __popc(bn & m), c,
+             emit && c >= 0 && c < n_cols);
+    }
+    score += __popc(bp) - __popc(bn);
+  }
+}
+
+// The segment's partial reductions (each thread's columns) merged in every
+// thread: the least best, the first and last columns reaching it, and the
+// score at hi - 1 (kBig where a thread did not visit that column).
+template <int kWidth>
+__device__ __forceinline__ void merge_words(WindowReduction& r) {
+#pragma unroll
+  for (int d = 1; d < kWidth; d <<= 1) {
+    const int32_t b = __shfl_xor_sync(kFull, r.best, d, kWidth);
+    const int32_t pf = __shfl_xor_sync(kFull, r.pfirst, d, kWidth);
+    const int32_t pl = __shfl_xor_sync(kFull, r.plast, d, kWidth);
+    const int32_t l = __shfl_xor_sync(kFull, r.last, d, kWidth);
+    if (b < r.best) {
+      r.best = b;
+      r.pfirst = pf;
+      r.plast = pl;
+    } else if (b == r.best) {
+      r.pfirst = min(r.pfirst, pf);
+      r.plast = max(r.plast, pl);
+    }
+    r.last = min(r.last, l);
+  }
+}
+
+// The word-parallel lane over every column of each lane's target row from
+// its carried state (null pv0: fresh), the exit state kept where asked;
+// STREAM: the score stream (out (n_cols, n_lanes)), else the resumable
+// reduce's window reduction written directly (best, pfirst, plast, last).
+// Thread t is word t % width of lane t / width (split_place with
+// sp.n_cores = width); the block's distinct profile rows are staged as in
+// the split kernels, with no rings before them.
+template <int NW, bool STREAM>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+words_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
+             SplitArgs sp, int32_t* out) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // profile rows
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  // Threads past the last lane take its slot, which split_place gave them.
+  const EqRows eq = stage_rows<NW>(peq, s1, sp, p, slot_row, dyn, 0);
+  const int lane = p.active ? p.lane : a.n_lanes - 1;
+  const int w = threadIdx.x % word_threads<NW>();
+  const int wr = min(w, NW - 1);
+  const LaneCarry cr = lane_carry(a, NW, lane);
+  uint32_t pv = cr.pv(wr), mv = cr.mv(wr);
+  int32_t score = cr.score(NW);
+  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
+  if constexpr (STREAM) {
+    ScoreStream v{out + lane, (size_t)a.n_lanes};
+    sweep_words<NW>(tg, a.n_cols, eq, a.hin_pos, w, p.active, pv, mv, score,
+                    v);
+  } else {
+    WindowReduction r;
+    r.lo = a.lo[lane];
+    r.hi = a.hi[lane];
+    sweep_words<NW>(tg, a.n_cols, eq, a.hin_pos, w, p.active, pv, mv, score,
+                    r);
+    merge_words<word_threads<NW>()>(r);
+    if (p.active && w == NW - 1) store(a, lane, r);
+  }
+  if (!p.active) return;
+  if (w < NW) cr.keep(w, pv, mv);
+  if (w == NW - 1) cr.keep_score(score);
+}
+
+// ---------------------------------------------------------------------------
+// The score stream's long lanes (kWaveMinWords words and up) as warp groups
+// linked by per-tile records (csrc/groups.cuh, the schedule of
+// myers_wavefront; ops/cuda_kernel.py sweep_scores_groups_plain).  A unit of
+// the schedule is one lane: lane i of group g holds word w = 32 g + i and
+// advances column d - w at step d over the steps [0, n_cols + nw - 1), from
+// the lane's carried Pv and Mv words (or the fresh state), the top group
+// taking (0, hin0).  Each group stages its words' rows of the lane's
+// profile in shared memory where s1 rows fit.  The bottom group writes the
+// score after every column and the exit score, each group its words of the
+// exit state.  A lane of more groups than one launch keeps resident runs
+// as passes, a launch each, as myers_wavefront's window does: the bottom
+// group of a pass writes every record of its lane (bottom_out, n_tiles a
+// lane) and the next pass's top group reads them (top_in).
+struct ScoreGroupArgs {
+  const uint32_t* peq;     // (R_p, s1, nw)
+  int s1, nw;
+  const int32_t* targets;  // (R_t, n_cols)
+  int n_cols;
+  const int32_t* prow;
+  const int32_t* trow;
+  int n_lanes;
+  uint32_t hin0;
+  int32_t* out;            // (n_cols, n_lanes)
+  const uint32_t* pv0;     // (n_lanes, nw), or null: a fresh start
+  const uint32_t* mv0;
+  const int32_t* sc0;
+  uint32_t* pv1;           // (n_lanes, nw), or null: not kept
+  uint32_t* mv1;
+  int32_t* sc1;
+  ulonglong2* links;       // (n_lanes, n_groups, ring) records
+  unsigned* cons;          // (n_lanes, n_groups) tiles each reader consumed
+  int* next_task;
+  const ulonglong2* top_in;  // (n_lanes, n_tiles) records of the pass
+  ulonglong2* bottom_out;    // above, for the pass below; or null
+  int n_tiles;
+  int g_lo, n_groups, g_real;  // groups [g_lo, g_lo + n_groups) of g_real
+  int ring, wpb, peq_smem;
+};
+
+__device__ __forceinline__ void score_group(const ScoreGroupArgs& a, int l,
+                                            int gl, int warp, int lane,
+                                            ulonglong2* s_rec,
+                                            unsigned* s_cons,
+                                            uint32_t* s_peq) {
+  const int nw = a.nw;
+  const int g = a.g_lo + gl;
+  const int w = g * kGroup + lane;
+  const bool live = w < nw;
+  const int wr = min(w, nw - 1);
+  const uint32_t* peq = a.peq + (size_t)a.prow[l] * a.s1 * nw;
+  const int32_t* tg = a.targets + (size_t)a.trow[l] * a.n_cols;
+  const size_t at = (size_t)l * nw + wr;
+  GroupState st{a.pv0 ? a.pv0[at] : ~0u, a.pv0 ? a.mv0[at] : 0u, 0u, 0u,
+                a.pv0 ? a.sc0[l] : nw * 32, 0u, 0u};
+  const size_t rec = (size_t)l * a.n_tiles;
+  const GroupLinks ln = group_links(
+      l, gl, warp, a.wpb, a.n_groups, a.ring, g == 0, g + 1 == a.g_real,
+      a.links, a.cons, s_rec, s_cons, a.top_in ? a.top_in + rec : nullptr,
+      a.bottom_out ? a.bottom_out + rec : nullptr);
+  if (a.peq_smem) {
+    for (int r = 0; r < a.s1; ++r)
+      s_peq[r * kGroup + lane] = peq[(size_t)r * nw + wr];
+    __syncwarp();
+  }
+  const int bl = nw - 1 - g * kGroup;
+  const bool bottom_here = bl >= 0 && bl < kGroup;
+  int32_t* out = a.out + l;
+  // After each tile lane k writes the score after step d0 + k, column
+  // d0 + k - (nw - 1) of the lane.
+  auto tile = [&](int d0, int nk, int32_t sc0, uint32_t o_p, uint32_t o_n) {
+    if (!bottom_here) return;
+    const int32_t v = tile_score(sc0, o_p, o_n, bl, lane);
+    const int c = d0 + lane - (nw - 1);
+    if (lane < nk && c >= 0 && c < a.n_cols) out[(size_t)c * a.n_lanes] = v;
+  };
+  const GroupSpan sp{tg, peq, a.peq_smem ? s_peq : nullptr, nw, a.n_cols,
+                     wr, w, live, g == 0,
+                     0, a.n_cols, 0, a.n_cols + nw - 1, a.hin0, a.ring};
+  group_sweep(sp, ln, lane, st, tile);
+  if (a.pv1 != nullptr) {
+    if (live) {
+      a.pv1[at] = st.pv;
+      a.mv1[at] = st.mv;
+    }
+    if (bottom_here && lane == bl) a.sc1[l] = st.sc;
+  }
+}
+
+__global__ void __launch_bounds__(kGroupMaxWarps * 32)
+sweep_scores_groups_kernel(ScoreGroupArgs a) {
+  auto run = [&](int l, int gl, int warp, int lane, ulonglong2* s_rec,
+                 unsigned* s_cons, uint32_t* s_peq) {
+    score_group(a, l, gl, warp, lane, s_rec, s_cons, s_peq);
+  };
+  group_tasks(a.n_lanes, a.n_groups, a.wpb, a.ring, a.s1, a.next_task, run);
 }
 
 // K3, split-lane: K1's schedule with Eq from the query-id bit planes.  A row
@@ -1775,7 +2105,9 @@ int launch_banded(int kind, int device, const void* peq, int s1, int nw,
 // Launch shape of a split-lane kernel: the largest block (of 32, 64 or
 // kSplitMaxThreads threads) that still gives every SM two blocks, so that a
 // launch of few threads spreads over the SMs; and the profile words its
-// shared memory holds (whole rows of s1 * nw words, at most one a thread).
+// shared memory holds after the threads' rings of ring_words words (whole
+// rows of s1 * nw words, at most one a thread, or one a lane_threads
+// threads: the word-parallel lane's segment).
 // With whole_words (K3's staged planes) every row a block can hold, one a
 // thread, also gets that many words: the block drops to fewer threads
 // until they fit the budget, and past it at 32 threads takes the words
@@ -1788,21 +2120,185 @@ struct SplitConfig {
 
 SplitConfig split_config(int device, long long n_threads, int max_rows,
                          int row_words, int budget = kPeqSmemWords,
-                         int whole_words = 0) {
+                         int whole_words = 0, int lane_threads = 1,
+                         int ring_words = kRingWords) {
   int sms = 132;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   int t = kSplitMaxThreads;
   while (t > 32 && n_threads < 2LL * sms * t) t /= 2;
   while (t > 32 && std::min(t, max_rows) * whole_words > budget) t /= 2;
-  const int rows = std::min({t, max_rows, budget / row_words});
+  const int rows =
+      std::min({t / lane_threads, max_rows, budget / row_words});
   SplitConfig c;
   c.blocks = static_cast<unsigned>((n_threads + t - 1) / t);
   c.threads = t;
   c.peq_words = std::max(rows * row_words,
                          std::min(t, max_rows) * whole_words);
-  c.smem = (size_t)(t * kRingWords + c.peq_words) * sizeof(uint32_t);
+  c.smem = (size_t)(t * ring_words + c.peq_words) * sizeof(uint32_t);
   return c;
 }
+
+// The word-parallel lane's launch shape: a segment of word_width(nw)
+// threads a lane, blocks by split_config, no rings.
+SplitConfig words_config(int device, int n_lanes, int s1, int nw) {
+  const int width = word_width(nw);
+  return split_config(device, (long long)n_lanes * width, n_lanes, s1 * nw,
+                      kPeqSmemWords, 0, width, 0);
+}
+
+// The word-parallel lane in the shape cfg (words_config; every lane of `a`
+// sweeps all n_cols columns); STREAM: the score stream into out.
+template <int NW, bool STREAM>
+int launch_words(const SplitConfig& cfg, const uint32_t* peq, int s1,
+                 const LaneArgs& a, int32_t* out, cudaStream_t st) {
+  const SplitArgs sp{nullptr, 0, 0, cfg.peq_words, word_threads<NW>()};
+  words_kernel<NW, STREAM><<<cfg.blocks, cfg.threads, cfg.smem, st>>>(
+      peq, s1, a, sp, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What a call of myers_sweep_scores or myers_reduce_resume launches, as
+// the entry reports it (kPlanFields int64 words, in this order): the form,
+// the blocks and threads a block of its (first) launch, and the form's own
+// figures.
+enum PlanForm {
+  kFormThread = 0,  // a thread a lane
+  kFormWords = 1,   // the word-parallel lane
+  kFormGroups = 2,  // warp groups
+  kFormCores = 3,   // the split-lane cores
+  kFormWave = 4,    // a block a lane (sweep_wave)
+};
+constexpr int kPlanFields = 10;
+
+struct LaunchPlan {
+  long long form = kFormThread, blocks = 0, threads = 0;
+  long long width = 0;             // words: threads a lane's segment
+  long long cores = 0, core = 0;   // reduce: cores a lane, their columns
+  long long groups = 0, ring = 0;  // groups: a lane's groups, ring tiles,
+  long long passes = 0, pass_groups = 0;  // launches, groups a launch
+
+  void write(void* out) const {
+    if (out == nullptr) return;
+    const long long v[kPlanFields] = {form,  blocks, threads, width,
+                                      cores, core,   groups,  ring,
+                                      passes, pass_groups};
+    std::copy(v, v + kPlanFields, static_cast<long long*>(out));
+  }
+};
+
+// The shape of one launch of the score stream's groups: the fewest warps
+// on the busiest SM (group_geometry), or blocks of kGroupMaxWarps where
+// that shape does not fit (a pass as large as group_capacity).
+int score_geometry(int device, int n_lanes, int n_groups, int s1, int ring,
+                   GroupGeometry* g) {
+  if (group_geometry(sweep_scores_groups_kernel, device, n_lanes, n_groups,
+                     s1, ring, 0, g) == 0)
+    return 0;
+  cudaGetLastError();
+  return group_geometry(sweep_scores_groups_kernel, device, n_lanes,
+                        n_groups, s1, ring, kGroupMaxWarps, g);
+}
+
+// A myers_sweep_scores call's plan and the int32 words of scratch it
+// takes (its layout in launch_score_groups).
+struct ScorePlan {
+  LaunchPlan lp;
+  SplitConfig words{};
+  int n_tiles = 0;
+  long long scratch_words = 1;
+};
+
+int score_plan(int device, int s1, int nw, int n_cols, int n_lanes,
+               int ring, int pass_groups, ScorePlan* q) {
+  if (nw < 1 || s1 < 1 || n_lanes < 0 || n_cols < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LaunchPlan& lp = q->lp;
+  if (nw >= kWaveMinWords) {
+    if (ring < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int G = (nw + kGroup - 1) / kGroup;
+    int cap = 0;
+    if (const int e = group_capacity(sweep_scores_groups_kernel, device, s1,
+                                     ring, &cap))
+      return e;
+    if (pass_groups > 0) cap = std::min(cap, pass_groups);
+    const int P = std::min(G, std::max(cap, 1));
+    GroupGeometry geo;
+    if (const int e = score_geometry(device, n_lanes, P, s1, ring, &geo))
+      return e;
+    lp.form = kFormGroups;
+    lp.blocks = geo.blocks;
+    lp.threads = geo.wpb * 32;
+    lp.groups = G;
+    lp.ring = ring;
+    lp.pass_groups = P;
+    lp.passes = (G + P - 1) / P;
+    q->n_tiles = (n_cols + nw - 1 + kGroupTile - 1) / kGroupTile;
+    const long long links = (long long)n_lanes * P;
+    q->scratch_words = links * ring * 4 + links + 1 +
+                       (lp.passes > 1 ? 8LL * n_lanes * q->n_tiles : 0);
+  } else if (nw >= 2 && nw <= 8) {
+    q->words = words_config(device, n_lanes, s1, nw);
+    lp.form = kFormWords;
+    lp.blocks = q->words.blocks;
+    lp.threads = q->words.threads;
+    lp.width = word_width(nw);
+  } else {
+    lp.blocks = blocks_for(n_lanes);
+    lp.threads = kThreads;
+    if (nw > 8) q->scratch_words = 2LL * nw * n_lanes;
+  }
+  return 0;
+}
+
+// The score stream's groups, pass by pass, in scratch laid out as: with
+// more than one pass two buffers of pass records (n_lanes, n_tiles) a
+// pass writes and the next reads in turn; then the links of a pass
+// (n_lanes, pass_groups, ring), their consumed counts and the task
+// counter, zeroed before each launch.
+int launch_score_groups(int device, ScoreGroupArgs g, const ScorePlan& q,
+                        void* scratch, cudaStream_t st) {
+  const int P = static_cast<int>(q.lp.pass_groups);
+  const int passes = static_cast<int>(q.lp.passes);
+  const size_t recs = (size_t)g.n_lanes * q.n_tiles;
+  ulonglong2* buf = static_cast<ulonglong2*>(scratch);
+  ulonglong2* const pass_rec[2] = {buf, buf + recs};
+  g.links = passes > 1 ? buf + 2 * recs : buf;
+  g.n_tiles = q.n_tiles;
+  g.g_real = static_cast<int>(q.lp.groups);
+  for (int p = 0; p < passes; ++p) {
+    g.g_lo = p * P;
+    g.n_groups = std::min(P, g.g_real - g.g_lo);
+    const size_t links = (size_t)g.n_lanes * g.n_groups;
+    g.cons = reinterpret_cast<unsigned*>(g.links + links * g.ring);
+    g.next_task = reinterpret_cast<int*>(g.cons + links);
+    g.top_in = p > 0 ? pass_rec[(p - 1) & 1] : nullptr;
+    g.bottom_out = p + 1 < passes ? pass_rec[p & 1] : nullptr;
+    if (const cudaError_t e = cudaMemsetAsync(
+            g.links, 0,
+            links * g.ring * sizeof(ulonglong2) +
+                (links + 1) * sizeof(unsigned),
+            st))
+      return static_cast<int>(e);
+    GroupGeometry geo;
+    if (const int e = score_geometry(device, g.n_lanes, g.n_groups, g.s1,
+                                     g.ring, &geo))
+      return e;
+    if (const int e = launch_groups(sweep_scores_groups_kernel, g, geo, st))
+      return e;
+  }
+  return 0;
+}
+
+#define MYERS_DISPATCH_WORDS(nw, LAUNCH) \
+  switch (nw) {                          \
+    case 2: LAUNCH(2); break;            \
+    case 3: LAUNCH(3); break;            \
+    case 4: LAUNCH(4); break;            \
+    case 5: LAUNCH(5); break;            \
+    case 6: LAUNCH(6); break;            \
+    case 7: LAUNCH(7); break;            \
+    default: LAUNCH(8); break;           \
+  }
 
 }  // namespace
 
@@ -2077,13 +2573,20 @@ int myers_capture(int device, const void* peq, int s1, int nw,
 // c at c * n_lanes + b.  pv0, mv0 uint32 (n_lanes, nw) and sc0 int32
 // (n_lanes,): the carried state to start from (null: a fresh start); pv1,
 // mv1, sc1 the same shapes: the state after the last column (null: not
-// kept).  pv0/mv0/sc0 and pv1/mv1/sc1 are each all null or all set.
+// kept).  pv0/mv0/sc0 and pv1/mv1/sc1 are each all null or all set.  One
+// thread a lane at 1 word; the word-parallel lane at 2-8; one thread a
+// lane with its state in scratch at 9 to kWaveMinWords - 1; past that
+// warp groups, groups = ceil(nw / 32) a lane, each link a ring of `ring`
+// tiles, in passes of at most the groups one launch keeps resident
+// (pass_groups > 0: at most that many).  scratch: the int32 words that
+// myers_sweep_scores_plan gives.  plan int64 (kPlanFields,), or null: what
+// the call launched (LaunchPlan).
 int myers_sweep_scores(int device, const void* peq, int s1, int nw,
                        const void* targets, int n_cols, const void* prow,
                        const void* trow, int n_lanes, int hin0, void* out,
                        const void* pv0, const void* mv0, const void* sc0,
                        void* pv1, void* mv1, void* sc1, void* scratch,
-                       void* stream) {
+                       int ring, int pass_groups, void* plan, void* stream) {
   if (n_lanes <= 0 || n_cols <= 0) return 0;
   if (nw < 1 || (pv0 == nullptr) != (mv0 == nullptr) ||
       (pv0 == nullptr) != (sc0 == nullptr) ||
@@ -2091,16 +2594,63 @@ int myers_sweep_scores(int device, const void* peq, int s1, int nw,
       (pv1 == nullptr) != (sc1 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  ScorePlan q;
+  if (const int e = score_plan(device, s1, nw, n_cols, n_lanes, ring,
+                               pass_groups, &q))
+    return e;
+  q.lp.write(plan);
   LaneArgs a = lane_args(targets, n_cols, nullptr, nullptr, prow, trow,
                          n_lanes, hin0, scratch);
   set_carry(a, pv0, mv0, sc0, pv1, mv1, sc1);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
   int32_t* o = static_cast<int32_t*>(out);
-#define LAUNCH(N) LANE_LAUNCH(N, sweep_scores_kernel, p, s1, nw, a, o)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
+  if (q.lp.form == kFormGroups) {
+    ScoreGroupArgs g{};
+    g.peq = p;
+    g.s1 = s1;
+    g.nw = nw;
+    g.targets = a.targets;
+    g.n_cols = n_cols;
+    g.prow = a.prow;
+    g.trow = a.trow;
+    g.n_lanes = n_lanes;
+    g.hin0 = a.hin_pos;
+    g.out = o;
+    g.pv0 = a.pv0;
+    g.mv0 = a.mv0;
+    g.sc0 = a.s0;
+    g.pv1 = a.pv1;
+    g.mv1 = a.mv1;
+    g.sc1 = a.s1;
+    g.ring = ring;
+    return launch_score_groups(device, g, q, scratch, st);
+  }
+  if (q.lp.form == kFormWords) {
+#define LAUNCH(N) return launch_words<N, true>(q.words, p, s1, a, o, st)
+    MYERS_DISPATCH_WORDS(nw, LAUNCH)
 #undef LAUNCH
+  }
+  if (nw == 1)
+    LANE_LAUNCH(1, sweep_scores_kernel, p, s1, nw, a, o);
+  else
+    LANE_LAUNCH(0, sweep_scores_kernel, p, s1, nw, a, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of a myers_sweep_scores call of these operands (plan, as that
+// entry writes it) and the int32 words of scratch it takes.
+int myers_sweep_scores_plan(int device, int s1, int nw, int n_cols,
+                            int n_lanes, int ring, int pass_groups,
+                            void* plan, long long* scratch_words) {
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  ScorePlan q;
+  if (const int e = score_plan(device, s1, nw, n_cols, n_lanes, ring,
+                               pass_groups, &q))
+    return e;
+  q.lp.write(plan);
+  *scratch_words = q.scratch_words;
+  return 0;
 }
 
 // The resumable reduce: peq, targets (16-byte aligned), lo, hi, prow, trow
@@ -2109,11 +2659,13 @@ int myers_sweep_scores(int device, const void* peq, int s1, int nw,
 // pv0, mv0 uint32 (n_lanes, nw), sc0 int32 (n_lanes,), and writes the state
 // after the last column to pv1, mv1, sc1 (the same shapes).  At 1-8 words
 // the split-lane schedule: n_cores cores of `core` columns a lane from
-// column 0 (halo as myers_reduce_lanes; hin0 = 1 takes one core).  The
-// reduction: with n_cores > 1 key_first, key_last and last as
-// myers_reduce_lanes; else (and past 8 words, where n_cores, core and halo
-// are not read and scratch holds 2 * nw * n_lanes words) best, pfirst,
-// plast, last int32 (n_lanes,), written for every lane.
+// column 0 (halo as myers_reduce_lanes; hin0 = 1 takes one core); one core
+// a lane is the word-parallel lane at 2-8 words.  The reduction: with
+// n_cores > 1 key_first, key_last and last as myers_reduce_lanes; else
+// (and past 8 words, where n_cores, core and halo are not read and scratch
+// holds 2 * nw * n_lanes words) best, pfirst, plast, last int32 (n_lanes,),
+// written for every lane.  plan int64 (kPlanFields,), or null: what the
+// call launched (LaunchPlan).
 int myers_reduce_resume(int device, const void* peq, int s1, int nw,
                         const void* targets, int n_cols, const void* lo,
                         const void* hi, const void* prow, const void* trow,
@@ -2122,7 +2674,7 @@ int myers_reduce_resume(int device, const void* peq, int s1, int nw,
                         int core, int halo, void* key_first, void* key_last,
                         void* best, void* pfirst, void* plast, void* last,
                         void* pv1, void* mv1, void* sc1, void* scratch,
-                        void* stream) {
+                        void* plan, void* stream) {
   if (n_lanes <= 0 || n_cols <= 0) return 0;
   if (nw < 1 || s1 < 1 || !pv0 || !mv0 || !sc0 || !pv1 || !mv1 || !sc1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2135,15 +2687,39 @@ int myers_reduce_resume(int device, const void* peq, int s1, int nw,
   set_carry(a, pv0, mv0, sc0, pv1, mv1, sc1);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
+  LaunchPlan lp;
   if (nw > 8) {
+    LaneArgs probe = a;
+    const Config cfg = lane_config(0, nw, probe);
+    lp.form = probe.wave ? kFormWave : kFormThread;
+    lp.blocks = cfg.blocks;
+    lp.threads = cfg.threads;
+    lp.write(plan);
     LANE_LAUNCH(0, reduce_resume_kernel, p, s1, nw, a);
     return static_cast<int>(cudaGetLastError());
   }
   if (n_cores < 1 || core < 1 || halo < 0 ||
       (long long)n_cores * core < n_cols)
     return static_cast<int>(cudaErrorInvalidValue);
+  lp.cores = n_cores;
+  lp.core = core;
+  if (n_cores == 1 && nw >= 2) {
+    const SplitConfig cfg = words_config(device, n_lanes, s1, nw);
+    lp.form = kFormWords;
+    lp.blocks = cfg.blocks;
+    lp.threads = cfg.threads;
+    lp.width = word_width(nw);
+    lp.write(plan);
+#define LAUNCH(N) return launch_words<N, false>(cfg, p, s1, a, nullptr, st)
+    MYERS_DISPATCH_WORDS(nw, LAUNCH)
+#undef LAUNCH
+  }
   const long long n_threads = (long long)n_lanes * n_cores;
   const SplitConfig cfg = split_config(device, n_threads, n_lanes, s1 * nw);
+  lp.form = n_cores > 1 ? kFormCores : kFormThread;
+  lp.blocks = cfg.blocks;
+  lp.threads = cfg.threads;
+  lp.write(plan);
   const SplitArgs sp{nullptr, core, halo, cfg.peq_words, n_cores};
 #define LAUNCH(N)                                                         \
   reduce_resume_split_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \

@@ -64,6 +64,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "groups.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -582,54 +584,14 @@ int launch_wavefront_tiles(int device, WfArgs a, void* stream) {
 
 // ---------------------------------------------------------------------------
 // myers_wavefront's schedule: warp groups linked by per-tile records
-// (ops/cuda_kernel.py wavefront_groups_plain is the same schedule in
-// PyTorch, group by group and tile by tile).
+// (csrc/groups.cuh; ops/cuda_kernel.py wavefront_groups_plain is the same
+// schedule in PyTorch, group by group and tile by tile).  A unit of the
+// schedule is one column core of the call (below); lane i of group g holds
+// word w = word0 + 32 g + i of the window.
 //
-// A warp holds kGroup consecutive words of the window, one a lane: lane i
-// holds word w = word0 + 32 g + i and advances column d - w at step d, one
-// column behind lane i-1, whose hout of step d-1 it takes from a warp vote
-// (__ballot_sync; __shfl_up_sync in the predicated loop): no barrier inside
-// a group.  The window's top lane takes
-// (0, hin0).  A group runs its steps in tiles of kGroupTile.  Each lane
-// loads the symbols of its next tile's 32 columns while the current tile
-// runs (a symbol and its Eq word are two dependent loads; on the chain they
-// cost more than the step), reads the tile's Eq words at its start (the
-// profile rows of its 32 words in shared memory where s1 rows fit, else
-// through L1), then runs the 32 dependent steps; hout crosses lanes as two
-// votes (the top lane's input spliced in below bit 0), so a step's chain is
-// a vote, a shift, the update and a compare.
-// Where every lane is active for the whole tile the step is the bare
-// update, the score moving once by the popcounts of the hout bits,
-// collected in funnel shifts (a tile cut by the scan's ends, the core's
-// columns or the segment's end runs the predicated loop).  The bottom
-// word's stream and running (min, first argmin) come after the tile, one
-// lane a step, from the bottom lane's hout bits.
-//
-// Between groups: the bottom lane of group g hands on each tile's hout bits
-// as one 16-byte record, two 64-bit words (hp mask, tag) and (hn mask,
-// tag), tag = tile + 1, each written with one relaxed 64-bit store, so a
-// record needs no flag of its own: the top lane of group g+1 polls the two
-// words (relaxed loads at device scope) until both carry its tile's tag,
-// one tile behind group g (bit k of tile j is step d0 + k; the input of
-// step d is step d - 1's hout, so the previous record's bit 31 carries over,
-// and before the first the loaded state's hout of the word above).  The
-// next record is loaded while the tile runs.  Records go into a ring of
-// `ring` tiles, in shared memory between the warps of a block and in global
-// memory between blocks; the reader publishes its consumed count (release)
-// every max(1, ring / 4) tiles and the writer waits (acquire) only while
-// the ring is full, so in steady state no group waits on a slower reader.
-//
-// Placement: a task is one block's groups (wpb <= 8 consecutive groups of
-// one core); blocks are persistent and take tasks in increasing order
-// (core-major) from an atomic counter.  The launch checks the occupancy:
-// every block of the grid is resident and one core's blocks fit at once,
-// else it returns an error (it never waits on a block that cannot run).
-// Because tasks are taken in order, a task that waits for the next task of
-// its core to start is never waited on by an earlier core, whose tasks are
-// all running or done: no deadlock.  A window past the groups one launch
-// keeps resident runs as passes, a launch each: the bottom group of a pass
-// writes every record of the segment (bottom_out) and the next pass's top
-// group reads them (top_in).
+// A window past the groups one launch keeps resident runs as passes, a
+// launch each: the bottom group of a pass writes every record of the
+// segment (bottom_out) and the next pass's top group reads them (top_in).
 //
 // HW column cores (n_cores > 1, hin0 = 0, word0 = 0, from step 0): core k
 // owns columns [k * core, (k + 1) * core), the first from -inf, the last to
@@ -648,19 +610,7 @@ int launch_wavefront_tiles(int device, WfArgs a, void* stream) {
 // into the scan) it owns, the stream of the steps whose bottom column it
 // owns, and merges the bottom word's (min, first argmin) over its owned
 // columns into a packed 64-bit key (score << 32 | column) with atomicMin.
-//
-// What bounds it: the dependent chain of a step, about ten integer
-// operations and a vote a word-step, one group per warp, and on the card
-// more than that count (0.08-0.12 us a step, slower with more warps on an
-// SM: not broken down); with the records' hand-off once a tile a group
-// waits only to fill the pipeline, 32 steps a group, at each launch's
-// start.  HW calls hide the chain behind their column cores.
-
-constexpr int kGroup = 32;         // words a warp group
-constexpr int kGroupTile = 32;     // steps a tile
-constexpr int kGroupMaxWarps = 8;  // groups a block
-constexpr size_t kGroupPeqSmem = 64 * 1024;  // profile bytes a block keeps
-constexpr unsigned kFull = 0xFFFFFFFFu;
+// HW calls hide the groups' chain behind their column cores.
 
 struct GroupArgs {
   const int32_t* t;        // scan-column symbols, index < t_scan
@@ -681,55 +631,6 @@ struct GroupArgs {
   int n_cores, core, halo;
   int ring, wpb, peq_smem;
 };
-
-__device__ __forceinline__ unsigned long long ld_relaxed(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_relaxed(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// A wait that a correct schedule ends in microseconds to milliseconds; past
-// kSpinLimitNs of the global timer it traps, so a fault fails the launch
-// (the wrapper raises) instead of holding the card.
-constexpr unsigned long long kSpinLimitNs = 60ull * 1000 * 1000 * 1000;
-
-struct Spin {
-  unsigned long long t0 = 0;
-  unsigned n = 0;
-
-  __device__ __forceinline__ void tick() {
-    if ((++n & 1023u) != 0) return;
-    unsigned long long now;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-    if (t0 == 0) {
-      t0 = now;
-    } else if (now - t0 > kSpinLimitNs) {
-      __trap();
-    }
-  }
-};
-
-__device__ __forceinline__ unsigned long long record_word(uint32_t bits,
-                                                          int tile) {
-  return (static_cast<unsigned long long>(bits) << 32) |
-         static_cast<unsigned>(tile + 1);
-}
 
 // One warp group of one core: local group gl of this launch, warp `warp`
 // of its block; s_rec/s_cons the block's shared links, s_peq this warp's
@@ -766,55 +667,22 @@ __device__ void run_group(const GroupArgs& a, int core, int gl, int warp,
   // The loaded state (the first core) or the fresh one; the carry into the
   // top lane is the hout of the word above at the step before d_lo.
   const int sl = min(s, ns - 1);
-  uint32_t pv = ~0u, mv = 0u, hn = 0u, hp = 0u, carry_p = 0u, carry_n = 0u;
-  int32_t sc = (s + 1) * 32;
+  GroupState st{~0u, 0u, 0u, 0u, (s + 1) * 32, 0u, 0u};
   if (core == 0) {
-    pv = static_cast<uint32_t>(a.state_in[sl]);
-    mv = static_cast<uint32_t>(a.state_in[ns + sl]);
-    hn = static_cast<uint32_t>(a.state_in[2 * ns + sl]) & 1u;
-    hp = static_cast<uint32_t>(a.state_in[3 * ns + sl]) & 1u;
-    sc = a.state_in[4 * ns + sl];
+    st.pv = static_cast<uint32_t>(a.state_in[sl]);
+    st.mv = static_cast<uint32_t>(a.state_in[ns + sl]);
+    st.hn = static_cast<uint32_t>(a.state_in[2 * ns + sl]) & 1u;
+    st.hp = static_cast<uint32_t>(a.state_in[3 * ns + sl]) & 1u;
+    st.sc = a.state_in[4 * ns + sl];
     if (g > 0) {
       const int q = g * kGroup - 1;
-      carry_n = static_cast<uint32_t>(a.state_in[2 * ns + q]) & 1u;
-      carry_p = static_cast<uint32_t>(a.state_in[3 * ns + q]) & 1u;
+      st.carry_n = static_cast<uint32_t>(a.state_in[2 * ns + q]) & 1u;
+      st.carry_p = static_cast<uint32_t>(a.state_in[3 * ns + q]) & 1u;
     }
   }
-  // The link into the top lane and the link out of the bottom lane.
-  const ulonglong2* in_rec = nullptr;
-  unsigned* in_cons = nullptr;
-  int in_depth = INT_MAX;
-  if (g > 0) {
-    if (gl == 0) {
-      in_rec = a.top_in;
-    } else if (warp == 0) {
-      const size_t l = (size_t)core * a.n_groups + gl;
-      in_rec = a.links + l * a.ring;
-      in_cons = a.cons + l;
-      in_depth = a.ring;
-    } else {
-      in_rec = s_rec + warp * a.ring;
-      in_cons = s_cons + warp;
-      in_depth = a.ring;
-    }
-  }
-  ulonglong2* out_rec = nullptr;
-  const unsigned* out_cons = nullptr;
-  int out_depth = INT_MAX;
-  if (g + 1 < a.g_real) {
-    if (gl + 1 == a.n_groups) {
-      out_rec = a.bottom_out;
-    } else if (warp + 1 == a.wpb) {
-      const size_t l = (size_t)core * a.n_groups + gl + 1;
-      out_rec = a.links + l * a.ring;
-      out_cons = a.cons + l;
-      out_depth = a.ring;
-    } else {
-      out_rec = s_rec + (warp + 1) * a.ring;
-      out_cons = s_cons + warp + 1;
-      out_depth = a.ring;
-    }
-  }
+  const GroupLinks ln = group_links(
+      core, gl, warp, a.wpb, a.n_groups, a.ring, g == 0, g + 1 >= a.g_real,
+      a.links, a.cons, s_rec, s_cons, a.top_in, a.bottom_out);
   const int wr = min(w, a.n_words - 1);
   if (a.peq_smem) {
     for (int r = 0; r < a.s1; ++r)
@@ -827,182 +695,36 @@ __device__ void run_group(const GroupArgs& a, int core, int gl, int warp,
                            (a.stream != nullptr || a.key != nullptr);
   int32_t rmin = kWfBig;
   int rpos = -1;
-  const int every = max(1, a.ring / 4);
-  const int n_tiles = d_hi > d_lo ? (d_hi - d_lo + kGroupTile - 1) / kGroupTile
-                                  : 0;
-  long long seen = 0;  // the reader's consumed count, as last read
-  unsigned long long px = 0ull, py = 0ull;
-  if (in_rec != nullptr && n_tiles > 0) {
-    px = ld_relaxed(&in_rec[0].x);
-    py = ld_relaxed(&in_rec[0].y);
-  }
-  // The symbols of this lane's columns in the next tile, loaded a tile
-  // ahead (clamped into the scan; columns outside it are inactive).
-  int32_t sym[kGroupTile];
-#pragma unroll
-  for (int k = 0; k < kGroupTile; ++k)
-    sym[k] = __ldg(a.t + min(max(d_lo - w + k, 0), a.t_scan - 1));
-  for (int j = 0; j < n_tiles; ++j) {
-    const int d0 = d_lo + kGroupTile * j;
-    const int nk = min(kGroupTile, d_hi - d0);
-    uint32_t tin_p = a.hin0 ? ~0u : 0u, tin_n = 0u;
-    if (g > 0) {
-      const ulonglong2* r = in_rec + (j % in_depth);
-      const unsigned tag = static_cast<unsigned>(j + 1);
-      Spin spin;
-      while (static_cast<unsigned>(px) != tag) {
-        spin.tick();
-        px = ld_relaxed(&r->x);
-      }
-      while (static_cast<unsigned>(py) != tag) {
-        spin.tick();
-        py = ld_relaxed(&r->y);
-      }
-      const uint32_t rp = static_cast<uint32_t>(px >> 32);
-      const uint32_t rn = static_cast<uint32_t>(py >> 32);
-      tin_p = (rp << 1) | carry_p;
-      tin_n = (rn << 1) | carry_n;
-      carry_p = rp >> 31;
-      carry_n = rn >> 31;
-      if (in_cons != nullptr && (j + 1) % every == 0 && lane == 0)
-        st_release(in_cons, static_cast<unsigned>(j + 1));
-      if (j + 1 < n_tiles) {  // the next record, while this tile runs
-        const ulonglong2* q = in_rec + ((j + 1) % in_depth);
-        px = ld_relaxed(&q->x);
-        py = ld_relaxed(&q->y);
+  // After each tile: lane k gives the bottom word's score after step d0 + k
+  // (the stream of the steps whose bottom column this core owns) and the
+  // tile's candidates for the running (min, first argmin).
+  auto tile = [&](int d0, int nk, int32_t sc0, uint32_t o_p, uint32_t o_n) {
+    if (!bottom_here) return;
+    const int32_t v = tile_score(sc0, o_p, o_n, bl, lane);
+    const int c = d0 + lane - (a.n_words - 1);
+    const bool step = lane < nk && owns(c);
+    if (a.stream != nullptr && step) a.stream[d0 + lane - a.d_base] = v;
+    if (a.key != nullptr) {
+      const bool cand = step && c >= cs && c < ce && c >= a.col_lo &&
+                        c < a.col_hi;
+      const int32_t best = __reduce_min_sync(kFull, cand ? v : kWfBig);
+      if (best < rmin) {
+        rmin = best;
+        rpos = d0 + __ffs(__ballot_sync(kFull, cand && v == best)) - 1 -
+               (a.n_words - 1);
       }
     }
-    const int cb = d0 - w;  // this lane's column at step d0
-    const bool any = __any_sync(kFull, live && cb + nk > cs && cb < ce);
-    const bool whole =
-        __all_sync(kFull, live && cb >= cs && cb + kGroupTile <= ce) &&
-        nk == kGroupTile;
-    const int32_t sc0 = sc;
-    uint32_t o_p = 0u, o_n = 0u;
-    // The tile's Eq words from the symbols loaded during the last tile, then
-    // the next tile's symbols, in flight while this tile's chain runs.
-    uint32_t eq[kGroupTile];
-    if (a.peq_smem) {
-#pragma unroll
-      for (int k = 0; k < kGroupTile; ++k)
-        eq[k] = s_peq[sym[k] * kGroup + lane];
-    } else {
-#pragma unroll
-      for (int k = 0; k < kGroupTile; ++k)
-        eq[k] = __ldg(a.peq + (size_t)sym[k] * a.peq_words + wr);
-    }
-#pragma unroll
-    for (int k = 0; k < kGroupTile; ++k)
-      sym[k] = __ldg(a.t + min(max(cb + kGroupTile + k, 0), a.t_scan - 1));
-    if (!any) {
-      hn = hp = 0u;
-    } else {
-      // hout crosses lanes as two words (hn, hp): votes in whole tiles,
-      // shuffles in the predicated loop, no packing on the chain.
-      if (whole) {
-        // The lanes' hout as two votes: lane i takes bit i - 1, the top
-        // lane the tile's input bit spliced in below bit 0.
-        uint32_t bn = __ballot_sync(kFull, hn != 0u);
-        uint32_t bp = __ballot_sync(kFull, hp != 0u);
-#pragma unroll
-        for (int k = 0; k < kGroupTile; ++k) {
-          const uint32_t in_n = (((bn << 1) | ((tin_n >> k) & 1u)) >> lane) & 1u;
-          const uint32_t in_p = (((bp << 1) | ((tin_p >> k) & 1u)) >> lane) & 1u;
-          const uint32_t e = eq[k];
-          const uint32_t xv = e | mv;
-          const uint32_t e2 = e | in_n;
-          const uint32_t xh = (((e2 & pv) + pv) ^ pv) | e2;
-          const uint32_t ph = mv | ~(xh | pv);
-          const uint32_t mh = pv & xh;
-          const uint32_t phs = (ph << 1) | in_p;
-          const uint32_t mhs = (mh << 1) | in_n;
-          pv = mhs | ~(xv | phs);
-          mv = phs & xv;
-          bn = __ballot_sync(kFull, static_cast<int32_t>(mh) < 0);
-          bp = __ballot_sync(kFull, static_cast<int32_t>(ph) < 0);
-          o_p = __funnelshift_l(ph, o_p, 1);
-          o_n = __funnelshift_l(mh, o_n, 1);
-        }
-        hn = o_n & 1u;  // the last step's, before the reversal
-        hp = o_p & 1u;
-        o_p = __brev(o_p);
-        o_n = __brev(o_n);
-        sc += __popc(o_p) - __popc(o_n);
-      } else {
-#pragma unroll
-        for (int k = 0; k < kGroupTile; ++k) {
-          if (k >= nk) break;
-          uint32_t in_n = __shfl_up_sync(kFull, hn, 1);
-          uint32_t in_p = __shfl_up_sync(kFull, hp, 1);
-          if (lane == 0) {
-            in_n = (tin_n >> k) & 1u;
-            in_p = (tin_p >> k) & 1u;
-          }
-          const int c = cb + k;
-          const bool act = live && c >= cs && c < ce;
-          const uint32_t e = eq[k];
-          const uint32_t xv = e | mv;
-          const uint32_t e2 = e | in_n;
-          const uint32_t xh = (((e2 & pv) + pv) ^ pv) | e2;
-          const uint32_t ph = mv | ~(xh | pv);
-          const uint32_t mh = pv & xh;
-          const uint32_t phs = (ph << 1) | in_p;
-          const uint32_t mhs = (mh << 1) | in_n;
-          if (act) {
-            pv = mhs | ~(xv | phs);
-            mv = phs & xv;
-            hp = ph >> 31;
-            hn = mh >> 31;
-            sc += static_cast<int32_t>(hp) - static_cast<int32_t>(hn);
-            o_p |= hp << k;
-            o_n |= hn << k;
-          } else {
-            hn = hp = 0u;
-          }
-        }
-      }
-    }
-    if (bottom_here) {
-      // Lane k gives the bottom word's score after step d0 + k from the
-      // bottom lane's hout bits (inactive steps have none).
-      const int32_t s0b = __shfl_sync(kFull, sc0, bl);
-      const uint32_t bp = __shfl_sync(kFull, o_p, bl);
-      const uint32_t bn = __shfl_sync(kFull, o_n, bl);
-      const uint32_t m = (2u << lane) - 1u;
-      const int32_t v = s0b + __popc(bp & m) - __popc(bn & m);
-      const int c = d0 + lane - (a.n_words - 1);
-      const bool step = lane < nk && owns(c);
-      if (a.stream != nullptr && step) a.stream[d0 + lane - a.d_base] = v;
-      if (a.key != nullptr) {
-        const bool cand = step && c >= cs && c < ce && c >= a.col_lo &&
-                          c < a.col_hi;
-        const int32_t best = __reduce_min_sync(kFull, cand ? v : kWfBig);
-        if (best < rmin) {
-          rmin = best;
-          rpos = d0 + __ffs(__ballot_sync(kFull, cand && v == best)) - 1 -
-                 (a.n_words - 1);
-        }
-      }
-    }
-    if (out_rec != nullptr) {
-      Spin spin;
-      while (out_cons != nullptr && j - seen >= out_depth) {
-        spin.tick();
-        seen = ld_acquire(out_cons);
-      }
-      if (lane == kGroup - 1) {
-        ulonglong2* r = out_rec + (j % out_depth);
-        st_relaxed(&r->x, record_word(o_p, j));
-        st_relaxed(&r->y, record_word(o_n, j));
-      }
-    }
-  }
+  };
+  const GroupSpan sp{a.t, a.peq, a.peq_smem ? s_peq : nullptr,
+                     a.peq_words, a.t_scan, wr, w, live, g == 0,
+                     cs, ce, d_lo, d_hi, a.hin0, a.ring};
+  group_sweep(sp, ln, lane, st, tile);
   if (live && owns(d_end - 1 - w)) {
-    a.state_out[s] = static_cast<int32_t>(pv);
-    a.state_out[ns + s] = static_cast<int32_t>(mv);
-    a.state_out[2 * ns + s] = static_cast<int32_t>(hn);
-    a.state_out[3 * ns + s] = static_cast<int32_t>(hp);
-    a.state_out[4 * ns + s] = sc;
+    a.state_out[s] = static_cast<int32_t>(st.pv);
+    a.state_out[ns + s] = static_cast<int32_t>(st.mv);
+    a.state_out[2 * ns + s] = static_cast<int32_t>(st.hn);
+    a.state_out[3 * ns + s] = static_cast<int32_t>(st.hp);
+    a.state_out[4 * ns + s] = st.sc;
   }
   if (bottom_here && a.key != nullptr && lane == 0 && rpos >= 0)
     atomicMin(a.key, (static_cast<unsigned long long>(
@@ -1012,76 +734,11 @@ __device__ void run_group(const GroupArgs& a, int core, int gl, int warp,
 
 __global__ void __launch_bounds__(kGroupMaxWarps * 32)
 wavefront_groups_kernel(GroupArgs a) {
-  extern __shared__ __align__(16) unsigned char gsm[];
-  ulonglong2* s_rec = reinterpret_cast<ulonglong2*>(gsm);  // [wpb][ring]
-  unsigned* s_cons = reinterpret_cast<unsigned*>(s_rec + a.wpb * a.ring);
-  uint32_t* s_peq = reinterpret_cast<uint32_t*>(s_cons + a.wpb);
-  __shared__ int task_s;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bpc = (a.n_groups + a.wpb - 1) / a.wpb;  // tasks a core
-  const int n_tasks = a.n_cores * bpc;
-  for (;;) {
-    __syncthreads();
-    if (threadIdx.x == 0) task_s = atomicAdd(a.next_task, 1);
-    for (int i = threadIdx.x; i < a.wpb * a.ring; i += blockDim.x)
-      s_rec[i] = make_ulonglong2(0ull, 0ull);
-    for (int i = threadIdx.x; i < a.wpb; i += blockDim.x) s_cons[i] = 0u;
-    __syncthreads();
-    const int task = task_s;
-    if (task >= n_tasks) return;
-    const int gl = (task % bpc) * a.wpb + warp;
-    if (gl < a.n_groups)
-      run_group(a, task / bpc, gl, warp, lane, s_rec, s_cons,
-                s_peq + (size_t)warp * a.s1 * kGroup);
-  }
-}
-
-size_t group_smem(int wpb, int ring, int s1, bool peq_smem) {
-  return (size_t)wpb * ring * sizeof(ulonglong2) + wpb * sizeof(unsigned) +
-         (peq_smem ? (size_t)wpb * s1 * kGroup * sizeof(uint32_t) : 0);
-}
-
-bool group_peq_smem(int s1) {
-  return (size_t)kGroupMaxWarps * s1 * kGroup * sizeof(uint32_t) <=
-         kGroupPeqSmem;
-}
-
-// Blocks of `wpb` warps that stay resident on the card at once (*blocks).
-int group_residency(int device, int wpb, size_t smem, int* blocks) {
-  int n_sm = 0, per_sm = 0;
-  if (const cudaError_t e = cudaFuncSetAttribute(
-          wavefront_groups_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem)))
-    return static_cast<int>(e);
-  if (const cudaError_t e = cudaDeviceGetAttribute(
-          &n_sm, cudaDevAttrMultiProcessorCount, device))
-    return static_cast<int>(e);
-  if (const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, wavefront_groups_kernel, wpb * 32, smem))
-    return static_cast<int>(e);
-  *blocks = per_sm * n_sm;
-  return 0;
-}
-
-// The warps a block: a group-step slows as warps share an SM (and its
-// schedulers), so the fewest warps on the busiest SM when every task's block
-// is spread one a SM in turn, the larger block (more links in shared
-// memory) among equals.
-int group_block_warps(int device, int n_groups, int n_cores) {
-  int n_sm = 132;
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  int best = kGroupMaxWarps;
-  long long best_load = LLONG_MAX;
-  for (int wpb = kGroupMaxWarps; wpb >= 1; --wpb) {
-    const long long blocks =
-        (long long)n_cores * ((n_groups + wpb - 1) / wpb);
-    const long long load = (blocks + n_sm - 1) / n_sm * wpb;
-    if (load < best_load) {
-      best_load = load;
-      best = wpb;
-    }
-  }
-  return best;
+  auto run = [&](int core, int gl, int warp, int lane, ulonglong2* s_rec,
+                 unsigned* s_cons, uint32_t* s_peq) {
+    run_group(a, core, gl, warp, lane, s_rec, s_cons, s_peq);
+  };
+  group_tasks(a.n_cores, a.n_groups, a.wpb, a.ring, a.s1, a.next_task, run);
 }
 
 int launch_wavefront_groups(int device, GroupArgs a, void* stream) {
@@ -1093,19 +750,12 @@ int launch_wavefront_groups(int device, GroupArgs a, void* stream) {
       (a.n_cores > 1 && (a.g_lo > 0 || a.top_in != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  a.peq_smem = group_peq_smem(a.s1);
-  a.wpb = group_block_warps(device, a.n_groups, a.n_cores);
-  const size_t smem = group_smem(a.wpb, a.ring, a.s1, a.peq_smem);
-  int capacity = 0;
-  if (const int e = group_residency(device, a.wpb, smem, &capacity)) return e;
-  const int bpc = (a.n_groups + a.wpb - 1) / a.wpb;
-  if (capacity < 1 || bpc > capacity)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int blocks =
-      static_cast<int>(min((long long)a.n_cores * bpc, (long long)capacity));
-  wavefront_groups_kernel<<<blocks, a.wpb * 32, smem,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  GroupGeometry g;
+  if (const int e = group_geometry(wavefront_groups_kernel, device, a.n_cores,
+                                   a.n_groups, a.s1, a.ring, 0, &g))
+    return e;
+  return launch_groups(wavefront_groups_kernel, a, g,
+                       static_cast<cudaStream_t>(stream));
 }
 
 int launch_wavefront(int device, WfArgs a, void* stream) {
@@ -1243,13 +893,7 @@ int myers_wavefront(int device, const void* t, const void* peq, int peq_words,
 int myers_wavefront_capacity(int device, int s1, int ring, int* groups) {
   if (s1 < 1 || ring < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  int blocks = 0;
-  if (const int e = group_residency(
-          device, kGroupMaxWarps,
-          group_smem(kGroupMaxWarps, ring, s1, group_peq_smem(s1)), &blocks))
-    return e;
-  *groups = blocks * kGroupMaxWarps;
-  return 0;
+  return group_capacity(wavefront_groups_kernel, device, s1, ring, groups);
 }
 
 // myers_wavefront_banded: the window slides along the band of lower diagonal

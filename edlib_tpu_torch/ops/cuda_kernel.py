@@ -22,14 +22,18 @@ one of them:
   capture          every column's (Pv, Mv[, Ph, Mh]) words, stored
                    (_capture_kernel), for the batched PATH decode;
   sweep_scores     every column's bottom-row score, stored (_sweep_kernel),
-                   for buckets the JAX package sweeps as score streams;
+                   for buckets the JAX package sweeps as score streams (at
+                   2-8 words the word-parallel lane, from 256 warp groups;
+                   plan= reports what a call launched);
   reduce_eqstream  reduce_lanes with each column's Eq words gathered before
                    the launch (eqstream_gather; _reduce_kernel, eq-stream
                    form), for dense equalities past the per-lane cap;
   hits_eqstream    hits_lanes on the same stream (_hits_kernel, eq-stream);
   reduce_resume    reduce_lanes over one whole target segment from a
                    carried (Pv, Mv, score), the exit state written out
-                   (_reduce_kernel, resume form), for the sharded pipelines;
+                   (_reduce_kernel, resume form), for the sharded pipelines
+                   (split-lane cores, or the word-parallel lane; plan=
+                   reports what a call launched);
   sweep_scores_resume  sweep_scores from and to a carried state
                    (jax_engine.sweep_scores_resumable, which the JAX package
                    leaves to XLA), for sharded_nw_pipeline;
@@ -918,7 +922,8 @@ def split_resume_plain(peq, targets, lo, hi, prow, trow, pv0, mv0, s0,
                        hin0: int, core=None):
     """reduce_resume's split-lane schedule in plain PyTorch: every (lane,
     core) swept from the carried state where its sweep starts at column 0
-    (c_lo - split_halo <= 0, or hin0 = 1: one core a lane), else from the
+    (c_lo - split_halo <= 0, or hin0 = 1: one core a lane, at 2-8 words the
+    word-parallel lane, word_lanes_plain), else from the
     fresh state a halo before its core; each reduces [lo, hi) over its core
     and merges by packed keys, the core holding hi - 1 gives last and the
     one holding T - 1 the exit state.  Operands and outputs as
@@ -931,6 +936,9 @@ def split_resume_plain(peq, targets, lo, hi, prow, trow, pv0, mv0, s0,
     n, T, nw = lo.shape[0], targets.shape[1], peq.shape[2]
     dev = lo.device
     c, K = resume_cores(n, T, nw, hin0, core)
+    if K == 1 and 2 <= nw <= _SPLIT_MAX_WORDS:
+        return reduce_resume_words_plain(peq, targets, lo, hi, prow, trow,
+                                         pv0, mv0, s0, hin0)
     if K == 1:      # one core a lane: the plain sweep from the carry
         return reduce_resume_plain(peq, targets, lo, hi, prow, trow, pv0,
                                    mv0, s0, hin0)
@@ -1475,6 +1483,131 @@ def wavefront_groups_plain(t, peq, state, d_base: int, n_steps: int,
 
 
 # ---------------------------------------------------------------------------
+# The lanes that cannot be cut into column cores (csrc/myers.cu says how
+# each runs and which form a call takes): the resumable reduce where its
+# plan is one core a lane and the score stream, at 2-8 words as the
+# word-parallel lane, and the score stream's long lanes as warp groups.
+# Plain emulations of both schedules, which the tests hold against the
+# plain versions and the JAX package.
+# ---------------------------------------------------------------------------
+
+WORD_TILE = 16                 # csrc/myers.cu kWordTile: columns a step
+
+
+def word_threads(n_words: int) -> int:
+    """Threads of a word-parallel lane's segment: 2, 4 or 8, one a word
+    (csrc/myers.cu word_width)."""
+    return 2 if n_words <= 2 else 4 if n_words <= 4 else 8
+
+
+def word_lanes_plain(peq, targets, prow, trow, hin0: int, pv0=None,
+                     mv0=None, s0=None):
+    """The word-parallel lane's schedule in plain PyTorch, step by step as
+    the kernel runs it (lanes and segment threads vectorised): thread w of
+    a lane's word_threads(NW) advances the WORD_TILE columns [WORD_TILE
+    (s - w), + WORD_TILE) at step s, each column taking its carry bit from
+    the two masks (hneg << WORD_TILE | hpos) that thread w - 1 sent for the
+    same tile a step before (the top thread (0, hin0)).  Operands as
+    sweep_scores_resume (pv0 None: a fresh start); returns (scores int32
+    (B, T), pv, mv, score): every column's bottom-row score and the state
+    after the last column."""
+    B, T, nw = prow.shape[0], targets.shape[1], peq.shape[2]
+    dev = prow.device
+    P = word_threads(nw)
+    w = torch.arange(P, device=dev)
+    wr = w.clamp(max=nw - 1)
+    if pv0 is None:
+        pv = torch.full((B, P), -1, dtype=_I32, device=dev)
+        mv = torch.zeros((B, P), dtype=_I32, device=dev)
+        score = torch.full((B,), nw * WORD_SIZE, dtype=_I32, device=dev)
+    else:
+        pv, mv, score = pv0[:, wr].clone(), mv0[:, wr].clone(), s0.clone()
+    scores = torch.empty((T, B), dtype=_I32, device=dev)
+    if not (B and T):
+        return scores.t(), pv[:, :nw], mv[:, :nw], score
+    prof = peq[prow.long()]                                # (B, S1, NW)
+    tg = targets[trow.long()]                              # (B, T)
+    lanes = torch.arange(B, device=dev)[:, None]
+    K, bottom = WORD_TILE, nw - 1
+    mask = (1 << K) - 1
+    out = torch.zeros((B, P), dtype=_I32, device=dev)
+    for s in range(-(-T // K) + nw - 1):
+        x = torch.cat([out[:, :1], out[:, :-1]], 1)        # __shfl_up_sync
+        hp_in, hn_in = x & mask, (x >> K) & mask
+        hp_in[:, 0] = mask if hin0 else 0
+        hn_in[:, 0] = 0
+        o_p = torch.zeros((B, P), dtype=_I32, device=dev)
+        o_n = torch.zeros_like(o_p)
+        for k in range(K):
+            c = K * (s - w) + k                            # (P,) a thread
+            act = (c >= 0) & (c < T)
+            e = prof[lanes, tg[:, c.clamp(0, T - 1)].long(), wr[None, :]]
+            pv2, mv2, hn2, hp2 = _advance_word(pv, mv, e, (hn_in >> k) & 1,
+                                               (hp_in >> k) & 1)
+            pv = torch.where(act, pv2, pv)
+            mv = torch.where(act, mv2, mv)
+            hn2 = torch.where(act, hn2, 0)
+            hp2 = torch.where(act, hp2, 0)
+            o_p |= hp2 << k
+            o_n |= hn2 << k
+            cb = int(c[bottom])
+            if 0 <= cb < T:
+                score = score + hp2[:, bottom] - hn2[:, bottom]
+                scores[cb] = score
+        out = (o_n << K) | o_p
+    return scores.t(), pv[:, :nw], mv[:, :nw], score
+
+
+def reduce_resume_words_plain(peq, targets, lo, hi, prow, trow, pv0, mv0, s0,
+                              hin0: int):
+    """reduce_resume on the word-parallel lane's schedule (word_lanes_plain
+    and the window reduction of its scores); operands and outputs as
+    reduce_resume, equal to reduce_resume_plain from any carry."""
+    scores, pv, mv, score = word_lanes_plain(peq, targets, prow, trow, hin0,
+                                             pv0, mv0, s0)
+    cols = ((c, scores[:, c], True) for c in range(targets.shape[1]))
+    return _reduction(cols, lo, hi) + (pv, mv, score)
+
+
+def sweep_scores_groups_plain(peq, targets, prow, trow, hin0: int, pv0=None,
+                              mv0=None, s0=None, *, ring=None,
+                              pass_groups=None, block_groups=None,
+                              blocks=None):
+    """The score stream's warp groups in plain PyTorch: each lane is the
+    group schedule of one wavefront call (wavefront_groups_plain, tile by
+    tile, rings, passes, tasks and blocks as there) over the lane's profile
+    row and target row, all its words from step 0 to the last column's
+    bottom step, from the lane's carry in the state's Pv and Mv planes and
+    its score in the score plane; column c's score is the bottom word's
+    after step c + NW - 1.  Operands as sweep_scores_resume (pv0 None: a
+    fresh start), ring, pass_groups, block_groups and blocks as
+    wavefront_groups_plain; returns (scores (B, T), pv, mv, score), equal
+    to sweep_scores_resume_plain."""
+    B, T, nw = prow.shape[0], targets.shape[1], peq.shape[2]
+    dev = prow.device
+    scores = torch.empty((T, B), dtype=_I32, device=dev)
+    pv1 = torch.full((B, nw), -1, dtype=_I32, device=dev)
+    mv1 = torch.zeros((B, nw), dtype=_I32, device=dev)
+    s1 = torch.full((B,), nw * WORD_SIZE, dtype=_I32, device=dev)
+    if pv0 is not None:
+        pv1, mv1, s1 = pv0.clone(), mv0.clone(), s0.clone()
+    if not T:
+        return scores.t(), pv1, mv1, s1
+    for i in range(B):
+        state = torch.zeros((WF_PLANES, nw), dtype=_I32, device=dev)
+        state[0], state[1], state[4] = pv1[i], mv1[i], s1[i]
+        state[5], state[6] = _BIG, -1
+        new, stream = wavefront_groups_plain(
+            targets[int(trow[i])], peq[int(prow[i])], state, 0, T + nw - 1,
+            nw, T, hin0, 0, 0, 0, True, core=T, ring=ring,
+            pass_groups=pass_groups, block_groups=block_groups,
+            blocks=blocks)
+        scores[:, i] = stream[nw - 1:]
+        pv1[i], mv1[i], s1[i] = new[0], new[1], new[4, nw - 1]
+    return scores.t(), pv1, mv1, s1
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
@@ -1844,7 +1977,54 @@ def capture(peq, targets, hin0: int, want_h: bool = False):
     return tuple(o.permute(2, 0, 1) for o in outs)
 
 
-def sweep_scores(peq, targets, prow, trow, hin0: int):
+# A launch plan as csrc/myers.cu's entries report it (LaunchPlan): the
+# form, the blocks and threads a block of its (first) launch, then the
+# segment width, the cores a lane and their columns, and the groups a lane,
+# ring tiles, passes and groups a pass.
+_PLAN_FORMS = ("thread", "words", "groups", "cores", "wave")
+_PLAN_KEYS = ("width", "cores", "core", "groups", "ring", "passes",
+              "pass_groups")
+
+
+def _plan_buffer():
+    return (ctypes.c_longlong * (3 + len(_PLAN_KEYS)))()
+
+
+def _fill_plan(plan, buf) -> None:
+    """Write a reported plan into the caller's dict `plan` (None: not
+    asked): form, blocks, threads (in all) and block (threads a block),
+    and the form's own figures (the keys of _PLAN_KEYS that are set)."""
+    if plan is None:
+        return
+    plan.clear()
+    plan.update(form=_PLAN_FORMS[buf[0]], blocks=buf[1],
+                threads=buf[1] * buf[2], block=buf[2])
+    plan.update((k, v) for k, v in zip(_PLAN_KEYS, buf[3:]) if v)
+
+
+def _scores_scratch(dev, s1: int, nw: int, T: int, n: int, ring: int,
+                    pass_groups) -> torch.Tensor:
+    """The score-stream kernel's scratch, as large as its entry's plan
+    asks (the state of the scratch form, the groups' links and pass
+    records)."""
+    lib = _build.load()
+    words = ctypes.c_longlong(0)
+    _build.check(lib, lib.myers_sweep_scores_plan(
+        dev.index, s1, nw, T, n, ring, pass_groups or 0, None,
+        ctypes.byref(words)), "sweep_scores")
+    return torch.empty(words.value, dtype=_I32, device=dev)
+
+
+def _check_ring(name: str, ring, pass_groups=None) -> int:
+    if ring is not None and ring < 1:
+        raise ValueError(f"{name}: ring={ring} < 1")
+    if pass_groups is not None and pass_groups < 1:
+        raise ValueError(f"{name}: pass_groups={pass_groups} < 1")
+    return ring or _WF_RING
+
+
+def sweep_scores(peq, targets, prow, trow, hin0: int, *, ring=None,
+                 pass_groups=None, plan=None):
     """Every lane's score after every column (the score-stream kernel).
 
     peq: int32 (R_p, S1, NW) profile bit words; targets: int32 (R_t, T)
@@ -1852,11 +2032,18 @@ def sweep_scores(peq, targets, prow, trow, hin0: int):
     trow[i] with profile row prow[i] over all T columns.  Returns int32
     (B, T), the padded bottom cell after each column (equal to the true
     cell(qlen-1, c - W) for c >= W), a view of (T, B) storage: lane-minor,
-    x.t() is contiguous.  hin0: 0 for HW, 1 for SHW/NW."""
+    x.t() is contiguous.  hin0: 0 for HW, 1 for SHW/NW.  The kernel runs
+    at 2-8 words the word-parallel lane (word_lanes_plain), from 256 words
+    warp groups (sweep_scores_groups_plain), in passes where a lane holds
+    more groups than one launch keeps resident.  For checks only: `ring`
+    forces the groups' ring depth in tiles and `pass_groups` the most
+    groups a pass holds; a dict `plan` receives what the kernel launched
+    (_fill_plan; left as it is on the CPU)."""
     name = "sweep_scores"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
     n = _check_lanes(name, dict(prow=prow, trow=trow))
+    ring = _check_ring(name, ring, pass_groups)
     if not _on_cuda(name, peq, targets, prow, trow):
         return sweep_scores_plain(peq, targets, prow, trow, hin0)
     s1, nw = peq.shape[1], peq.shape[2]
@@ -1864,10 +2051,14 @@ def sweep_scores(peq, targets, prow, trow, hin0: int):
     dev = peq.device
     out = torch.empty((T, n), dtype=_I32, device=dev)
     if n and T:
+        buf = _plan_buffer()
         _launch(name, "myers_sweep_scores", dev.index, peq.data_ptr(), s1, nw,
                 targets.data_ptr(), T, *_ptrs(prow, trow), n, int(hin0),
-                out.data_ptr(), *[None] * 6, _scratch(nw, n, dev).data_ptr(),
-                _stream(dev))
+                out.data_ptr(), *[None] * 6,
+                _scores_scratch(dev, s1, nw, T, n, ring,
+                                pass_groups).data_ptr(), ring,
+                pass_groups or 0, ctypes.addressof(buf), _stream(dev))
+        _fill_plan(plan, buf)
     return out.t()
 
 
@@ -1888,18 +2079,21 @@ def _carry_out(n: int, nw: int, dev):
             torch.empty(n, dtype=_I32, device=dev))
 
 
-def sweep_scores_resume(peq, targets, prow, trow, pv0, mv0, s0, hin0: int):
+def sweep_scores_resume(peq, targets, prow, trow, pv0, mv0, s0, hin0: int,
+                        *, ring=None, pass_groups=None, plan=None):
     """sweep_scores from a carried state (the carry form of the
     score-stream kernel): operands as sweep_scores plus pv0, mv0 int32
     (B, NW) and s0 int32 (B,), the state after the column before this
     segment.  Returns (scores as sweep_scores, pv, mv, score): the state
     after the last column, so segments chained through it equal one sweep
-    of their concatenation (jax_engine.sweep_scores_resumable)."""
+    of their concatenation (jax_engine.sweep_scores_resumable).  The forms,
+    `ring`, `pass_groups` and `plan` as sweep_scores."""
     name = "sweep_scores_resume"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
     n = _check_lanes(name, dict(prow=prow, trow=trow))
     _check_carry(name, pv0, mv0, s0, n, peq.shape[2])
+    ring = _check_ring(name, ring, pass_groups)
     if not _on_cuda(name, peq, targets, prow, trow, pv0, mv0, s0):
         return sweep_scores_resume_plain(peq, targets, prow, trow, pv0, mv0,
                                          s0, hin0)
@@ -1910,15 +2104,18 @@ def sweep_scores_resume(peq, targets, prow, trow, pv0, mv0, s0, hin0: int):
     if not (n and T):
         return out.t(), pv0.clone(), mv0.clone(), s0.clone()
     state = _carry_out(n, nw, dev)
+    buf = _plan_buffer()
     _launch(name, "myers_sweep_scores", dev.index, peq.data_ptr(), s1, nw,
             targets.data_ptr(), T, *_ptrs(prow, trow), n, int(hin0),
             out.data_ptr(), *_ptrs(pv0, mv0, s0, *state),
-            _scratch(nw, n, dev).data_ptr(), _stream(dev))
+            _scores_scratch(dev, s1, nw, T, n, ring, pass_groups).data_ptr(),
+            ring, pass_groups or 0, ctypes.addressof(buf), _stream(dev))
+    _fill_plan(plan, buf)
     return (out.t(),) + state
 
 
 def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int,
-                  *, core=None):
+                  *, core=None, plan=None):
     """The resumable reduce (kernel reduce_resume): every lane sweeps ALL
     T columns of its target row from the carried state pv0, mv0 int32
     (B, NW), s0 int32 (B,), and reduces the columns in [lo, hi) as
@@ -1931,7 +2128,10 @@ def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int,
     split_resume_plain): at hin0 = 0 its cores past the first halo start
     from the fresh state, so the carry must be a state an HW sweep leaves
     (every row's value >= 0, the score the bottom row's), as the pipelines'
-    carries are.  `core` forces its core length, for checks only."""
+    carries are; one core a lane (hin0 = 1, or a segment shorter than a
+    core) takes any carry, at 2-8 words on the word-parallel lane.  For
+    checks only: `core` forces its core length, and a dict `plan` receives
+    what the kernel launched (sweep_scores)."""
     name = "reduce_resume"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
@@ -1957,12 +2157,14 @@ def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int,
     if keys is not None:
         out[3].fill_(_BIG)
     targets = _aligned(targets)
+    buf = _plan_buffer()
     _launch(name, "myers_reduce_resume", dev.index, peq.data_ptr(), s1, nw,
             targets.data_ptr(), T, *_ptrs(lo, hi, prow, trow), n, int(hin0),
             *_ptrs(pv0, mv0, s0), n_cores, c, split_halo(nw),
             *([None, None] if keys is None else _ptrs(*keys)),
             *_ptrs(*out), *_ptrs(*state), _scratch(nw, n, dev).data_ptr(),
-            _stream(dev))
+            ctypes.addressof(buf), _stream(dev))
+    _fill_plan(plan, buf)
     if keys is not None:
         out[:3] = _unpack_keys(keys)
     return tuple(out) + state
@@ -2138,8 +2340,7 @@ def wavefront(t, peq, state, d_base: int, n_steps: int, n_words: int,
     ring's depth in tiles and the groups a pass holds, for checks only."""
     name = "wavefront"
     _check_wavefront(name, t, peq, state, d_base, n_steps, n_words, t_scan)
-    if ring is not None and ring < 1:
-        raise ValueError(f"{name}: ring={ring} < 1")
+    ring = _check_ring(name, ring)
     dev = state.device
     if not _on_cuda(name, t, peq, state):
         return wavefront_plain(t, peq, state, d_base, n_steps, n_words,
@@ -2154,7 +2355,6 @@ def wavefront(t, peq, state, d_base: int, n_steps: int, n_words: int,
     out[2:4, max(real, 0):] = 0
     if real <= 0:
         return out, stream
-    ring = ring or _WF_RING
     s1 = peq.shape[0]
     G = -(-real // WF_GROUP)
     cap = _wf_capacity(dev, s1, ring)
