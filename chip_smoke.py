@@ -105,12 +105,16 @@ Phases, each of which exits non-zero on any failure:
    two cores and the query where the call runs column cores, the banded one
    at least the tiles' 6,144 steps; it fails where the form differs.  K1's,
    K3's, K2's and the resumable reduce's calls also give their core
-   length, threads and the time with one core a lane (whole_ms); K3's calls
-   also a traced batch (its kernels' device time a call and the device's
-   idle share).  The resumable reduce has an entry at each hin0; its calls
-   and the score stream's give their plan as the kernel reports it (form,
-   blocks and threads, and the segment width or the warp groups a lane,
-   ring and passes).
+   length, threads and the time with one core a lane (whole_ms), and so do
+   hits_lanes' (which must run several cores a lane on phase 7).  The short
+   kernels' calls (TRACED) also give a traced batch (the kernels' device
+   time a call by torch.profiler and the device's idle share) and the
+   device time of their launches alone (launch_ms).  The resumable reduce
+   has an entry at each hin0; its calls, the score stream's and the
+   hit-word sweeps' give their plan as the kernel reports it (form, blocks
+   and threads, and the cores and core, the segment width or the warp
+   groups a lane, ring and passes); hits_eqstream must run the word lane at
+   width 4 on phase 18.
 14-17. Long single pairs through nw_distance_long, shw_best_long,
    semiglobal_locations_long and align, each with its launch counts, a
    warm repeat that must agree, and its k ladder rung by rung (k, banded
@@ -510,6 +514,16 @@ def lane_operands(rng, dev, *, n_lanes, n_rows, T, s1, nw):
     return peq, i32(targets), i32(lo), i32(hi), i32(prow), i32(trow)
 
 
+def edge_lanes(lo, hi, T):
+    """The split and word checks' edge lanes, in place (lane_operands has
+    set hi = 0 on every 7th): an empty window, lo past hi, hi past the row
+    and both past it."""
+    hi[1::7] = lo[1::7]                   # empty window
+    lo[2::7] = hi[2::7] + 3               # lo past hi
+    hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
+    lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+
+
 def max_abs_err(got, want) -> float:
     return max((float((g.long() - w.long()).abs().max()) if g.numel() else 0.0)
                for g, w in zip(got, want))
@@ -521,11 +535,12 @@ def on_host(fn, *args, **kw):
     sooner than one launch an operation on the card."""
     import torch
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    out = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
-             **kw)
+    host = lambda a: a.cpu() if isinstance(a, torch.Tensor) else a
+    out = fn(*map(host, args), **{k: host(v) for k, v in kw.items()})
+    back = lambda o: o.to(dev) if isinstance(o, torch.Tensor) else o
     if isinstance(out, torch.Tensor):
         return out.to(dev)
-    return type(out)(o.to(dev) for o in out)
+    return type(out)(map(back, out))
 
 
 def check_form(name, plan, form, **want) -> None:
@@ -555,14 +570,15 @@ def check_kernels(rng, dev, ck):
                                 nw=nw)
             check_equal(f"reduce_lanes nw={nw} hin0={hin0}",
                         ck.reduce_lanes(*ops, hin0),
-                        ck.reduce_lanes_plain(*ops, hin0))
+                        on_host(ck.reduce_lanes_plain, *ops, hin0))
             words = rng.randint(0, 1 << 32, (5, nw, 70), dtype=np.uint64)
             peq_t = torch.from_numpy(
                 words.astype(np.uint32).view(np.int32)).to(dev)
             target = ops[1][0].contiguous()
             check_equal(f"sweep_shared nw={nw} hin0={hin0}",
                         ck.sweep_shared(peq_t, target, hin0, 17, 190),
-                        ck.sweep_shared_plain(peq_t, target, hin0, 17, 190))
+                        on_host(ck.sweep_shared_plain, peq_t, target, hin0,
+                                17, 190))
     sigma = 100
     nb = ck.bitplane_nb(sigma)
     for nw in (4, 9):
@@ -579,12 +595,12 @@ def check_kernels(rng, dev, ck):
             args = (planes, pad, targets, lo, hi, prow, trow, hin0)
             check_equal(f"reduce_bitplane nw={nw} hin0={hin0}",
                         ck.reduce_bitplane(*args, nb, 1, sigma),
-                        ck.reduce_bitplane_plain(*args, nb, 1, sigma))
+                        on_host(ck.reduce_bitplane_plain, *args, nb, 1, sigma))
             best = hit_targets(rng, ck.reduce_bitplane(*args, nb, 1, sigma))
             hargs = args[:7] + (best, hin0, nb, 1, sigma)
             check_equal(f"hits_bitplane nw={nw} hin0={hin0}",
                         [ck.hits_bitplane(*hargs)],
-                        [ck.hits_bitplane_plain(*hargs)])
+                        [on_host(ck.hits_bitplane_plain, *hargs)])
     for nw in (1, 4, 9):
         for hin0 in (0, 1):
             ops = lane_operands(rng, dev, n_lanes=300, n_rows=6, T=200, s1=5,
@@ -592,7 +608,7 @@ def check_kernels(rng, dev, ck):
             best = hit_targets(rng, ck.reduce_lanes(*ops, hin0))
             check_equal(f"hits_lanes nw={nw} hin0={hin0}",
                         [ck.hits_lanes(*ops, best, hin0)],
-                        [ck.hits_lanes_plain(*ops, best, hin0)])
+                        [on_host(ck.hits_lanes_plain, *ops, best, hin0)])
     # Band windows of every register width and two scratch widths (3, 20),
     # sliding by 0, 1 and several words at chunk boundaries.
     chunk = 64
@@ -609,16 +625,16 @@ def check_kernels(rng, dev, ck):
         tail = (prow, trow, n_win, chunk)
         check_equal(f"nw_banded n_win={n_win} nw={nw}",
                     [ck.nw_banded(*band, hi, *tail)],
-                    [ck.nw_banded_plain(*band, hi, *tail)])
+                    [on_host(ck.nw_banded_plain, *band, hi, *tail)])
         got = ck.shw_banded(*band, lo, hi, *tail)
         check_equal(f"shw_banded n_win={n_win} nw={nw}", got,
-                    ck.shw_banded_plain(*band, lo, hi, *tail))
+                    on_host(ck.shw_banded_plain, *band, lo, hi, *tail))
         best = hit_targets(rng, got)
         check_equal(f"shw_banded_hits n_win={n_win} nw={nw}",
                     [ck.shw_banded_hits(*band, lo, hi, prow, trow, best,
                                         n_win, chunk)],
-                    [ck.shw_banded_hits_plain(*band, lo, hi, prow, trow,
-                                              best, n_win, chunk)])
+                    [on_host(ck.shw_banded_hits_plain, *band, lo, hi, prow,
+                             trow, best, n_win, chunk)])
     # The score-stream and eq-stream kernels: register widths and a scratch
     # width, both hin0, a ragged 197 columns, sigma = 100.
     for nw in (1, 4, 9):
@@ -628,16 +644,18 @@ def check_kernels(rng, dev, ck):
             rows = (peq, targets, prow, trow, hin0)
             check_equal(f"sweep_scores nw={nw} hin0={hin0}",
                         [ck.sweep_scores(*rows)],
-                        [ck.sweep_scores_plain(*rows)])
+                        [on_host(ck.sweep_scores_plain, *rows)])
             eq_t = ck.eqstream_gather(peq[prow.long()],
                                       targets[trow.long()]).permute(1, 2, 0)
             got = ck.reduce_eqstream(eq_t, lo, hi, hin0)
             check_equal(f"reduce_eqstream nw={nw} hin0={hin0}", got,
-                        ck.reduce_eqstream_plain(eq_t, lo, hi, hin0))
+                        on_host(ck.reduce_eqstream_plain, eq_t, lo, hi,
+                                hin0))
             best = hit_targets(rng, got)
             check_equal(f"hits_eqstream nw={nw} hin0={hin0}",
                         [ck.hits_eqstream(eq_t, lo, hi, best, hin0)],
-                        [ck.hits_eqstream_plain(eq_t, lo, hi, best, hin0)])
+                        [on_host(ck.hits_eqstream_plain, eq_t, lo, hi, best,
+                                 hin0)])
     # The wave form (a block a lane, 8 words a thread) at 256 words and at a
     # ragged 300, over fewer columns than the block has threads (every
     # column still passes every thread).
@@ -647,23 +665,25 @@ def check_kernels(rng, dev, ck):
         lanes = (peq, targets, lo, hi, prow, trow, hin0)
         got = ck.reduce_lanes(*lanes)
         check_equal(f"reduce_lanes nw={nw} hin0={hin0}", got,
-                    ck.reduce_lanes_plain(*lanes))
+                    on_host(ck.reduce_lanes_plain, *lanes))
         best = hit_targets(rng, got)
         check_equal(f"hits_lanes nw={nw} hin0={hin0}",
                     [ck.hits_lanes(*lanes[:6], best, hin0)],
-                    [ck.hits_lanes_plain(*lanes[:6], best, hin0)])
+                    [on_host(ck.hits_lanes_plain, *lanes[:6], best, hin0)])
         rows = (peq, targets, prow, trow, hin0)
         check_equal(f"sweep_scores nw={nw} hin0={hin0}",
-                    [ck.sweep_scores(*rows)], [ck.sweep_scores_plain(*rows)])
+                    [ck.sweep_scores(*rows)],
+                    [on_host(ck.sweep_scores_plain, *rows)])
         eq_t = ck.eqstream_gather(peq[prow.long()],
                                   targets[trow.long()]).permute(1, 2, 0)
         got = ck.reduce_eqstream(eq_t, lo, hi, hin0)
         check_equal(f"reduce_eqstream nw={nw} hin0={hin0}", got,
-                    ck.reduce_eqstream_plain(eq_t, lo, hi, hin0))
+                    on_host(ck.reduce_eqstream_plain, eq_t, lo, hi, hin0))
         best = hit_targets(rng, got)
         check_equal(f"hits_eqstream nw={nw} hin0={hin0}",
                     [ck.hits_eqstream(eq_t, lo, hi, best, hin0)],
-                    [ck.hits_eqstream_plain(eq_t, lo, hi, best, hin0)])
+                    [on_host(ck.hits_eqstream_plain, eq_t, lo, hi, best,
+                             hin0)])
         q = torch.from_numpy(rng.randint(0, sigma, (3, nw * 32))
                              .astype(np.int32)).to(dev)
         qlens = torch.from_numpy(rng.randint(1, nw * 32 + 1, 3)
@@ -673,12 +693,12 @@ def check_kernels(rng, dev, ck):
                 trow, hin0)
         got = ck.reduce_bitplane(*args, nb, 1, sigma)
         check_equal(f"reduce_bitplane nw={nw} hin0={hin0}", got,
-                    ck.reduce_bitplane_plain(*args, nb, 1, sigma))
+                    on_host(ck.reduce_bitplane_plain, *args, nb, 1, sigma))
         best = hit_targets(rng, got)
         hargs = args[:7] + (best, hin0, nb, 1, sigma)
         check_equal(f"hits_bitplane nw={nw} hin0={hin0}",
                     [ck.hits_bitplane(*hargs)],
-                    [ck.hits_bitplane_plain(*hargs)])
+                    [on_host(ck.hits_bitplane_plain, *hargs)])
     # Lanes past the wave form's 4,096 words take one thread each again
     # (the score stream: warp groups): 12,300 words, a few columns.
     peq, targets, lo, hi, prow, trow = lane_operands(
@@ -689,7 +709,7 @@ def check_kernels(rng, dev, ck):
                 [on_host(ck.sweep_scores_plain, *rows)])
     lanes = (peq, targets, lo, hi, prow, trow, 1)
     check_equal("reduce_lanes nw=12300 hin0=1", ck.reduce_lanes(*lanes),
-                ck.reduce_lanes_plain(*lanes))
+                on_host(ck.reduce_lanes_plain, *lanes))
     # The capture kernel in its register (NW <= 8) and read-back forms, 200
     # columns padded with the wildcard to 256 (a ragged last chunk).
     for nw in (1, 4, 8, 16, 64):
@@ -701,7 +721,7 @@ def check_kernels(rng, dev, ck):
                 check_equal(f"capture nw={nw} hin0={hin0} want_h={want_h}",
                             ck.capture_flat_device(peq, targets, hin0, 128,
                                                    want_h),
-                            ck.capture_plain(peq, tg, hin0, want_h))
+                            on_host(ck.capture_plain, peq, tg, hin0, want_h))
 
 
 def hit_targets(rng, reduced):
@@ -748,7 +768,7 @@ def check_wavefront_kernels(rng, dev, ck):
             for d, n in ((d0, 150), (d0 + 150, 97)):
                 args = (d, n, n_words, t_scan, hin0, *cols, word0, emit)
                 got, gs = ck.wavefront(t, peq, got, *args)
-                want, ws = ck.wavefront_plain(t, peq, want, *args)
+                want, ws = on_host(ck.wavefront_plain, t, peq, want, *args)
                 check_equal(f"wavefront ns={ns} words={n_words} "
                             f"word0={word0} hin0={hin0} emit={emit} "
                             f"cols={cols} from step {d}",
@@ -766,7 +786,7 @@ def check_wavefront_kernels(rng, dev, ck):
         for d, n in ((d0, 200), (d0 + 200, 333)):
             args = (d, n, n_words, t_scan, lo, *cols)
             got = ck.wavefront_banded(t, peq, got, *args)
-            want = ck.wavefront_banded_plain(t, peq, want, *args)
+            want = on_host(ck.wavefront_banded_plain, t, peq, want, *args)
             check_equal(f"wavefront_banded ns={ns} words={n_words} lo={lo} "
                         f"cols={cols} from step {d}", [got], [want])
 
@@ -797,14 +817,14 @@ def check_wavefront_tiles(rng, dev, ck):
             args = (d, n, n_words, t_scan, lo, *cols)
             before = got
             got = ck.wavefront_banded(t, peq, got, *args)
-            want = ck.wavefront_banded_plain(t, peq, want, *args)
+            want = on_host(ck.wavefront_banded_plain, t, peq, want, *args)
             check_equal(f"wavefront_banded tiles ns={ns} words={n_words} "
                         f"lo={lo} cols={cols} from step {d} ({n} steps)",
                         [got], [want])
             if (ns, d) == (128, 7):
                 check_equal("wavefront_banded_tiles_plain ns=128 from step 7",
-                            [ck.wavefront_banded_tiles_plain(
-                                t, peq, before, *args)], [want])
+                            [on_host(ck.wavefront_banded_tiles_plain, t,
+                                     peq, before, *args)], [want])
 
 
 def check_wavefront_groups(rng, dev, ck):
@@ -821,7 +841,7 @@ def check_wavefront_groups(rng, dev, ck):
 
     def held(label, args, **kw):
         got = ck.wavefront(*args, **kw)
-        want = ck.wavefront_plain(*args)
+        want = on_host(ck.wavefront_plain, *args)
         check_equal(label, [got[0]] + ([got[1]] if args[11] else []),
                     [want[0]] + ([want[1]] if args[11] else []))
         return got[0], want
@@ -845,7 +865,7 @@ def check_wavefront_groups(rng, dev, ck):
                      f" hin0={hin0} cols={cols} {kw} from step {d} ({n})")
             state, want = held(label, args, **kw)
             if (ns, i) == (384, 0) and kw == dict(ring=1):
-                emu = ck.wavefront_groups_plain(*args, ring=1)
+                emu = on_host(ck.wavefront_groups_plain, *args, ring=1)
                 check_equal("wavefront_groups_plain " + label,
                             list(emu), list(want))
     for core, steps, cols in ((300, None, (70, 5900)), (900, None, (0, 0)),
@@ -870,8 +890,8 @@ def hw_state(dev, ck, peq, rows, n, nw, rng):
              torch.zeros((n, nw), dtype=torch.int32, device=dev),
              torch.full((n,), nw * 32, dtype=torch.int32, device=dev))
     zero = torch.zeros(n, dtype=torch.int32, device=dev)
-    return ck.reduce_resume_plain(peq, pre, zero, zero, rows, rows, *fresh,
-                                  0)[4:]
+    return on_host(ck.reduce_resume_plain, peq, pre, zero, zero, rows, rows,
+                   *fresh, 0)[4:]
 
 
 def check_resume_split(rng, dev, ck):
@@ -890,10 +910,7 @@ def check_resume_split(rng, dev, ck):
             rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
         if shared:
             targets, trow = targets[:1].contiguous(), trow * 0
-        hi[1::7] = lo[1::7]                   # empty window
-        lo[2::7] = hi[2::7] + 3               # lo past hi
-        hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
-        lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+        edge_lanes(lo, hi, T)
         hi[5::7] = 0
         words = rng.randint(0, 1 << 32, (2, n, nw), dtype=np.uint64)
         pv0, mv0 = torch.from_numpy(
@@ -909,14 +926,15 @@ def check_resume_split(rng, dev, ck):
                                                         n, nw, rng)))
             for what, carry in carries:
                 ops = (peq, targets, lo, hi, prow, trow) + carry + (hin0,)
-                want = ck.reduce_resume_plain(*ops)
+                want = on_host(ck.reduce_resume_plain, *ops)
                 tag = f"nw={nw} shared={shared} hin0={hin0} {what}"
                 for core in (1, 7, 40, None):
                     check_equal(f"reduce_resume split {tag} core={core}",
                                 ck.reduce_resume(*ops, core=core), want)
                 if (nw, what) == (1, "carried"):
                     check_equal(f"split_resume_plain {tag}",
-                                ck.split_resume_plain(*ops, core=7), want)
+                                on_host(ck.split_resume_plain, *ops, core=7),
+                                want)
             cut = T // 2 + 1
             r1 = ck.reduce_resume(peq, targets[:, :cut].contiguous(),
                                   lo.clamp(max=cut), hi.clamp(max=cut), prow,
@@ -926,9 +944,9 @@ def check_resume_split(rng, dev, ck):
                                   (hi - cut).clamp(min=0), prow, trow,
                                   *r1[4:], hin0, core=9)
             check_equal(f"reduce_resume split chained state nw={nw} "
-                        f"hin0={hin0}", r2[4:], ck.reduce_resume_plain(
-                            peq, targets, lo, hi, prow, trow, *fresh,
-                            hin0)[4:])
+                        f"hin0={hin0}", r2[4:], on_host(
+                            ck.reduce_resume_plain, peq, targets, lo, hi,
+                            prow, trow, *fresh, hin0)[4:])
 
 
 def check_word_lanes(rng, dev, ck):
@@ -949,10 +967,7 @@ def check_word_lanes(rng, dev, ck):
         for T in ((101, 2, 5) if nw in (3, 8) else (101,)):
             peq, targets, lo, hi, prow, trow = lane_operands(
                 rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
-            hi[1::7] = lo[1::7]                   # empty window
-            lo[2::7] = hi[2::7] + 3               # lo past hi
-            hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
-            lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+            edge_lanes(lo, hi, T)
             words = rng.randint(0, 1 << 32, (2, n, nw), dtype=np.uint64)
             pv0, mv0 = torch.from_numpy(
                 words.astype(np.uint32).view(np.int32)).to(dev)
@@ -1092,6 +1107,85 @@ def check_score_groups(rng, dev, ck):
         f"{plan['pass_groups']} groups, {ms:.1f} ms, equal the wavefront")
 
 
+def check_split_hits(rng, dev, ck):
+    """hits_lanes on its split-lane schedule (cores that own whole hit
+    words) == its plain version: forced cores of 32, 64, 96 and 160
+    columns and the unforced plan, at NW 1, 4 and 8, and NW 9 (one thread a
+    lane whatever the core), hin0 0 (split) and 1 (one core a lane), 70
+    lanes of ragged spans (lo mostly not a multiple of 32) with the edge
+    lanes, per-lane rows and the shared row, best from the plain reduce
+    with every 5th lane at -(1 << 30); the schedule's plain emulation
+    beside the first case.  The form each call reports is checked; the
+    plain versions run on the host."""
+    T, n = 700, 70
+    for nw, shared in ((1, False), (4, True), (8, False), (9, True)):
+        peq, targets, lo, hi, prow, trow = lane_operands(
+            rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+        if shared:
+            targets, trow = targets[:1].contiguous(), trow * 0
+        edge_lanes(lo, hi, T)
+        lo[5::7] -= lo[5::7] % 32             # lo a multiple of 32
+        ops = (peq, targets, lo, hi, prow, trow)
+        for hin0 in (0, 1):
+            best = on_host(ck.reduce_lanes_plain, *ops, hin0)[0].clone()
+            best[::5] = -(1 << 30)
+            want = on_host(ck.hits_lanes_plain, *ops, best, hin0)
+            tag = f"nw={nw} shared={shared} hin0={hin0}"
+            for core in (32, 64, 96, 160, None):
+                plan = {}
+                check_equal(f"hits_lanes split {tag} core={core}",
+                            [ck.hits_lanes(*ops, best, hin0, core=core,
+                                           plan=plan)], [want])
+                c = ck.hits_core(n, T, nw, hin0, core)
+                if c < T:
+                    check_form(f"hits_lanes {tag} core={core}", plan,
+                               "cores", core=c)
+                else:
+                    check_form(f"hits_lanes {tag} core={core}", plan,
+                               "thread")
+            if (nw, hin0) == (1, 0):
+                check_equal(f"split_hits_plain {tag}",
+                            [on_host(ck.split_hits_plain, *ops, best, hin0,
+                                     core=64)], [want])
+
+
+def check_word_hits(rng, dev, ck):
+    """hits_eqstream on the word-parallel lane == its plain version: NW 2-8
+    (segments of 2, 4 and 8 threads), both hin0, 70 lanes with the edge
+    lanes, rows of 197 columns (a hit word straddling two tiles) and at NW
+    3 and 8 also of 101, 5 and 2 columns (rows shorter than the words),
+    best from the plain reduce with every 5th lane at -(1 << 30); the
+    schedule's plain emulation beside one case.  The form and segment width
+    each call reports are checked; the plain versions run on the host."""
+    n = 70
+    for nw in range(2, 9):
+        for T in ((197, 101, 5, 2) if nw in (3, 8) else (197,)):
+            peq, targets, lo, hi, prow, trow = lane_operands(
+                rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+            edge_lanes(lo, hi, T)
+            lo[5::7] -= lo[5::7] % 32         # lo a multiple of 32
+            eq_t = ck.eqstream_gather(peq[prow.long()],
+                                      targets[trow.long()]).permute(1, 2, 0)
+            width = 2 if nw <= 2 else 4 if nw <= 4 else 8
+            for hin0 in (0, 1):
+                best = on_host(ck.reduce_eqstream_plain, eq_t, lo, hi,
+                               hin0)[0].clone()
+                best[::5] = -(1 << 30)
+                want = on_host(ck.hits_eqstream_plain, eq_t, lo, hi, best,
+                               hin0)
+                tag = f"nw={nw} T={T} hin0={hin0}"
+                plan = {}
+                check_equal(f"hits_eqstream words {tag}",
+                            [ck.hits_eqstream(eq_t, lo, hi, best, hin0,
+                                              plan=plan)], [want])
+                check_form(f"hits_eqstream {tag}", plan, "words",
+                           width=width)
+                if (nw, T, hin0) == (3, 197, 1):
+                    check_equal(f"hits_words_plain {tag}",
+                                [on_host(ck.hits_words_plain, eq_t, lo, hi,
+                                         best, hin0)], [want])
+
+
 def check_resumable_kernels(rng, dev, ck):
     """The resumable reduce and the carry form of the score stream == their
     plain versions at small shapes: per-lane and shared target rows, both
@@ -1123,11 +1217,11 @@ def check_resumable_kernels(rng, dev, ck):
             for state in (fresh, carried):
                 lanes = (peq, targets, lo, hi, prow, trow) + state + (hin0,)
                 check_equal(f"reduce_resume {tag}", ck.reduce_resume(*lanes),
-                            ck.reduce_resume_plain(*lanes))
+                            on_host(ck.reduce_resume_plain, *lanes))
                 rows = (peq, targets, prow, trow) + state + (hin0,)
                 check_equal(f"sweep_scores_resume {tag}",
                             ck.sweep_scores_resume(*rows),
-                            ck.sweep_scores_resume_plain(*rows))
+                            on_host(ck.sweep_scores_resume_plain, *rows))
             r1 = ck.reduce_resume(peq, halves[0], lo.clamp(max=cut),
                                   hi.clamp(max=cut), prow, trow, *fresh,
                                   hin0)
@@ -1203,32 +1297,29 @@ def check_split_kernels(rng, dev, ck):
                      f"{ck.split_core(300, T, nw, hin0, core=3)}")
             peq, targets, lo, hi, prow, trow = lane_operands(
                 rng, dev, n_lanes=300, n_rows=6, T=T, s1=5, nw=nw)
-            hi[1::7] = lo[1::7]                   # empty window
-            lo[2::7] = hi[2::7] + 3               # lo past hi
-            hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
-            lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+            edge_lanes(lo, hi, T)
             ops = (peq, targets, lo, hi, prow, trow, hin0)
-            want = ck.reduce_lanes_plain(*ops)
+            want = on_host(ck.reduce_lanes_plain, *ops)
             for core in (1, 2, 5, 17, 40):
                 check_equal(f"reduce_lanes nw={nw} hin0={hin0} core={core}",
                             ck.reduce_lanes(*ops, core=core), want)
             check_equal(f"split_reduce_plain nw={nw} hin0={hin0}",
-                        ck.split_reduce_plain(*ops, core=7), want)
+                        on_host(ck.split_reduce_plain, *ops, core=7), want)
             peq_t = torch.from_numpy(rng.randint(
                 0, 1 << 32, (5, nw, 300), dtype=np.uint64).astype(
                     np.uint32).view(np.int32)).to(dev)
             target = torch.cat([targets[0], targets[0]]).contiguous()
             for col_lo, col_hi in ((0, 2 * T), (17, 390), (300, 3 * T)):
-                want = ck.sweep_shared_plain(peq_t, target, hin0, col_lo,
-                                             col_hi)
+                want = on_host(ck.sweep_shared_plain, peq_t, target, hin0,
+                               col_lo, col_hi)
                 for core in (1, 6, 40):
                     check_equal(f"sweep_shared nw={nw} hin0={hin0} "
                                 f"[{col_lo}, {col_hi}) core={core}",
                                 ck.sweep_shared(peq_t, target, hin0, col_lo,
                                                 col_hi, core=core), want)
                 check_equal(f"split_shared_plain nw={nw} hin0={hin0}",
-                            ck.split_shared_plain(peq_t, target, hin0,
-                                                  col_lo, col_hi, core=4),
+                            on_host(ck.split_shared_plain, peq_t, target,
+                                    hin0, col_lo, col_hi, core=4),
                             want)
 
 
@@ -1256,10 +1347,7 @@ def check_bitplane_split(rng, dev, ck):
             (1 << nb) - 1).astype(np.int32)).to(dev)
         _, targets, lo, hi, prow, trow = lane_operands(
             rng, dev, n_lanes=300, n_rows=40, T=T, s1=sigma + 2, nw=1)
-        hi[1::7] = lo[1::7]                   # empty window
-        lo[2::7] = hi[2::7] + 3               # lo past hi
-        hi[3::7] = T + 1 + lo[3::7] % 20      # hi past the row
-        lo[4::7], hi[4::7] = T + 2, T + 9     # both past the row
+        edge_lanes(lo, hi, T)
         hi[5::7] = 0
         for hin0 in (0, 1):
             alts = [(1, q_alts), (2, torch.cat([q_alts, alt], 1))]
@@ -1272,7 +1360,7 @@ def check_bitplane_split(rng, dev, ck):
                                     ("random", prow)):
                     bp = (planes, pad, targets, lo, hi, rows.contiguous(),
                           trow, hin0, nb, n_alts, sigma)
-                    want = ck.reduce_bitplane_plain(*bp)
+                    want = on_host(ck.reduce_bitplane_plain, *bp)
                     tag = (f"sigma={sigma} nw={nw} hin0={hin0} "
                            f"alts={n_alts} rows {order}")
                     for core in (None, 1, 7, 40):
@@ -1484,8 +1572,8 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
 def profile_call(fn, top: int = 8, groups=None) -> dict:
     """Device time of one call by kernel (torch.profiler over CUPTI), the
     call's wall time, and the device's idle share of that wall time; with
-    groups ({label: substring}) also the device time of the kernels whose
-    name holds each substring."""
+    groups ({label: substring or tuple of them}) also the device time of the
+    kernels whose name holds one of a label's substrings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1510,9 +1598,67 @@ def profile_call(fn, top: int = 8, groups=None) -> dict:
            "device_idle_share": 1.0 - busy / wall,
            "top": [{"name": k[:80], "device_ms": ms, "count": c}
                    for k, ms, c in rows[:top]]}
-    for label, sub in (groups or {}).items():
-        out[label + "_device_ms"] = sum(ms for k, ms, _ in rows if sub in k)
+    for label, subs in (groups or {}).items():
+        subs = (subs,) if isinstance(subs, str) else subs
+        out[label + "_device_ms"] = sum(ms for k, ms, _ in rows
+                                        if any(s in k for s in subs))
     return out
+
+
+# The forms the redesigned hit-word sweeps must report on their main paths
+# (phase 7: several cores a lane; phase 18: segments of 4 threads).
+NEW_FORMS = {"hits_lanes": ("cores", lambda p: p.get("cores", 0) > 1),
+             "hits_eqstream": ("words", lambda p: p.get("width") == 4)}
+
+# The kernels whose calls phase 13 also traces, with substrings of their
+# CUDA kernels' names (the traced device time sums the kernels that hold
+# one): the short calls, whose event times hold their wrappers' host work.
+TRACED = {
+    "reduce_bitplane": ("reduce_bitplane",),
+    "hits_lanes": ("hits_lanes",),
+    "hits_bitplane": ("hits_bitplane",),
+    "nw_banded": ("nw_banded",),
+    "shw_banded": ("shw_banded_kernel",),
+    "shw_banded_hits": ("shw_banded_hits",),
+    "capture": ("capture_kernel",),
+    "reduce_eqstream": ("reduce_eqstream",),
+    "hits_eqstream": ("hits_eqstream",),
+    "sweep_scores": ("sweep_scores", "words_kernel"),
+}
+
+
+def launch_ms(ck, fn, reps: int) -> float:
+    """Device milliseconds of the kernel launches of one fn() call, the mean
+    over reps calls: CUDA events recorded just before and after each C
+    launch (cuda_kernel._launch), with a sleep kernel queued first so that
+    the stream is busy while the event, the kernel and the event are queued
+    and they run back to back, whatever host work the wrapper does around
+    them (the events bracket the launch alone)."""
+    import torch
+    orig, pairs = ck._launch, []
+
+    def bracketed(*a):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        orig(*a)
+        stop.record()
+        pairs.append((start, stop))
+
+    ck._launch = bracketed
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        ck._launch = orig
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+# About 0.5 ms at the H100's boost clock: longer than the host's event
+# record and C call that follow the sleep kernel into the queue.
+SLEEP_CYCLES = 1_000_000
 
 
 def lane_call_cost(words_per_row, targets, hi, prow, trow, n_vecs, ops_col,
@@ -1673,16 +1819,24 @@ def bound(nbytes, ops):
 
 
 def split_vs_whole(ck, name, args, reps):
-    """K1's, K3's, K2's or the resumable reduce's split-lane launch on a
-    recorded call's operands held exactly against the same kernel with one
-    core a lane (core = the row length), and the plan and time of both."""
+    """K1's, K3's, K2's, #5's or the resumable reduce's split-lane launch on
+    a recorded call's operands held exactly against the same kernel with
+    one core a lane (core = the row length), and the plan and time of
+    both."""
     import torch
     kernel = getattr(ck, name)
     n_cols = args[2 if name == "reduce_bitplane" else 1].shape[-1]
     whole = lambda: kernel(*args, core=n_cols)
-    check_equal(f"{name}: the split launch against one core a lane",
-                kernel(*args), whole())
-    if name == "reduce_resume":
+    got, want = kernel(*args), whole()
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
+    check_equal(f"{name}: the split launch against one core a lane", got,
+                want)
+    if name == "hits_lanes":
+        peq, targets, lo, hi, _, _, _, hin0 = args
+        core = ck.hits_core(lo.shape[0], n_cols, peq.shape[2], hin0)
+        threads = int(ck.split_cores(lo, hi, n_cols, core, True)[2].sum())
+    elif name == "reduce_resume":
         peq, _, lo = args[:3]
         core, k = ck.resume_cores(lo.shape[0], n_cols, peq.shape[2], args[9])
         threads = lo.shape[0] * k
@@ -1724,15 +1878,17 @@ def measure(ck, name, calls):
         reps = 1 if first_s > 0.5 else 3 if end * n > 1e8 else 10
         ms = time_ms(lambda: kernel(*args), reps, warm=False)
         traced = None
-        if name == "reduce_bitplane":
-            # K3's calls can be shorter than its wrapper's host work, which
-            # the event time then includes: a second batch, traced, gives
-            # the kernels' own device time and the device's idle share (not
-            # its event time: the profiler slows the host further).
+        if name in TRACED:
+            # Short calls can be shorter than their wrapper's host work,
+            # which the event time then includes: a second batch, traced,
+            # gives the kernels' own device time and the device's idle share
+            # (not its event time: the profiler slows the host further).
             trace = profile_call(lambda: [kernel(*args) for _ in range(reps)],
-                                 top=4, groups={"kernel": name})
+                                 top=4, groups={"kernel": TRACED[name]})
             traced = dict(device_ms=trace["kernel_device_ms"] / reps,
-                          idle_share=trace["device_idle_share"])
+                          idle_share=trace["device_idle_share"],
+                          launch_ms=launch_ms(ck, lambda: kernel(*args),
+                                              reps))
         plain_ms = 0.0
         if i not in held:
             plain_cols = 0
@@ -1759,9 +1915,10 @@ def measure(ck, name, calls):
         if traced:
             call["traced"] = traced
         if name in ("reduce_lanes", "reduce_bitplane", "sweep_shared",
-                    "reduce_resume"):
+                    "reduce_resume", "hits_lanes"):
             call.update(split_vs_whole(ck, name, args, reps))
-        if name in ("reduce_resume", "sweep_scores", "sweep_scores_resume"):
+        if name in ("reduce_resume", "sweep_scores", "sweep_scores_resume",
+                    "hits_lanes", "hits_eqstream"):
             # What the kernel launched on these operands, as it reports it.
             call["plan"] = {}
             kernel(*args, plan=call["plan"])
@@ -1770,7 +1927,8 @@ def measure(ck, name, calls):
             f"{ms:.3f} ms, plain {plain_ms:.1f} ms over {plain_cols} cols"
             + (", equal" if i in held else "")
             + (f" (traced: device {traced['device_ms']:.3f} ms a call, "
-               f"idle {traced['idle_share']:.3f})" if traced else "")
+               f"idle {traced['idle_share']:.3f}; the launches alone "
+               f"{traced['launch_ms']:.4f} ms)" if traced else "")
             + (f"; {call['threads']} threads of {call['core']} cols, one "
                f"core a lane {call['whole_ms']:.3f} ms, equal"
                if "core" in call else "")
@@ -2335,29 +2493,30 @@ def main(argv=None) -> int:
             log(f"ptxas: {line.strip()}")
     log(f"built {lib_path.name} in {build_s:.1f} s on {card}")
 
-    # 2. Kernels vs plain versions, small shapes.
-    check_kernels(rng, dev, ck)
-    check_wavefront_kernels(rng, dev, ck)
-    check_resumable_kernels(rng, dev, ck)
-    check_adaptive_kernel(rng, dev, ck)
-    check_split_kernels(rng, dev, ck)
-    # The checks added since PR 7 draw from a generator of their own, so
-    # the paths below see the same data as before.
-    extra = np.random.RandomState(args.seed + 1)
-    check_bitplane_split(extra, dev, ck)
-    check_wavefront_tiles(extra, dev, ck)
-    # The warp groups' and the carried cores' checks: a generator of their
-    # own again, so the paths below see the same data.
-    extra = np.random.RandomState(args.seed + 2)
-    check_wavefront_groups(extra, dev, ck)
-    check_resume_split(extra, dev, ck)
-    # The word-parallel lane's and the score stream's groups' checks, on a
-    # generator of their own.
-    extra = np.random.RandomState(args.seed + 3)
-    check_word_lanes(extra, dev, ck)
-    log("the word-parallel lane equals its plain versions")
-    check_score_groups(extra, dev, ck)
-    log("kernels equal their plain versions at small shapes")
+    # 2. Kernels vs plain versions, small shapes, each check's seconds
+    # logged.  The checks added since PR 7 draw from generators of their
+    # own (--seed + 1, ..., + 4), so the paths below see the same data as
+    # before.
+    phase2_s = {}
+    extra = [np.random.RandomState(args.seed + i) for i in (1, 2, 3, 4)]
+    for check, gen in ((check_kernels, rng), (check_wavefront_kernels, rng),
+                       (check_resumable_kernels, rng),
+                       (check_adaptive_kernel, rng),
+                       (check_split_kernels, rng),
+                       (check_bitplane_split, extra[0]),
+                       (check_wavefront_tiles, extra[0]),
+                       (check_wavefront_groups, extra[1]),
+                       (check_resume_split, extra[1]),
+                       (check_word_lanes, extra[2]),
+                       (check_score_groups, extra[2]),
+                       (check_split_hits, extra[3]),
+                       (check_word_hits, extra[3])):
+        t0 = time.perf_counter()
+        check(gen, dev, ck)
+        phase2_s[check.__name__] = time.perf_counter() - t0
+        log(f"{check.__name__}: equal, {phase2_s[check.__name__]:.1f} s")
+    log(f"kernels equal their plain versions at small shapes "
+        f"({sum(phase2_s.values()):.1f} s)")
 
     rec = Recorder(ck)
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -2679,6 +2838,14 @@ def main(argv=None) -> int:
         kernels.append(kernel_entry(name, m, counts[name], path, card))
         log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
             f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
+        # The redesigned hit-word sweeps run their new forms on these paths:
+        # phase 7's shared row in cores, phase 18's 4-word lanes on the word
+        # lane.
+        for c in m["calls"] if name in NEW_FORMS else ():
+            form, want = NEW_FORMS[name]
+            if c["plan"].get("form") != form or not want(c["plan"]):
+                fail(f"{name} on {path} launched {c['plan']}, not the "
+                     f"{form} form this path takes")
     # Kernels that also run on a second path, beside their entries.
     for name, calls, counts, path in (
             ("reduce_lanes", hw_calls["reduce_lanes"], hw_counts,
@@ -2753,7 +2920,8 @@ def main(argv=None) -> int:
         "sigma": 4, "k": -1, "map_reads_cold_s": cold_s,
         "map_reads_warm_s": warm_s, "full_shared_sweep_s": sweep_s,
         "sigma100_target_len": len(t100), "sigma100_map_reads_cold_s":
-        cold100_s, "build_s": build_s, "warm_profile": prof,
+        cold100_s, "build_s": build_s, "phase2_s": phase2_s,
+        "warm_profile": prof,
         "align_batch": phases, "long_pairs": long_pairs,
         "sharded": sharded, "adaptive": adaptive}}))
     print(card)

@@ -46,6 +46,8 @@ from edlib_tpu_torch.types import (EDOP_DELETE, EDOP_INSERT, EDOP_MATCH,
 from edlib_tpu_torch.utils.hw import (card_name_and_power, nvcc_path,
                                       resolve_device)
 
+__version__ = "0.1.0"
+
 __all__ = ["align", "align_batch", "map_reads", "nw_distance_long",
            "shw_best_long", "semiglobal_locations_long", "getNiceAlignment",
            "alignment_to_cigar", "cigar_to_alignment", "AlignMode",

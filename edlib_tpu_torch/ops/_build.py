@@ -45,7 +45,7 @@ SIGNATURES = {
     "myers_sweep_shared": [_I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P],
     "myers_hits_lanes": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
-                         _P, _I, _P, _P],
+                         _L, _I, _I, _P, _P, _I, _P, _P, _P],
     "myers_hits_bitplane": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
                             _P, _I, _I, _P, _P, _I, _P, _P],
     "myers_nw_banded": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P,
@@ -67,7 +67,7 @@ SIGNATURES = {
     "myers_reduce_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                               _P, _P, _P],
     "myers_hits_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _P,
-                            _P],
+                            _P, _P],
     "myers_wavefront": [_I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
                         _P, _P],

@@ -4,8 +4,9 @@
 // launch (0 = cudaSuccess) and never synchronises or allocates.
 //
 // Fourteen kernels, one thread per alignment lane (one per core of a
-// lane in K1, K2 and K3 at 1-8 words; a block, in the wave form below; a
-// segment of 2-8 threads in the word-parallel lane; warp groups for the
+// lane in K1, K2, K3 and myers_hits_lanes at 1-8 words; a block, in the
+// wave form below; a segment of 2-8 threads in the word-parallel lane; warp
+// groups for the
 // score stream's long lanes; a block per 1,024-lane tile for
 // myers_hw_adaptive).  Each replaces a kernel of
 // edlib_tpu/ops/pallas_kernel.py:
@@ -26,7 +27,9 @@
 //                          split-lane at 1-8 words, as myers_reduce_lanes.
 //   myers_hits_lanes       _hits_kernel (:768), per-lane and shared forms,
 //                          launched by _sweep_hits_call (:855, pallas_call
-//                          :874).
+//                          :874).  At 1-8 words and hin0 = 0 split-lane
+//                          (as myers_reduce_lanes), its cores aligned to
+//                          whole hit words.
 //   myers_hits_bitplane    its bit-plane form, _sweep_hits_bitplane_call
 //                          (:2062, pallas_call :2083).
 //   myers_nw_banded        _nw_banded_kernel (:961, pallas_call :1066).
@@ -49,7 +52,7 @@
 //                          :1869): Eq words pre-gathered per column.
 //   myers_hits_eqstream    _hits_kernel with eq_stream=True, launched by
 //                          _sweep_hits_eqstream_call (:1891, pallas_call
-//                          :1905).
+//                          :1905).  At 2-8 words the word-parallel lane.
 //   myers_reduce_resume    _reduce_kernel with resume=True (:434), launched
 //                          by _sweep_reduce_resumable_call (:649,
 //                          pallas_call :679) through
@@ -89,8 +92,8 @@
 // launch of a few long lanes is latency-bound.
 //
 // K1 (myers_reduce_lanes), K3 (myers_reduce_bitplane), K2
-// (myers_sweep_shared) and the resumable reduce at 1-8 words take the
-// split-lane schedule (see "The split-lane schedule" below): in HW mode a
+// (myers_sweep_shared), #5 (myers_hits_lanes) and the resumable reduce at
+// 1-8 words take the split-lane schedule (see "The split-lane schedule" below): in HW mode a
 // long lane is cut into cores of columns, each core one thread that starts
 // from the fresh state a halo of 2 * 32 * NW columns before its core (the
 // resumable reduce's first cores from the carry), so a few long lanes (K2's
@@ -139,7 +142,8 @@
 //
 // Where a lane cannot be cut into column cores (the resumable reduce at
 // hin0 = 1, NW and SHW being prefix-anchored; the score stream, which
-// writes every column) and has 2-8 words, its words run on a segment of
+// writes every column; myers_hits_eqstream, whose lanes are shorter than
+// a core's four halos) and has 2-8 words, its words run on a segment of
 // threads of one warp, each a tile of 16 columns behind the one above, the
 // word-parallel lane (below): a tile's carries go down in one shuffle, and a
 // column's chain is the word update's Pv recurrence.
@@ -282,6 +286,7 @@ struct WindowReduction : Reduction {
     best = lt ? score : best;
     last = live && c == hi - 1 ? score : last;
   }
+  __device__ __forceinline__ void tile(int, int) {}
 };
 
 // last = score at hi-1 only (the banded NW readout).
@@ -327,6 +332,7 @@ struct ScoreStream {
   __device__ __forceinline__ void take(int32_t score, int c, bool live) {
     if (live) out[(size_t)c * stride] = score;
   }
+  __device__ __forceinline__ void tile(int, int) {}
   __device__ __forceinline__ void finish(int) {}
 };
 
@@ -746,6 +752,9 @@ reduce_bitplane_kernel(const uint32_t* __restrict__ planes,
   if (lane_owner(a)) store_keys(a, lane, r);
 }
 
+// #5 one thread a lane (hin0 = 1, lanes shorter than a core; past 8 words
+// with its state in scratch, or the wave form); 1-8 words at hin0 = 0 take
+// hits_lanes_split_kernel.
 template <int NW>
 __global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
 hits_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a) {
@@ -821,6 +830,8 @@ reduce_eqstream_kernel(const uint32_t* __restrict__ eq, int nw, LaneArgs a) {
   if (lane_owner(a)) store(a, lane, r);
 }
 
+// #11 one thread a lane at 1 word and past 8 (scratch, or the wave form);
+// 2-8 words take hits_eqstream_words_kernel.
 template <int NW>
 __global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
 hits_eqstream_kernel(const uint32_t* __restrict__ eq, int nw, LaneArgs a) {
@@ -874,7 +885,8 @@ shw_banded_hits_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
 
 // ---------------------------------------------------------------------------
 // The split-lane schedule of K1 (myers_reduce_lanes), K3
-// (myers_reduce_bitplane) and K2 (myers_sweep_shared) at 1-8 words.
+// (myers_reduce_bitplane), K2 (myers_sweep_shared) and #5
+// (myers_hits_lanes) at 1-8 words.
 //
 // In HW mode (hin = 0) every cell of row i is at most i, so every bottom-row
 // score is at most R = 32 * nw, and an alignment of cost d that ends at
@@ -1081,14 +1093,16 @@ __device__ __forceinline__ void sweep_core(const SymStream& st, const Eq& eq,
 }
 
 // One core of a lane: columns [c_lo, c_hi) of its scanned span [s, end),
-// and the column its sweep starts from.
+// and the column its sweep starts from.  word_aligned (the hit words' plan):
+// the span starts at s rounded down to a multiple of 32.
 struct Core {
   int c_lo, c_hi, start;
 
   __device__ __forceinline__ Core(int lo, int hi, int n_cols, int k, int core,
-                                  int halo, uint32_t hin_pos) {
+                                  int halo, uint32_t hin_pos,
+                                  bool word_aligned = false) {
     const int end = min(hi, n_cols);
-    const int s = max(0, min(lo, end - 1));
+    const int s = max(0, min(lo, end - 1)) & (word_aligned ? ~31 : ~0);
     c_lo = s + k * core;
     c_hi = static_cast<int>(min((long long)c_lo + core, (long long)end));
     start = hin_pos ? 0 : max(0, c_lo - halo);
@@ -1240,6 +1254,36 @@ reduce_split_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
   split_sweep<NW>(a, sp, p, dyn, eq);
 }
 
+// #5 (myers_hits_lanes) at 1-8 words and hin0 = 0, split-lane: each
+// (lane, core) thread sweeps as K1's does and marks hits only in its own
+// core.  The cores own whole hit words: the plan (ops/cuda_kernel.py
+// hits_core, split_cores with word_aligned) counts a lane's cores from s
+// rounded down to a multiple of 32, and the core length is a multiple of
+// 32, so every hit word lies in exactly one core and has one writer;
+// plain stores suffice (no atomicOr).  Its sweep starts at a multiple of
+// 32 too (c_lo - halo, halo = 64 * NW, or 0), and the halo's columns lie
+// before c_lo, so they mark nothing.
+template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+hits_lanes_split_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
+                        SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profile rows
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  const EqRows eq = stage_rows<NW>(peq, s1, sp, p, slot_row, dyn);
+  if (!p.active) return;
+  const int lo = a.lo[p.lane];
+  const Core k(lo, a.hi[p.lane], a.n_cols, p.core, sp.core, sp.halo, 0u,
+               true);
+  const int32_t* tg = a.targets + (size_t)a.trow[p.lane] * a.n_cols;
+  const SymStream st(dyn, tg + k.start, tg + a.n_cols, k.c_hi - k.start);
+  HitMask h{max(lo, k.c_lo), a.want[p.lane],
+            a.hits + (size_t)p.lane * a.n_out};
+  sweep_core<NW>(st, eq, 0u, k.start, h);
+  h.finish(k.c_hi);
+}
+
 // The resumable reduce, split-lane (1-8 words): every lane's n_cols columns
 // in sp.n_cores cores of sp.core columns from column 0, thread t core
 // t % n_cores of lane t / n_cores.  A core whose sweep starts at column 0
@@ -1301,10 +1345,12 @@ reduce_resume_split_kernel(const uint32_t* __restrict__ peq, int s1,
 
 // ---------------------------------------------------------------------------
 // The word-parallel lane (ops/cuda_kernel.py word_lanes_plain is the same
-// schedule in PyTorch): the resumable reduce where its plan is one core a
-// lane (hin0 = 1, or a segment shorter than a core) and the score stream,
-// at 2-8 words.  NW and SHW are prefix-anchored, so no halo split exists;
-// the only parallelism left inside a lane runs across its words.
+// schedule in PyTorch; hits_words_plain for the hit words): the resumable
+// reduce where its plan is one core a lane (hin0 = 1, or a segment shorter
+// than a core), the score stream and the eq-stream hit words, at 2-8
+// words.  NW and SHW are prefix-anchored, so no halo split exists, and the
+// eq-stream lanes are shorter than a core; the only parallelism left
+// inside a lane runs across its words.
 //
 // A lane's NW words go to a segment of word_threads<NW>() (2, 4 or 8)
 // threads of one warp, word w in thread w (threads past NW run on clamped
@@ -1345,41 +1391,71 @@ __host__ __device__ constexpr int word_threads() {
   return word_width(NW);
 }
 
-// Thread w of a lane's segment sweeps word w over every column of the
-// target row tg (n_cols >= 1) from (pv, mv), left there after the last
+// Where a word-parallel lane's Eq words come from: load(c) reads column c's
+// value for the thread's word (clamped into the row; a tile's loads are
+// issued a step ahead, off the chain), word(x) turns it into the Eq word.
+// The lane's target row with the block's staged profile rows (the
+// resumable reduce, the score stream): the symbol, then its row's word.
+struct RowSource {
+  const int32_t* tg;
+  int last;  // the row's last column
+  EqRows eq;
+  int w;     // the word (clamped to NW - 1)
+
+  __device__ __forceinline__ uint32_t load(int c) const {
+    return static_cast<uint32_t>(__ldg(tg + min(max(c, 0), last)));
+  }
+  __device__ __forceinline__ uint32_t word(uint32_t x) const {
+    return eq.word(static_cast<int32_t>(x), w);
+  }
+};
+
+// The gathered Eq stream (T, NW, lanes) (myers_hits_eqstream): word w of
+// column c of the lane at eq[c * stride], eq offset by the word and lane,
+// stride = NW * lanes; the loaded word is the Eq word.
+struct StreamSource {
+  const uint32_t* eq;
+  size_t stride;
+  int last;
+
+  __device__ __forceinline__ uint32_t load(int c) const {
+    return __ldg(eq + (size_t)min(max(c, 0), last) * stride);
+  }
+  __device__ __forceinline__ uint32_t word(uint32_t x) const { return x; }
+};
+
+// Thread w of a lane's segment sweeps word w over every column of its row
+// (n_cols >= 1, Eq from src) from (pv, mv), left there after the last
 // column, and carries the bottom word's score from `score`; with emit it
 // calls v.take(score, c, true) for the columns c = w mod width of the row
-// (and takes with false where it has no such column).  Every thread of the
-// warp calls it.
-template <int NW, class Visit>
-__device__ __forceinline__ void sweep_words(const int32_t* tg, int n_cols,
-                                            const EqRows& eq,
+// (and takes with false where it has no such column), and after each step
+// v.tile(cb, n_cols) with the bottom word's tile [cb, cb + kWordTile) (cb
+// is the same in every thread of the warp).  Every thread of the warp calls
+// it.
+template <int NW, class Src, class Visit>
+__device__ __forceinline__ void sweep_words(const Src& src, int n_cols,
                                             uint32_t hin_pos, int w,
                                             bool emit, uint32_t& pv,
                                             uint32_t& mv, int32_t& score,
                                             Visit& v) {
   constexpr int kWidth = word_threads<NW>();
   constexpr uint32_t kMask = (1u << kWordTile) - 1u;
-  const int wr = min(w, NW - 1);
   const bool top = w == 0;
   const int n_steps = (n_cols + kWordTile - 1) / kWordTile + NW - 1;
-  const int last = n_cols - 1;
   uint32_t out = 0u;  // the last step's masks: hneg << kWordTile | hpos
-  int32_t sym[kWordTile];
+  uint32_t x[kWordTile];
 #pragma unroll
-  for (int k = 0; k < kWordTile; ++k)
-    sym[k] = __ldg(tg + min(max(k - kWordTile * w, 0), last));
+  for (int k = 0; k < kWordTile; ++k) x[k] = src.load(k - kWordTile * w);
   for (int s = 0; s < n_steps; ++s) {
     const int c0 = kWordTile * (s - w);
     uint32_t e[kWordTile];
 #pragma unroll
-    for (int k = 0; k < kWordTile; ++k) e[k] = eq.word(sym[k], wr);
+    for (int k = 0; k < kWordTile; ++k) e[k] = src.word(x[k]);
 #pragma unroll
-    for (int k = 0; k < kWordTile; ++k)
-      sym[k] = __ldg(tg + min(max(c0 + kWordTile + k, 0), last));
-    const uint32_t x = __shfl_up_sync(kFull, out, 1, kWidth);
-    const uint32_t hp_in = top ? (hin_pos ? kMask : 0u) : x & kMask;
-    const uint32_t hn_in = top ? 0u : x >> kWordTile;
+    for (int k = 0; k < kWordTile; ++k) x[k] = src.load(c0 + kWordTile + k);
+    const uint32_t y = __shfl_up_sync(kFull, out, 1, kWidth);
+    const uint32_t hp_in = top ? (hin_pos ? kMask : 0u) : y & kMask;
+    const uint32_t hn_in = top ? 0u : y >> kWordTile;
     const bool whole =
         __all_sync(kFull, c0 >= 0 && c0 + kWordTile <= n_cols);
     uint32_t o_p = 0u, o_n = 0u;
@@ -1422,9 +1498,41 @@ __device__ __forceinline__ void sweep_words(const int32_t* tg, int n_cols,
       v.take(score + __popc(bp & m) - __popc(bn & m), c,
              emit && c >= 0 && c < n_cols);
     }
+    v.tile(cb, n_cols);
     score += __popc(bp) - __popc(bn);
   }
 }
+
+// The hit words of a word-parallel lane (#11 on the word lane): each
+// thread marks the columns it scores that lie in [lo, end) and equal best;
+// after every tile that ends a hit word (its second half) or the row, the
+// segment ORs its threads' bits (__shfl_xor_sync) and its first thread
+// stores the word where it is non-zero (`store`: that thread of a lane of
+// the launch).  The calls are uniform over the warp (tile's cb and n_cols
+// are), so the shuffles never diverge.
+template <int kWidth>
+struct WordHits {
+  static_assert(2 * kWordTile == 32, "a hit word is two tiles");
+  int lo, end;
+  int32_t best;
+  int32_t* row;
+  bool store;
+  uint32_t mask = 0u;
+
+  __device__ __forceinline__ void take(int32_t score, int c, bool live) {
+    const bool hit = live && c >= lo && c < end && score == best;
+    mask |= (hit ? 1u : 0u) << (c & 31);
+  }
+  __device__ __forceinline__ void tile(int cb, int n_cols) {
+    if (cb < 0 || ((cb & kWordTile) == 0 && cb + kWordTile < n_cols)) return;
+    uint32_t m = mask;
+#pragma unroll
+    for (int d = 1; d < kWidth; d <<= 1)
+      m |= __shfl_xor_sync(kFull, m, d, kWidth);
+    if (store && m) row[cb >> 5] = static_cast<int32_t>(m);
+    mask = 0u;
+  }
+};
 
 // The segment's partial reductions (each thread's columns) merged in every
 // thread: the least best, the first and last columns reaching it, and the
@@ -1472,23 +1580,45 @@ words_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
   const LaneCarry cr = lane_carry(a, NW, lane);
   uint32_t pv = cr.pv(wr), mv = cr.mv(wr);
   int32_t score = cr.score(NW);
-  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
+  const RowSource src{a.targets + (size_t)a.trow[lane] * a.n_cols,
+                      a.n_cols - 1, eq, wr};
   if constexpr (STREAM) {
     ScoreStream v{out + lane, (size_t)a.n_lanes};
-    sweep_words<NW>(tg, a.n_cols, eq, a.hin_pos, w, p.active, pv, mv, score,
-                    v);
+    sweep_words<NW>(src, a.n_cols, a.hin_pos, w, p.active, pv, mv, score, v);
   } else {
     WindowReduction r;
     r.lo = a.lo[lane];
     r.hi = a.hi[lane];
-    sweep_words<NW>(tg, a.n_cols, eq, a.hin_pos, w, p.active, pv, mv, score,
-                    r);
+    sweep_words<NW>(src, a.n_cols, a.hin_pos, w, p.active, pv, mv, score, r);
     merge_words<word_threads<NW>()>(r);
     if (p.active && w == NW - 1) store(a, lane, r);
   }
   if (!p.active) return;
   if (w < NW) cr.keep(w, pv, mv);
   if (w == NW - 1) cr.keep_score(score);
+}
+
+// #11 (myers_hits_eqstream) at 2-8 words on the word-parallel lane: thread
+// t is word t % width of lane t / width, each lane from the fresh state over
+// every column of the stream (so every lane of the launch takes the same
+// steps), its Eq words read from the stream a tile ahead (StreamSource),
+// its hit words by WordHits.  The threads past the last lane run the last
+// lane's sweep and store nothing.
+template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads)
+hits_eqstream_words_kernel(const uint32_t* __restrict__ eq, LaneArgs a) {
+  constexpr int kWidth = word_threads<NW>();
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = t / kWidth < a.n_lanes;
+  const int lane = active ? static_cast<int>(t / kWidth) : a.n_lanes - 1;
+  const int w = threadIdx.x % kWidth;
+  const StreamSource src{eq + (size_t)min(w, NW - 1) * a.n_lanes + lane,
+                         (size_t)NW * a.n_lanes, a.n_cols - 1};
+  WordHits<kWidth> v{a.lo[lane], min(a.hi[lane], a.n_cols), a.want[lane],
+                     a.hits + (size_t)lane * a.n_out, active && w == 0};
+  uint32_t pv = ~0u, mv = 0u;
+  int32_t score = NW * 32;
+  sweep_words<NW>(src, a.n_cols, a.hin_pos, w, active, pv, mv, score, v);
 }
 
 // ---------------------------------------------------------------------------
@@ -2118,14 +2248,21 @@ struct SplitConfig {
   size_t smem;
 };
 
-SplitConfig split_config(int device, long long n_threads, int max_rows,
-                         int row_words, int budget = kPeqSmemWords,
-                         int whole_words = 0, int lane_threads = 1,
-                         int ring_words = kRingWords) {
+// Threads a block: the largest of 32, 64 and kSplitMaxThreads that still
+// gives every SM two blocks.
+int fill_threads(int device, long long n_threads) {
   int sms = 132;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   int t = kSplitMaxThreads;
   while (t > 32 && n_threads < 2LL * sms * t) t /= 2;
+  return t;
+}
+
+SplitConfig split_config(int device, long long n_threads, int max_rows,
+                         int row_words, int budget = kPeqSmemWords,
+                         int whole_words = 0, int lane_threads = 1,
+                         int ring_words = kRingWords) {
+  int t = fill_threads(device, n_threads);
   while (t > 32 && std::min(t, max_rows) * whole_words > budget) t /= 2;
   const int rows =
       std::min({t / lane_threads, max_rows, budget / row_words});
@@ -2408,21 +2545,63 @@ int myers_reduce_bitplane(int device, const void* planes, const void* pad,
 
 // Operands as myers_reduce_lanes plus want int32 (n_lanes,), the best each
 // lane marks; hits int32 (n_lanes, n_out), n_out = ceil(n_cols / 32), zeroed
-// by the caller.
+// by the caller.  At 1-8 words and hin0 = 0 with offsets non-null the
+// split-lane schedule with word-aligned cores (hits_lanes_split_kernel):
+// offsets, n_threads and halo as myers_reduce_lanes, core a multiple of 32
+// and each lane's cores counted from its s rounded down to a multiple of
+// 32 (ops/cuda_kernel.py hits_core, split_cores with word_aligned).  Else
+// (hin0 = 1, past 8 words, lanes shorter than a core: offsets null) one
+// thread a lane, or the wave form; offsets, n_threads, core and halo are
+// not read.  plan int64 (kPlanFields,), or null: what the call launched
+// (LaunchPlan; the split form's cores: n_threads / n_lanes, the most a
+// lane has).
 int myers_hits_lanes(int device, const void* peq, int s1, int nw,
                      const void* targets, int n_cols, const void* lo,
                      const void* hi, const void* prow, const void* trow,
-                     int n_lanes, int hin0, const void* want, void* hits,
-                     int n_out, void* scratch, void* stream) {
+                     int n_lanes, int hin0, const void* offsets,
+                     long long n_threads, int core, int halo,
+                     const void* want, void* hits, int n_out, void* scratch,
+                     void* plan, void* stream) {
   if (n_lanes <= 0) return 0;
+  if (nw < 1 || s1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
                          scratch);
   set_hits(a, want, hits, n_out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(peq);
+  LaunchPlan lp;
+  if (offsets == nullptr || nw > 8 || hin0) {
+    LaneArgs probe = a;
+    const Config cfg = lane_config(nw > 8 ? 0 : nw, nw, probe);
+    lp.form = probe.wave ? kFormWave : kFormThread;
+    lp.blocks = cfg.blocks;
+    lp.threads = cfg.threads;
+    lp.write(plan);
 #define LAUNCH(N) LANE_LAUNCH(N, hits_lanes_kernel, p, s1, nw, a)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
+    MYERS_DISPATCH_NW(nw, LAUNCH)
+#undef LAUNCH
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (n_threads <= 0) {
+    lp.write(plan);
+    return 0;
+  }
+  if (core < 32 || core % 32 || halo < 0 || halo % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SplitConfig cfg = split_config(device, n_threads, n_lanes, s1 * nw);
+  lp.form = kFormCores;
+  lp.blocks = cfg.blocks;
+  lp.threads = cfg.threads;
+  lp.cores = (n_threads + n_lanes - 1) / n_lanes;
+  lp.core = core;
+  lp.write(plan);
+  const SplitArgs sp{static_cast<const int32_t*>(offsets), core, halo,
+                     cfg.peq_words};
+#define LAUNCH(N)                                                       \
+  hits_lanes_split_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \
+      p, s1, a, sp)
+  MYERS_DISPATCH_SPLIT(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
@@ -2750,11 +2929,14 @@ int myers_reduce_eqstream(int device, const void* eq, int nw, int n_cols,
 }
 
 // eq, lo, hi as myers_reduce_eqstream; want and hits as myers_hits_lanes.
+// At 2-8 words the word-parallel lane (hits_eqstream_words_kernel), else one
+// thread a lane or the wave form.  plan int64 (kPlanFields,), or null: what
+// the call launched (LaunchPlan).
 int myers_hits_eqstream(int device, const void* eq, int nw, int n_cols,
                         const void* lo, const void* hi, int n_lanes, int hin0,
                         const void* want, void* hits, int n_out,
-                        void* scratch, void* stream) {
-  if (n_lanes <= 0) return 0;
+                        void* scratch, void* plan, void* stream) {
+  if (n_lanes <= 0 || n_cols <= 0) return 0;
   if (nw < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   LaneArgs a = lane_args(nullptr, n_cols, lo, hi, nullptr, nullptr, n_lanes,
@@ -2762,6 +2944,28 @@ int myers_hits_eqstream(int device, const void* eq, int nw, int n_cols,
   set_hits(a, want, hits, n_out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* q = static_cast<const uint32_t*>(eq);
+  LaunchPlan lp;
+  if (nw >= 2 && nw <= 8) {
+    const long long n_threads = (long long)n_lanes * word_width(nw);
+    const int t = fill_threads(device, n_threads);
+    lp.form = kFormWords;
+    lp.blocks = (n_threads + t - 1) / t;
+    lp.threads = t;
+    lp.width = word_width(nw);
+    lp.write(plan);
+#define LAUNCH(N)                                                         \
+  hits_eqstream_words_kernel<N><<<static_cast<unsigned>(lp.blocks), t, 0, \
+                                  st>>>(q, a)
+    MYERS_DISPATCH_WORDS(nw, LAUNCH)
+#undef LAUNCH
+    return static_cast<int>(cudaGetLastError());
+  }
+  LaneArgs probe = a;
+  const Config cfg = lane_config(nw > 8 ? 0 : nw, nw, probe);
+  lp.form = probe.wave ? kFormWave : kFormThread;
+  lp.blocks = cfg.blocks;
+  lp.threads = cfg.threads;
+  lp.write(plan);
 #define LAUNCH(N) LANE_LAUNCH(N, hits_eqstream_kernel, q, nw, a)
   MYERS_DISPATCH_NW(nw, LAUNCH)
 #undef LAUNCH

@@ -768,13 +768,17 @@ def split_core(n_lanes: int, cols: int, n_words: int, hin0: int,
     return max(4 * split_halo(n_words), -(-n_lanes * cols // _FILL_THREADS))
 
 
-def split_cores(lo, hi, n_cols: int, core: int):
+def split_cores(lo, hi, n_cols: int, core: int, word_aligned: bool = False):
     """(s, end, count) (B,): a lane scans [s, end), end = min(hi,
     n_cols) and s = max(0, min(lo, end - 1)) (so hi - 1 is scanned where it
     is a column, also when the window [lo, hi) is empty), in `count` cores
-    of `core` columns."""
+    of `core` columns.  word_aligned (hits_lanes' plan, core a multiple of
+    32): s rounded down to a multiple of 32, so that every hit word lies in
+    one core."""
     end = hi.clamp(0, n_cols)
     s = torch.minimum(lo, end - 1).clamp(min=0)
+    if word_aligned:
+        s = s - s % WORD_SIZE
     n = (end - s).clamp(min=0).long()
     return s, end, (n + (core - 1)) // core
 
@@ -787,11 +791,13 @@ def split_offsets(counts) -> torch.Tensor:
     return off
 
 
-def split_core_ranges(lo, hi, n_cols: int, core: int, halo):
+def split_core_ranges(lo, hi, n_cols: int, core: int, halo,
+                      word_aligned: bool = False):
     """Every (lane, core) of the schedule in thread order, int64 (n,) each:
     its lane, its core [c_lo, c_hi) and the column its sweep starts from
-    (max(0, c_lo - halo); 0 with halo None, for lanes that stay whole)."""
-    s, end, counts = split_cores(lo, hi, n_cols, core)
+    (max(0, c_lo - halo); 0 with halo None, for lanes that stay whole);
+    word_aligned as split_cores."""
+    s, end, counts = split_cores(lo, hi, n_cols, core, word_aligned)
     dev = lo.device
     lane = torch.repeat_interleave(torch.arange(lo.shape[0], device=dev),
                                    counts.long())
@@ -882,6 +888,54 @@ def split_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
         lambda *ops: reduce_bitplane_plain(planes, pad, *ops, hin0, nb,
                                            n_alts, wildcard),
         nw, targets, lo, hi, prow, trow, hin0, c)
+
+
+def hits_core(n_lanes: int, cols: int, n_words: int, hin0: int,
+              core=None) -> int:
+    """Columns a core of hits_lanes' split-lane plan: split_core's, rounded
+    up to a multiple of 32 so that cores counted from a multiple of 32
+    (split_cores with word_aligned) own whole hit words; hin0 = 1 and lanes
+    past 8 words keep one core a lane (max(cols, 1))."""
+    c = split_core(n_lanes, cols, n_words, hin0, core)
+    if hin0 or n_words > _SPLIT_MAX_WORDS:
+        return c
+    return -(-c // WORD_SIZE) * WORD_SIZE
+
+
+def split_hits_plain(peq, targets, lo, hi, prow, trow, best, hin0: int,
+                     core=None):
+    """hits_lanes' split-lane schedule in plain PyTorch: every (lane, core)
+    of the word-aligned plan (hits_core, split_cores with word_aligned)
+    swept by hits_lanes_plain from the fresh state at its start, marking
+    its core's columns, and the cores' hit bits OR-ed into their lane's
+    words.  Where the plan is one core a lane (hin0 = 1, past 8 words, a
+    row no longer than a core) the plain version itself.  Operands and
+    output as hits_lanes."""
+    n_cols, B, nw = targets.shape[1], lo.shape[0], peq.shape[2]
+    c = hits_core(B, n_cols, nw, hin0, core)
+    if c >= n_cols:
+        return hits_lanes_plain(peq, targets, lo, hi, prow, trow, best, hin0)
+    dev = lo.device
+    lane, c_lo, c_hi, start = split_core_ranges(lo, hi, n_cols, c,
+                                                split_halo(nw), True)
+    n_out = -(-n_cols // WORD_SIZE)
+    bits = torch.zeros((B, n_out * WORD_SIZE), dtype=torch.int64, device=dev)
+    n = lane.shape[0]
+    if n:
+        width = int((c_hi - start).max())
+        cols = start[:, None] + torch.arange(width, device=dev)
+        words = hits_lanes_plain(
+            peq, targets[trow.long()[lane][:, None], cols.clamp(
+                max=n_cols - 1)],
+            (torch.maximum(lo.long()[lane], c_lo) - start).to(_I32),
+            (c_hi - start).to(_I32), prow[lane],
+            torch.arange(n, dtype=_I32, device=dev), best[lane], hin0)
+        j = torch.arange(width, device=dev)
+        got = (words[:, j // WORD_SIZE] >> (j % WORD_SIZE)) & 1  # (n, width)
+        on = cols < n_cols
+        bits.index_put_((lane[:, None].expand(-1, width)[on], cols[on]),
+                        got[on], accumulate=True)
+    return _pack_bits(bits > 0)
 
 
 def _shared_span(n_cols: int, col_lo: int, col_hi: int) -> int:
@@ -1500,19 +1554,20 @@ def word_threads(n_words: int) -> int:
     return 2 if n_words <= 2 else 4 if n_words <= 4 else 8
 
 
-def word_lanes_plain(peq, targets, prow, trow, hin0: int, pv0=None,
-                     mv0=None, s0=None):
-    """The word-parallel lane's schedule in plain PyTorch, step by step as
-    the kernel runs it (lanes and segment threads vectorised): thread w of
-    a lane's word_threads(NW) advances the WORD_TILE columns [WORD_TILE
-    (s - w), + WORD_TILE) at step s, each column taking its carry bit from
-    the two masks (hneg << WORD_TILE | hpos) that thread w - 1 sent for the
-    same tile a step before (the top thread (0, hin0)).  Operands as
-    sweep_scores_resume (pv0 None: a fresh start); returns (scores int32
-    (B, T), pv, mv, score): every column's bottom-row score and the state
-    after the last column."""
-    B, T, nw = prow.shape[0], targets.shape[1], peq.shape[2]
-    dev = prow.device
+def _word_tiles(eq_at, B: int, T: int, nw: int, dev, hin0: int, pv0=None,
+                mv0=None, s0=None, exit_state=None):
+    """The word-parallel lane's schedule, step by step as the kernel runs it
+    (lanes and segment threads vectorised): thread w of a lane's
+    word_threads(NW) advances the WORD_TILE columns [WORD_TILE (s - w),
+    + WORD_TILE) at step s, each column taking its carry bit from the two
+    masks (hneg << WORD_TILE | hpos) that thread w - 1 sent for the same
+    tile a step before (the top thread (0, hin0)).  eq_at(c, wr) gives the
+    Eq words int32 (B, P) of columns c (P,), clamped into the row, for the
+    threads' words wr (P,).  From the carry (pv0 (B, NW), mv0, s0 (B,); None:
+    a fresh start).  Yields after each step (cb, scores): the bottom word's
+    tile [cb, cb + WORD_TILE) and the score after each of its columns,
+    int32 (B, WORD_TILE) (meaningful for the columns in [0, T)); exit_state
+    receives [pv, mv, score] after the last step."""
     P = word_threads(nw)
     w = torch.arange(P, device=dev)
     wr = w.clamp(max=nw - 1)
@@ -1522,26 +1577,21 @@ def word_lanes_plain(peq, targets, prow, trow, hin0: int, pv0=None,
         score = torch.full((B,), nw * WORD_SIZE, dtype=_I32, device=dev)
     else:
         pv, mv, score = pv0[:, wr].clone(), mv0[:, wr].clone(), s0.clone()
-    scores = torch.empty((T, B), dtype=_I32, device=dev)
-    if not (B and T):
-        return scores.t(), pv[:, :nw], mv[:, :nw], score
-    prof = peq[prow.long()]                                # (B, S1, NW)
-    tg = targets[trow.long()]                              # (B, T)
-    lanes = torch.arange(B, device=dev)[:, None]
     K, bottom = WORD_TILE, nw - 1
     mask = (1 << K) - 1
     out = torch.zeros((B, P), dtype=_I32, device=dev)
-    for s in range(-(-T // K) + nw - 1):
+    for s in range(-(-T // K) + nw - 1 if T else 0):
         x = torch.cat([out[:, :1], out[:, :-1]], 1)        # __shfl_up_sync
         hp_in, hn_in = x & mask, (x >> K) & mask
         hp_in[:, 0] = mask if hin0 else 0
         hn_in[:, 0] = 0
         o_p = torch.zeros((B, P), dtype=_I32, device=dev)
         o_n = torch.zeros_like(o_p)
+        tile = torch.zeros((B, K), dtype=_I32, device=dev)
         for k in range(K):
             c = K * (s - w) + k                            # (P,) a thread
             act = (c >= 0) & (c < T)
-            e = prof[lanes, tg[:, c.clamp(0, T - 1)].long(), wr[None, :]]
+            e = eq_at(c.clamp(0, T - 1), wr)
             pv2, mv2, hn2, hp2 = _advance_word(pv, mv, e, (hn_in >> k) & 1,
                                                (hp_in >> k) & 1)
             pv = torch.where(act, pv2, pv)
@@ -1550,12 +1600,69 @@ def word_lanes_plain(peq, targets, prow, trow, hin0: int, pv0=None,
             hp2 = torch.where(act, hp2, 0)
             o_p |= hp2 << k
             o_n |= hn2 << k
-            cb = int(c[bottom])
-            if 0 <= cb < T:
+            if 0 <= int(c[bottom]) < T:
                 score = score + hp2[:, bottom] - hn2[:, bottom]
-                scores[cb] = score
+                tile[:, k] = score
         out = (o_n << K) | o_p
-    return scores.t(), pv[:, :nw], mv[:, :nw], score
+        yield K * (s - bottom), tile
+    if exit_state is not None:
+        exit_state.extend([pv[:, :nw], mv[:, :nw], score])
+
+
+def word_lanes_plain(peq, targets, prow, trow, hin0: int, pv0=None,
+                     mv0=None, s0=None):
+    """The word-parallel lane's schedule in plain PyTorch (_word_tiles, Eq
+    from each lane's profile row and target row).  Operands as
+    sweep_scores_resume (pv0 None: a fresh start); returns (scores int32
+    (B, T), pv, mv, score): every column's bottom-row score and the state
+    after the last column."""
+    B, T, nw = prow.shape[0], targets.shape[1], peq.shape[2]
+    dev = prow.device
+    scores = torch.empty((T, B), dtype=_I32, device=dev)
+    prof = peq[prow.long()]                                # (B, S1, NW)
+    tg = targets[trow.long()]                              # (B, T)
+    lanes = torch.arange(B, device=dev)[:, None]
+    state = []
+    for cb, tile in _word_tiles(
+            lambda c, wr: prof[lanes, tg[:, c].long(), wr[None, :]], B, T,
+            nw, dev, hin0, pv0, mv0, s0, state):
+        n = min(WORD_TILE, T - cb)
+        if cb >= 0 and n > 0:
+            scores[cb:cb + n] = tile[:, :n].t()
+    return (scores.t(),) + tuple(state)
+
+
+def hits_words_plain(eq_t, lo, hi, best, hin0: int):
+    """hits_eqstream on the word-parallel lane's schedule in plain PyTorch
+    (_word_tiles, Eq from the stream, every lane over all T columns from
+    the fresh state) with the kernel's hit visitor: thread w of a lane's
+    segment marks the columns cb + k, k = w (mod width), of each bottom tile
+    that lie in [lo, min(hi, T)) and equal best; after a tile that ends a
+    hit word or the row the segment's bits are OR-ed and the word stored
+    where it is non-zero.  Operands and output as hits_eqstream."""
+    T, nw, B = eq_t.shape
+    dev = lo.device
+    out = _hit_output(B, T, dev)
+    if not (B and T):
+        return out
+    P = word_threads(nw)
+    end = hi.clamp(max=T)
+    masks = torch.zeros((B, P), dtype=_I32, device=dev)
+    for cb, tile in _word_tiles(lambda c, wr: eq_t[c, wr].t(), B, T, nw,
+                                dev, hin0):
+        for k in range(WORD_TILE):
+            c = cb + k
+            if 0 <= c < T:
+                hit = (c >= lo) & (c < end) & (tile[:, k] == best)
+                masks[:, k % P] |= hit.to(_I32) << (c % WORD_SIZE)
+        if cb >= 0 and (cb % WORD_SIZE or cb + WORD_TILE >= T):
+            m = masks[:, 0]
+            for p in range(1, P):
+                m = m | masks[:, p]
+            g = cb // WORD_SIZE
+            out[:, g] = torch.where(m != 0, m, out[:, g])
+            masks.zero_()
+    return out
 
 
 def reduce_resume_words_plain(peq, targets, lo, hi, prow, trow, pv0, mv0, s0,
@@ -1806,13 +1913,19 @@ def sweep_shared(peq_t, target, hin0: int, col_lo: int, col_hi: int, *,
     return _unpack_keys(keys)
 
 
-def hits_lanes(peq, targets, lo, hi, prow, trow, best, hin0: int):
+def hits_lanes(peq, targets, lo, hi, prow, trow, best, hin0: int, *,
+               core=None, plan=None):
     """Packed hit mask of each lane's columns that reach `best`.
 
     Operands as reduce_lanes plus best int32 (B,); returns int32
     (B, ceil(T/32)), bit j of word g set iff scan column 32g+j lies in
     [lo, hi) and its score equals best (a lane with best = -(1<<30) has
-    none).  With one target row and trow = 0 it is the shared form."""
+    none).  With one target row and trow = 0 it is the shared form.  At
+    1-8 words and hin0 = 0 the kernel runs the split-lane schedule with
+    cores that own whole hit words (hits_core, split_hits_plain); a lane
+    no longer than a core stays one thread.  For checks only: `core`
+    forces the core length (rounded up to 32), and a dict `plan` receives
+    what the kernel launched (sweep_scores)."""
     name = "hits_lanes"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
@@ -1821,15 +1934,23 @@ def hits_lanes(peq, targets, lo, hi, prow, trow, best, hin0: int):
     if not _on_cuda(name, peq, targets, lo, hi, prow, trow, best):
         return hits_lanes_plain(peq, targets, lo, hi, prow, trow, best, hin0)
     s1, nw = peq.shape[1], peq.shape[2]
+    n_cols = targets.shape[1]
     dev = peq.device
-    hits = _hit_output(n, targets.shape[1], dev)
+    hits = _hit_output(n, n_cols, dev)
     if n == 0:
         return hits
+    c = hits_core(n, n_cols, nw, hin0, core)
+    offsets = (split_offsets(split_cores(lo, hi, n_cols, c, True)[2])
+               if c < n_cols else None)
+    targets = _aligned(targets)
+    buf = _plan_buffer()
     _launch(name, "myers_hits_lanes", dev.index, peq.data_ptr(), s1, nw,
-            targets.data_ptr(), targets.shape[1],
-            *_ptrs(lo, hi, prow, trow), n, int(hin0), best.data_ptr(),
+            targets.data_ptr(), n_cols, *_ptrs(lo, hi, prow, trow), n,
+            int(hin0), None if offsets is None else offsets.data_ptr(),
+            n * -(-n_cols // c), c, split_halo(nw), best.data_ptr(),
             hits.data_ptr(), hits.shape[1], _scratch(nw, n, dev).data_ptr(),
-            _stream(dev))
+            ctypes.addressof(buf), _stream(dev))
+    _fill_plan(plan, buf)
     return hits
 
 
@@ -2250,9 +2371,11 @@ def reduce_eqstream(eq_t, lo, hi, hin0: int):
     return tuple(out)
 
 
-def hits_eqstream(eq_t, lo, hi, best, hin0: int):
+def hits_eqstream(eq_t, lo, hi, best, hin0: int, *, plan=None):
     """hits_lanes on a gathered Eq stream (kernel hits_eqstream): operands as
-    reduce_eqstream plus best int32 (B,); output as hits_lanes."""
+    reduce_eqstream plus best int32 (B,); output as hits_lanes.  At 2-8
+    words the kernel runs the word-parallel lane (hits_words_plain); a dict
+    `plan` receives what it launched (sweep_scores; checks only)."""
     name = "hits_eqstream"
     _check_stream(name, eq_t)
     n = _check_lanes(name, dict(lo=lo, hi=hi, best=best))
@@ -2265,9 +2388,12 @@ def hits_eqstream(eq_t, lo, hi, best, hin0: int):
     hits = _hit_output(n, T, dev)
     if n == 0:
         return hits
+    buf = _plan_buffer()
     _launch(name, "myers_hits_eqstream", dev.index, eq_t.data_ptr(), nw, T,
             *_ptrs(lo, hi), n, int(hin0), best.data_ptr(), hits.data_ptr(),
-            hits.shape[1], _scratch(nw, n, dev).data_ptr(), _stream(dev))
+            hits.shape[1], _scratch(nw, n, dev).data_ptr(),
+            ctypes.addressof(buf), _stream(dev))
+    _fill_plan(plan, buf)
     return hits
 
 
