@@ -7,8 +7,8 @@ Phases, each of which exits non-zero on any failure:
    and print the card's name and power limit.
 2. Hold every kernel against its plain PyTorch version on the card, at small
    shapes, for exact equality (every output is an integer); the capture
-   kernel at NW 1, 4, 8, 16 and 64 (register and read-back forms), both
-   hin0, with and without Ph/Mh, over a ragged last chunk; the score-stream
+   kernel at NW 1, 4, 8, 16 and 64, both hin0, with and without Ph/Mh,
+   over a ragged last chunk; the score-stream
    and eq-stream kernels at NW 1, 4 (registers) and 9 (scratch), both
    hin0, over a ragged 197 columns; every per-lane kernel in the wave form
    (one block a lane; sweep_scores in warp groups) at 256 and a ragged 300
@@ -43,8 +43,12 @@ Phases, each of which exits non-zero on any failure:
    segments; and the score stream's warp groups at 256, 300 and 4,096
    words, rings of 1, 2 and 64 tiles, fresh and carried, in one launch and
    in forced passes, chained segments, and a 140,000-word lane in passes
-   unforced against the wavefront; the plain emulation of each schedule
-   beside a first case; each call's reported form checked.
+   unforced against the wavefront; nw_banded's word-parallel band at
+   n_win 2-16 (segments of 2-16 threads, windows sliding by 0, 1 and
+   several words, the whole profile, edge lanes) and the capture's word
+   groups over lanes (NW 1-500, blocks of 8, 16 and 32 lanes, groups of
+   1-8 words, the read-back form at 600 words); the plain emulation of
+   each schedule beside a first case; each call's reported form checked.
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -114,7 +118,9 @@ Phases, each of which exits non-zero on any failure:
    hit-word sweeps' give their plan as the kernel reports it (form, blocks
    and threads, and the cores and core, the segment width or the warp
    groups a lane, ring and passes); hits_eqstream must run the word lane at
-   width 4 on phase 18.
+   width 4 on phase 18, nw_banded the word-parallel band at width 16 on
+   phases 8 and 12, and capture its word groups over lanes on phases 11
+   and 12 (NEW_FORMS).
 14-17. Long single pairs through nw_distance_long, shw_best_long,
    semiglobal_locations_long and align, each with its launch counts, a
    warm repeat that must agree, and its k ladder rung by rung (k, banded
@@ -710,8 +716,8 @@ def check_kernels(rng, dev, ck):
     lanes = (peq, targets, lo, hi, prow, trow, 1)
     check_equal("reduce_lanes nw=12300 hin0=1", ck.reduce_lanes(*lanes),
                 on_host(ck.reduce_lanes_plain, *lanes))
-    # The capture kernel in its register (NW <= 8) and read-back forms, 200
-    # columns padded with the wildcard to 256 (a ragged last chunk).
+    # The capture kernel (word groups over lanes), 200 columns padded with
+    # the wildcard to 256 (a ragged last chunk).
     for nw in (1, 4, 8, 16, 64):
         peq, targets = lane_operands(rng, dev, n_lanes=300, n_rows=300,
                                      T=200, s1=5, nw=nw)[:2]
@@ -1186,6 +1192,121 @@ def check_word_hits(rng, dev, ck):
                                          best, hin0)], [want])
 
 
+# (n_win, nw, chunk, T, woff[0], slides at the chunk boundaries, cycled):
+# tests/test_torch_band_capture_words.py's cases.
+BAND_CASES = (
+    (2, 2, 16, 70, 0, (0,)), (2, 9, 16, 131, 1, (1,)),
+    (4, 12, 64, 300, 0, (2, 0, 1)), (4, 6, 32, 100, 0, (0,)),
+    (8, 40, 16, 203, 3, (5, 0, 0, 2)), (12, 32, 256, 1000, 0, (8,)),
+    (12, 20, 64, 250, 0, (1, 3)), (16, 16, 64, 157, 0, (0,)),
+    (16, 40, 16, 190, 2, (3, 1)))
+
+
+def check_banded_words(rng, dev, ck):
+    """nw_banded on the word-parallel band == its plain version: n_win 2, 4,
+    8, 12 and 16 (segments of 2, 4, 8 and 16 threads) over profiles of 2
+    to 40 words, chunks of 16, 32, 64 and 256 columns, window offsets
+    sliding by 0, 1 and several words at a boundary (the first one too),
+    windows equal to the whole profile, rows ragged against the chunk and
+    the tiles, 300 lanes with the edge lanes (hi = 0, hi past the row, hi -
+    1 in a chunk whose window has not reached the bottom word, hi - 1 in
+    the last chunk): the raw scores, values above any k and _BIG included;
+    the schedule's plain emulation beside the first case; and the
+    one-thread form where the band cannot run (n_win 1, chunks of 8, 24
+    and 40 columns, n_win 20).  The form and segment width each call
+    reports are checked; the plain versions run on the host."""
+    import torch
+    n = 300
+    for i, (n_win, nw, chunk, T, first, slides) in enumerate(BAND_CASES):
+        peq, targets, _, hi, prow, trow = lane_operands(
+            rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+        n_chunks = -(-T // chunk)
+        steps = [slides[j % len(slides)] for j in range(n_chunks - 1)]
+        woff = np.minimum(first + np.concatenate([[0], np.cumsum(steps)]),
+                          nw - n_win).astype(np.int32)
+        woff[-1] = nw - n_win
+        hi_h = hi.cpu().numpy()
+        hi_h[1::5] = T + 1 + rng.randint(0, 9, len(hi_h[1::5]))
+        hi_h[3::5] = T - rng.randint(0, T - (n_chunks - 1) * chunk,
+                                     len(hi_h[3::5]))
+        early = np.nonzero(woff != nw - n_win)[0]
+        if len(early):
+            c = min(int(early[-1]) * chunk + chunk - 1, T - 1)
+            hi_h[2::5] = 1 + rng.randint(0, c + 1, len(hi_h[2::5]))
+        hi = torch.from_numpy(hi_h).to(dev)
+        band = (peq, targets, torch.from_numpy(woff).to(dev), hi, prow,
+                trow, n_win, chunk)
+        tag = f"n_win={n_win} nw={nw} chunk={chunk} T={T} woff={woff}"
+        want = on_host(ck.nw_banded_plain, *band)
+        plan = {}
+        check_equal(f"nw_banded band {tag}", [ck.nw_banded(*band, plan=plan)],
+                    [want])
+        check_form(f"nw_banded {tag}", plan, "band",
+                   width=ck.band_width(n_win, chunk))
+        if i == 0:
+            check_equal(f"nw_banded_words_plain {tag}",
+                        [on_host(ck.nw_banded_words_plain, *band)], [want])
+    # The one-thread form where the band cannot run: n_win = 1, chunks that
+    # are not whole 16-column tiles (register windows of 4, 12 and 16 words),
+    # n_win past 16 (the scratch window).
+    for n_win, nw, chunk in ((1, 3, 64), (4, 9, 24), (12, 20, 40),
+                             (16, 24, 8), (20, 40, 64)):
+        T = 150
+        peq, targets, _, hi, prow, trow = lane_operands(
+            rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+        n_chunks = -(-T // chunk)
+        woff = np.minimum(np.arange(n_chunks) * 2, nw - n_win).astype(
+            np.int32)
+        band = (peq, targets, torch.from_numpy(woff).to(dev), hi, prow,
+                trow, n_win, chunk)
+        tag = f"n_win={n_win} nw={nw} chunk={chunk}"
+        plan = {}
+        check_equal(f"nw_banded thread {tag}",
+                    [ck.nw_banded(*band, plan=plan)],
+                    [on_host(ck.nw_banded_plain, *band)])
+        check_form(f"nw_banded {tag}", plan, "thread")
+
+
+def check_capture_words(rng, dev, ck):
+    """capture on its word groups over lanes == its plain version: NW 1, 4,
+    8, 16, 17, 32 and 64 at 300 lanes (blocks of 8 lanes, the last one
+    part-filled; a group a word), both hin0, with and without Ph/Mh, rows
+    of 45 columns (a ragged last tile) and at NW 1, 16 and 64 also of 200
+    padded with the wildcard to a ragged last chunk of 128; groups of 2,
+    4 and 8 words (NW 100, 200, 300 and 500: a block past 512 threads at a
+    word a group), blocks of 16 and 32 lanes (2,200 and 4,300 lanes); and
+    the read-back form past 512 words (600); the schedule's plain
+    emulation beside the first case.  The
+    form, lanes a block and words a group each call reports are checked
+    against capture_plan; the plain versions run on the host."""
+    sms = ck._card_sms(dev)
+    cases = [(nw, 300, T) for nw in (1, 4, 8, 16, 17, 32, 64)
+             for T in ((45, 200) if nw in (1, 16, 64) else (45,))]
+    cases += [(100, 60, 33), (200, 40, 20), (300, 300, 12), (500, 20, 4),
+              (2, 2200, 37), (4, 4300, 20), (600, 3, 3)]
+    for i, (nw, n, T) in enumerate(cases):
+        peq, targets = lane_operands(rng, dev, n_lanes=n, n_rows=n, T=T,
+                                     s1=5, nw=nw)[:2]
+        want_plan = ck.capture_plan(nw, n, sms)
+        form = want_plan.pop("form")
+        for hin0 in (0, 1):
+            for want_h in (False, True):
+                if nw > 64 and (hin0, want_h) != (1, True):
+                    continue
+                tag = f"nw={nw} lanes={n} T={T} hin0={hin0} want_h={want_h}"
+                # 200 columns padded to 256 as capture_flat_device pads.
+                tg = ck._pad_cols(targets, 4, 128) if T == 200 else targets
+                plan = {}
+                got = ck.capture(peq, tg, hin0, want_h, plan=plan)
+                want = on_host(ck.capture_plain, peq, tg, hin0, want_h)
+                check_equal(f"capture words {tag}", got, want)
+                check_form(f"capture {tag}", plan, form, **want_plan)
+                if i == 0 and hin0 and want_h:
+                    check_equal(f"capture_words_plain {tag}",
+                                on_host(ck.capture_words_plain, peq, tg,
+                                        hin0, want_h), want)
+
+
 def check_resumable_kernels(rng, dev, ck):
     """The resumable reduce and the carry form of the score stream == their
     plain versions at small shapes: per-lane and shared target rows, both
@@ -1605,10 +1726,20 @@ def profile_call(fn, top: int = 8, groups=None) -> dict:
     return out
 
 
-# The forms the redesigned hit-word sweeps must report on their main paths
-# (phase 7: several cores a lane; phase 18: segments of 4 threads).
+# The forms the redesigned kernels must report on their paths (phase 7's
+# hits_lanes: several cores a lane; phase 18's hits_eqstream: segments of 4
+# threads; phases 8 and 12's nw_banded: the word-parallel band, 16 threads
+# a lane at their 12-16-word windows; phases 11 and 12's capture: word
+# groups over 8, 16 or 32 lanes a block).
 NEW_FORMS = {"hits_lanes": ("cores", lambda p: p.get("cores", 0) > 1),
-             "hits_eqstream": ("words", lambda p: p.get("width") == 4)}
+             "hits_eqstream": ("words", lambda p: p.get("width") == 4),
+             "nw_banded": ("band", lambda p: p.get("width") == 16),
+             "capture": ("lane_words",
+                         lambda p: p.get("lanes") in (8, 16, 32))}
+
+# The wrappers that take plan= (their C entries report what they launched).
+PLANNED = ("reduce_resume", "sweep_scores", "sweep_scores_resume",
+           "hits_lanes", "hits_eqstream", "nw_banded", "capture")
 
 # The kernels whose calls phase 13 also traces, with substrings of their
 # CUDA kernels' names (the traced device time sums the kernels that hold
@@ -1620,11 +1751,21 @@ TRACED = {
     "nw_banded": ("nw_banded",),
     "shw_banded": ("shw_banded_kernel",),
     "shw_banded_hits": ("shw_banded_hits",),
-    "capture": ("capture_kernel",),
+    "capture": ("capture_kernel", "capture_words_kernel"),
     "reduce_eqstream": ("reduce_eqstream",),
     "hits_eqstream": ("hits_eqstream",),
     "sweep_scores": ("sweep_scores", "words_kernel"),
 }
+
+
+def check_new_forms(name, m, path) -> None:
+    """The redesigned kernels run their new forms on their paths (NEW_FORMS):
+    every measured call's reported plan."""
+    for c in m["calls"] if name in NEW_FORMS else ():
+        form, want = NEW_FORMS[name]
+        if c["plan"].get("form") != form or not want(c["plan"]):
+            fail(f"{name} on {path} launched {c['plan']}, not the "
+                 f"{form} form this path takes")
 
 
 def launch_ms(ck, fn, reps: int) -> float:
@@ -1917,8 +2058,7 @@ def measure(ck, name, calls):
         if name in ("reduce_lanes", "reduce_bitplane", "sweep_shared",
                     "reduce_resume", "hits_lanes"):
             call.update(split_vs_whole(ck, name, args, reps))
-        if name in ("reduce_resume", "sweep_scores", "sweep_scores_resume",
-                    "hits_lanes", "hits_eqstream"):
+        if name in PLANNED:
             # What the kernel launched on these operands, as it reports it.
             call["plan"] = {}
             kernel(*args, plan=call["plan"])
@@ -2495,10 +2635,10 @@ def main(argv=None) -> int:
 
     # 2. Kernels vs plain versions, small shapes, each check's seconds
     # logged.  The checks added since PR 7 draw from generators of their
-    # own (--seed + 1, ..., + 4), so the paths below see the same data as
+    # own (--seed + 1, ..., + 5), so the paths below see the same data as
     # before.
     phase2_s = {}
-    extra = [np.random.RandomState(args.seed + i) for i in (1, 2, 3, 4)]
+    extra = [np.random.RandomState(args.seed + i) for i in (1, 2, 3, 4, 5)]
     for check, gen in ((check_kernels, rng), (check_wavefront_kernels, rng),
                        (check_resumable_kernels, rng),
                        (check_adaptive_kernel, rng),
@@ -2510,7 +2650,9 @@ def main(argv=None) -> int:
                        (check_word_lanes, extra[2]),
                        (check_score_groups, extra[2]),
                        (check_split_hits, extra[3]),
-                       (check_word_hits, extra[3])):
+                       (check_word_hits, extra[3]),
+                       (check_banded_words, extra[4]),
+                       (check_capture_words, extra[4])):
         t0 = time.perf_counter()
         check(gen, dev, ck)
         phase2_s[check.__name__] = time.perf_counter() - t0
@@ -2696,7 +2838,7 @@ def main(argv=None) -> int:
             torch.cuda.reset_peak_memory_stats(dev)
             base = torch.cuda.memory_allocated(dev)
             stage = profile_call(lambda: batched(*windows[0]), groups={
-                "capture": "capture_kernel", "copies": "emcpy"})
+                "capture": TRACED["capture"], "copies": "emcpy"})
             stage["decode_walk_device_ms"] = (
                 stage["device_busy_ms"] - stage["capture_device_ms"]
                 - stage["copies_device_ms"])
@@ -2838,14 +2980,7 @@ def main(argv=None) -> int:
         kernels.append(kernel_entry(name, m, counts[name], path, card))
         log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
             f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")
-        # The redesigned hit-word sweeps run their new forms on these paths:
-        # phase 7's shared row in cores, phase 18's 4-word lanes on the word
-        # lane.
-        for c in m["calls"] if name in NEW_FORMS else ():
-            form, want = NEW_FORMS[name]
-            if c["plan"].get("form") != form or not want(c["plan"]):
-                fail(f"{name} on {path} launched {c['plan']}, not the "
-                     f"{form} form this path takes")
+        check_new_forms(name, m, path)
     # Kernels that also run on a second path, beside their entries.
     for name, calls, counts, path in (
             ("reduce_lanes", hw_calls["reduce_lanes"], hw_counts,
@@ -2853,6 +2988,7 @@ def main(argv=None) -> int:
             ("reduce_bitplane", bp_calls["reduce_bitplane"], bp_counts,
              "hw_sigma100"),
             ("capture", nwp_calls["capture"], nwp_counts, "nw_path"),
+            ("nw_banded", nwp_calls["nw_banded"], nwp_counts, "nw_path"),
             ("reduce_eqstream", st_calls["reduce_eqstream"], st_counts,
              "hw_stream"),
             ("sweep_scores", long_calls["long_stream"][0]["sweep_scores"],
@@ -2860,6 +2996,7 @@ def main(argv=None) -> int:
         if not calls:
             continue
         m = measure(ck, name, calls)
+        check_new_forms(name, m, path)
         entry = next(k for k in kernels if k["name"] == name)
         sub = kernel_entry(name, m, counts[name], path, card)
         entry.setdefault("other_paths", []).append(

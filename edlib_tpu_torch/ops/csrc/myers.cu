@@ -5,9 +5,10 @@
 //
 // Fourteen kernels, one thread per alignment lane (one per core of a
 // lane in K1, K2, K3 and myers_hits_lanes at 1-8 words; a block, in the
-// wave form below; a segment of 2-8 threads in the word-parallel lane; warp
-// groups for the
-// score stream's long lanes; a block per 1,024-lane tile for
+// wave form below; a segment of 2-8 threads in the word-parallel lane and
+// of 2-16 in myers_nw_banded's word-parallel band; warp groups for the
+// score stream's long lanes; a thread a word of 8-32 lanes in
+// myers_capture's word groups; a block per 1,024-lane tile for
 // myers_hw_adaptive).  Each replaces a kernel of
 // edlib_tpu/ops/pallas_kernel.py:
 //
@@ -32,13 +33,16 @@
 //                          whole hit words.
 //   myers_hits_bitplane    its bit-plane form, _sweep_hits_bitplane_call
 //                          (:2062, pallas_call :2083).
-//   myers_nw_banded        _nw_banded_kernel (:961, pallas_call :1066).
+//   myers_nw_banded        _nw_banded_kernel (:961, pallas_call :1066);
+//                          the word-parallel band at window widths 2-16
+//                          (below).
 //   myers_shw_banded       _shw_banded_kernel (:1091, pallas_call :1215).
 //   myers_shw_banded_hits  _shw_banded_hits_kernel (:1243, pallas_call
 //                          :1348).
 //   myers_capture          _capture_kernel (:2548), launched by
 //                          _sweep_capture_call (:2605, pallas_call :2635)
-//                          through capture_flat_device (:2655).
+//                          through capture_flat_device (:2655); word
+//                          groups over lanes up to 512 words (below).
 //   myers_sweep_scores     _sweep_kernel (:134), launched by
 //                          sweep_scores_pallas (:196, pallas_call :211): the
 //                          bottom-row score of every column of every lane,
@@ -110,11 +114,12 @@
 // column's Pv and Mv (and Ph and Mh) words, 8-16 bytes per word-column
 // against its 13 operations, so at the PATH windows' shapes its bound is the
 // output bytes over the HBM rate.  Its outputs are lane-minor, (column,
-// word, lane), so a warp's stores of one word fill whole 128-byte lines
-// (the (lane, column, word) order of the JAX package's flat outputs would
-// put neighbouring lanes Tp * NW words apart); the wrapper hands out the
-// (lane, column, word) view.  Beyond 8 words it reads the previous column's
-// state back from its own output instead of a scratch buffer.
+// word, lane), so the stores of one word of a block's 8-32 lanes fill
+// whole 32-byte sectors (the (lane, column, word) order of the JAX
+// package's flat outputs would put neighbouring lanes Tp * NW words
+// apart); the wrapper hands out the (lane, column, word) view.  It runs
+// word groups over lanes (see "Column capture" below); past 512 words it
+// reads the previous column's state back from its own output.
 //
 // The eq-stream kernels read each lane-column's NW Eq words (4 * NW bytes)
 // from a stream gathered before the launch, against 13 * NW operations: at
@@ -146,7 +151,11 @@
 // a core's four halos) and has 2-8 words, its words run on a segment of
 // threads of one warp, each a tile of 16 columns behind the one above, the
 // word-parallel lane (below): a tile's carries go down in one shuffle, and a
-// column's chain is the word update's Pv recurrence.
+// column's chain is the word update's Pv recurrence.  Banded NW's window
+// of 2-16 words runs the same way on the word-parallel band, each
+// absolute word a tile behind the one above so that the words keep their
+// lag as the window slides; the capture runs each word of a block's lanes
+// on a group of threads, a tile behind the word above.
 //
 // Semantics are the TPU kernels' exactly:
 //   score starts at NW*32 (the padded bottom cell of column -1), hin of the
@@ -927,6 +936,13 @@ __device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src,
                "l"(src), "r"(bytes));
 }
 
+// One 4-byte element (cp.async.ca takes 4, 8 or 16 bytes; .cg only 16).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -1200,15 +1216,13 @@ __device__ __forceinline__ bool split_place(const LaneArgs& a,
 // sp.peq_words (every thread of the block calls it); the Eq rows of this
 // thread's profile row, there or in global memory.  An inactive thread's
 // rows are not to be read.
-template <int NW>
 __device__ __forceinline__ EqRows stage_rows(const uint32_t* peq, int s1,
-                                             const SplitArgs& sp,
+                                             int nw, const SplitArgs& sp,
                                              const SplitPlace& p,
                                              const int* slot_row,
-                                             uint32_t* dyn,
-                                             int ring_words = kRingWords) {
+                                             uint32_t* dyn, int ring_words) {
   const int T = blockDim.x;
-  const int rw = s1 * NW;
+  const int rw = s1 * nw;
   uint32_t* rows = dyn + T * ring_words;
   const bool in_smem = p.n_slots * rw <= sp.peq_words;
   if (in_smem)
@@ -1217,7 +1231,17 @@ __device__ __forceinline__ EqRows stage_rows(const uint32_t* peq, int s1,
   __syncthreads();
   return EqRows{in_smem ? rows + p.slot * rw
                         : peq + (size_t)max(p.row, 0) * rw,
-                NW, 1};
+                nw, 1};
+}
+
+template <int NW>
+__device__ __forceinline__ EqRows stage_rows(const uint32_t* peq, int s1,
+                                             const SplitArgs& sp,
+                                             const SplitPlace& p,
+                                             const int* slot_row,
+                                             uint32_t* dyn,
+                                             int ring_words = kRingWords) {
+  return stage_rows(peq, s1, NW, sp, p, slot_row, dyn, ring_words);
 }
 
 // Sweep one core from the fresh state at its start and merge its
@@ -1622,6 +1646,299 @@ hits_eqstream_words_kernel(const uint32_t* __restrict__ eq, LaneArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// #6 (myers_nw_banded) as a word-parallel band (ops/cuda_kernel.py
+// nw_banded_words_plain is the same schedule in PyTorch).  NW is
+// prefix-anchored, so a lane cannot be cut into column cores; its band
+// window's n_win words run on a segment of W threads of one warp (W =
+// band_width(n_win), 2, 4, 8 or 16), each a tile of kWordTile columns a
+// step, as the word-parallel lane's do.
+//
+// The window slides down by whole words at chunk boundaries, so a word's
+// lag is tied to its absolute index, not its window position: absolute
+// word x runs tile tau at step tau + x - woff[0], and thread j holds the
+// words x = j (mod W) in turn.  Word x at tile tau takes its carry from
+// word x - 1 at tile tau one step before (a rotated shuffle inside the
+// segment, from thread j - 1 mod W), or hin = +1 where x is the window's
+// top word off(tau) = woff[tau kWordTile / chunk] (a chunk is a whole
+// number of tiles).  The tiles in flight at step s are those with start(tau)
+// = tau + off(tau) - woff[0] <= s < start(tau) + n_win: an interval, since
+// start strictly increases; their words s - tau + woff[0] are consecutive
+// and at most n_win <= W of them, so a thread holds at most one live word
+// a step.  A word's live tiles are consecutive, so its steps are too, and
+// a word that enters the window (a thread's new word) starts from the
+// reset state (Pv = ~0, Mv = 0), as the one-thread kernel's never-advanced
+// words do; words that left it are never read again.  The score is
+// carried by each tile's bottom word off(tau) + n_win - 1, which runs at
+// start(tau) + n_win - 1: at most one tile's bottom a step, in tile order.
+// Its two masks reach the segment in two shuffles and each thread scores
+// and visits every W-th column of the tile (take), as sweep_words does;
+// the score gains 32 a word the window slides at the next tile.  All of
+// this depends on the step, woff, n_win and n_cols alone, which every
+// lane of a launch shares, so the warp never diverges on it and every
+// lane sweeps all n_cols columns.  Steps: n_tiles + off(last tile) -
+// woff[0] + n_win - 1.  The visitor sees a column as live where its
+// chunk's window has reached the bottom word (off == nw - n_win).  The
+// block's distinct profile rows (all nw words of a row, since x ranges
+// over them) are staged in shared memory as words_kernel does; each
+// segment brings a tile's symbols into its ring in shared memory (cp.async)
+// the step before the tile starts, so its words read them there.
+//
+// The one-thread kernel (sweep_banded) keeps n_win = 1, a chunk that is
+// not a whole number of tiles and n_win past kBandMaxWidth; the wrapper
+// (cuda_kernel.band_width) picks the form.  The SHW kernels keep it too:
+// sweep_band takes their visitors (Reduction's take, WordHits) as
+// sweep_words does.
+constexpr int kBandMaxWidth = 16;
+
+__host__ __device__ constexpr int band_width(int n_win) {
+  return n_win <= 2 ? 2 : n_win <= 4 ? 4 : n_win <= 8 ? 8 : 16;
+}
+
+// A tile index walking forward with its chunk's window offset (pos: the
+// tile's place in its chunk), so the band's bookkeeping divides nothing.
+struct TileCursor {
+  int tau = 0, pos = 0, ch = 0, off = 0;
+};
+
+// The band's tiles in flight at a step, [lo, nx - 1], advanced step by
+// step: lo the oldest, nx the next to start; hi_start the newest one's
+// start.
+struct BandTiles {
+  const int32_t* woff;
+  int tpc, n_win, n_tiles, off0;  // tpc: tiles a chunk
+  TileCursor lo, nx;
+  int hi_start = -1;
+
+  __device__ __forceinline__ BandTiles(const int32_t* w, int chunk, int nwin,
+                                       int n_cols)
+      : woff(w), tpc(chunk / kWordTile), n_win(nwin),
+        n_tiles((n_cols + kWordTile - 1) / kWordTile), off0(__ldg(w)) {
+    lo.off = nx.off = off0;
+  }
+  __device__ __forceinline__ int start(const TileCursor& c) const {
+    return c.tau + c.off - off0;
+  }
+  __device__ __forceinline__ void step(TileCursor& c) const {
+    ++c.tau;
+    if (++c.pos == tpc && c.tau < n_tiles) {
+      c.pos = 0;
+      c.off = __ldg(woff + ++c.ch);
+    }
+  }
+  __device__ __forceinline__ void advance(int s) {
+    while (nx.tau < n_tiles && start(nx) <= s) {
+      hi_start = start(nx);
+      step(nx);
+    }
+    while (lo.tau < nx.tau && start(lo) + n_win <= s) step(lo);
+  }
+  __device__ __forceinline__ bool any() const { return lo.tau < nx.tau; }
+};
+
+// Thread j's word x and tile tau at step s (valid: it has a live word;
+// top: its word is the tile's top word, which the tile starts with).
+struct BandWord {
+  int x, tau;
+  bool valid, top;
+};
+
+template <int W>
+__device__ __forceinline__ BandWord band_word(const BandTiles& bt, int s,
+                                              int j) {
+  const int hi = bt.nx.tau - 1;
+  const int x_min = s - hi + bt.off0;
+  BandWord a;
+  a.x = x_min + ((j - x_min) & (W - 1));
+  a.valid = bt.any() && a.x <= s - bt.lo.tau + bt.off0;
+  a.tau = s - a.x + bt.off0;
+  a.top = a.valid && a.tau == hi && bt.hi_start == s;
+  return a;
+}
+
+// The NW readout on the band: the score at hi - 1 where live, kBig
+// elsewhere; merged over the segment at the end (merge_last).
+struct BandLast {
+  int hi;
+  int32_t last = kBig;
+
+  __device__ __forceinline__ void take(int32_t score, int c, bool live) {
+    last = live && c == hi - 1 ? score : last;
+  }
+  __device__ __forceinline__ void tile(int, int) {}
+};
+
+template <int W>
+__device__ __forceinline__ int32_t merge_last(int32_t last) {
+#pragma unroll
+  for (int d = 1; d < W; d <<= 1)
+    last = min(last, __shfl_xor_sync(kFull, last, d, W));
+  return last;
+}
+
+// A lane's ring of symbol tiles (W + 1 slots: a tile in flight at most
+// n_win <= W steps, one more being fetched), a slot 20 words apart, so a
+// thread reads its tile as four 16-byte loads and the eight threads of a
+// quarter warp, reading consecutive slots, hit distinct banks.
+constexpr int kBandSlotWords = kWordTile + 4;
+
+// Eq word x of symbol sym: one lane's profile row (s1, nw), in shared
+// memory where the block staged it (a pointer into dyn, so the loads are
+// shared-memory loads) or in global memory.
+struct BandEq {
+  const uint32_t* row;
+  int nw;
+
+  __device__ __forceinline__ uint32_t word(int32_t sym, int x) const {
+    return row[sym * nw + x];
+  }
+};
+
+// A segment's ring as words a thread of it.
+__host__ __device__ constexpr int band_ring_words(int width) {
+  return ((width + 1) * kBandSlotWords + width - 1) / width;
+}
+
+// Thread j of a lane's segment sweeps its words of the band over every
+// column of the lane's target row tg (n_cols >= 1), Eq from eq, calling
+// v.take(score, c, live) for the columns c = j (mod W) of each tile's
+// bottom word and v.tile(cb, n_cols) after it.  ring: the segment's W *
+// band_ring_words(W) words of shared memory.  Every thread of the warp
+// calls it.
+template <int W, class Visit>
+__device__ __forceinline__ void sweep_band(const int32_t* tg, const BandEq& eq,
+                                           const Band& band, int n_cols,
+                                           int j, int32_t* ring, Visit& v) {
+  constexpr uint32_t kMask = (1u << kWordTile) - 1u;
+  const int last = n_cols - 1;
+  // Tile tau's symbols into its slot, W threads on its 16 columns.
+  const auto fetch = [&](int tau) {
+    int32_t* slot = ring + (tau % (W + 1)) * kBandSlotWords;
+#pragma unroll
+    for (int k = j; k < kWordTile; k += W)
+      cp_async4(slot + k, tg + min(kWordTile * tau + k, last));
+    cp_async_commit();
+  };
+  BandTiles bt(band.woff, band.chunk, band.n_win, n_cols);
+  const int n_steps = bt.n_tiles - 1 +
+                      __ldg(band.woff + (bt.n_tiles - 1) / bt.tpc) - bt.off0 +
+                      band.n_win;  // the last tile's start + n_win
+  int32_t score = (bt.off0 + band.n_win) * 32;
+  int off_scored = bt.off0;  // the window offset the score is at
+  uint32_t pv = ~0u, mv = 0u, out = 0u;
+  int cur = -1;
+  fetch(0);
+  cp_async_wait<0>();
+  __syncwarp();
+  for (int s = 0; s < n_steps; ++s) {
+    bt.advance(s);
+    if (bt.nx.tau < bt.n_tiles && bt.start(bt.nx) == s + 1) fetch(bt.nx.tau);
+    const BandWord a = band_word<W>(bt, s, j);
+    const int xr = min(max(a.x, 0), band.nw - 1);
+    uint32_t e[kWordTile];
+    if (a.valid) {
+      const int4* t4 = reinterpret_cast<const int4*>(
+          ring + (a.tau % (W + 1)) * kBandSlotWords);
+#pragma unroll
+      for (int q = 0; q < kWordTile / 4; ++q) {
+        const int4 x = t4[q];
+        e[4 * q] = eq.word(x.x, xr);
+        e[4 * q + 1] = eq.word(x.y, xr);
+        e[4 * q + 2] = eq.word(x.z, xr);
+        e[4 * q + 3] = eq.word(x.w, xr);
+      }
+    }
+    if (a.valid && a.x != cur) {  // a word entering the window
+      pv = ~0u;
+      mv = 0u;
+      cur = a.x;
+    }
+    const uint32_t y = __shfl_sync(kFull, out, (j + W - 1) & (W - 1), W);
+    const uint32_t hp_in = a.top ? kMask : y & kMask;
+    const uint32_t hn_in = a.top ? 0u : y >> kWordTile;
+    const int c0 = kWordTile * a.tau;
+    uint32_t o_p = 0u, o_n = 0u;
+    if (a.valid && c0 + kWordTile <= n_cols) {
+#pragma unroll
+      for (int k = 0; k < kWordTile; ++k) {
+        uint32_t hneg = (hn_in >> k) & 1u, hpos = (hp_in >> k) & 1u, ph, mh;
+        advance_word_h(pv, mv, e[k], hneg, hpos, ph, mh);
+        o_p = __funnelshift_l(ph, o_p, 1);  // the carries out, newest at
+        o_n = __funnelshift_l(mh, o_n, 1);  // bit 0
+      }
+      o_p = __brev(o_p) >> kWordTile;  // bit k: column c0 + k
+      o_n = __brev(o_n) >> kWordTile;
+    } else if (a.valid) {  // the row's last, ragged tile
+#pragma unroll
+      for (int k = 0; k < kWordTile; ++k) {
+        const bool act = c0 + k <= last;
+        uint32_t hneg = (hn_in >> k) & 1u, hpos = (hp_in >> k) & 1u;
+        uint32_t p = pv, m = mv;
+        advance_word(p, m, e[k], hneg, hpos);
+        pv = act ? p : pv;
+        mv = act ? m : mv;
+        o_p |= (act ? hpos : 0u) << k;
+        o_n |= (act ? hneg : 0u) << k;
+      }
+    }
+    out = (o_n << kWordTile) | o_p;
+    if (bt.any() && bt.start(bt.lo) + band.n_win - 1 == s) {  // a bottom
+      const int ob = bt.lo.off;
+      const int jb = (ob + band.n_win - 1) & (W - 1);
+      const uint32_t bp = __shfl_sync(kFull, o_p, jb, W);
+      const uint32_t bm = __shfl_sync(kFull, o_n, jb, W);
+      score += (ob - off_scored) * 32;  // the words slid since
+      off_scored = ob;
+      const int cb = kWordTile * bt.lo.tau;
+      const bool live = ob == band.nw - band.n_win;
+#pragma unroll
+      for (int i = 0; i < (kWordTile + W - 1) / W; ++i) {
+        const int k = j + i * W;
+        const uint32_t m = (2u << k) - 1u;
+        const int c = cb + k;
+        v.take(score + __popc(bp & m) - __popc(bm & m), c,
+               live && k < kWordTile && c <= last);
+      }
+      v.tile(cb, n_cols);
+      score += __popc(bp) - __popc(bm);
+    }
+    cp_async_wait<0>();
+    __syncwarp();
+  }
+}
+
+// #6 on the word-parallel band: thread t is thread t % W of lane t / W
+// (split_place with sp.n_cores = W); the threads past the last lane run
+// its sweep and store nothing.
+template <int W>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+nw_banded_words_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
+                       LaneArgs a, SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profile rows
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  constexpr int kRing = band_ring_words(W);
+  stage_rows(peq, s1, band.nw, sp, p, slot_row, dyn, kRing);
+  const int rw = s1 * band.nw;
+  const int lane = p.active ? p.lane : a.n_lanes - 1;
+  const int j = threadIdx.x % W;
+  int32_t* ring = reinterpret_cast<int32_t*>(dyn) + (threadIdx.x - j) * kRing;
+  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
+  BandLast r{a.hi[lane]};
+  if (a.n_cols > 0) {
+    if (p.n_slots * rw <= sp.peq_words)  // stage_rows staged the rows
+      sweep_band<W>(tg, BandEq{dyn + blockDim.x * kRing + p.slot * rw,
+                               band.nw},
+                    band, a.n_cols, j, ring, r);
+    else
+      sweep_band<W>(tg, BandEq{peq + (size_t)max(p.row, 0) * rw, band.nw},
+                    band, a.n_cols, j, ring, r);
+  }
+  const int32_t last = merge_last<W>(r.last);
+  if (p.active && j == 0) a.last[lane] = last;
+}
+
+// ---------------------------------------------------------------------------
 // The score stream's long lanes (kWaveMinWords words and up) as warp groups
 // linked by per-tile records (csrc/groups.cuh, the schedule of
 // myers_wavefront; ops/cuda_kernel.py sweep_scores_groups_plain).  A unit of
@@ -1858,12 +2175,233 @@ sweep_shared_kernel(const uint32_t* __restrict__ peq, int nw, int n_lanes,
   if (active) key[lane] = first_key(run_best, run_pos);
 }
 
-// Column capture: every column's state stored instead of reduced.  Lane b's
-// word w after column c lands at (c * nw + w) * n_lanes + b of each output:
-// lane-minor, so a warp's 32 lanes store 128 consecutive bytes.  NW > 0: the
-// word count, state in registers.  NW == 0: nw words, the previous column's
-// state read back from the lane's own pv/mv output (no scratch).
-template <int NW, bool WANT_H>
+// ---------------------------------------------------------------------------
+// Column capture (#14, myers_capture): every column's state stored instead
+// of reduced.  Lane b's word w after column c lands at (c * nw + w) *
+// n_lanes + b of each output: lane-minor, the layout the batched PATH
+// decode reads (ops/cuda_kernel.py capture_words_plain is the same
+// schedule in PyTorch).
+//
+// Word groups over lanes.  A block holds `lanes` consecutive lanes (8, 16
+// or 32) and all their words: thread t is lane t % lanes of group t /
+// lanes, a group holds K consecutive words (1, 2, 4 or 8) in
+// registers.  Group g advances the kWordTile columns [kWordTile (s - g),
+// + kWordTile) at step s, its K words in order a column; the tile's
+// horizontal carries out of its bottom word, two kWordTile-bit masks
+// (hneg above hpos), reach group g + 1 at step s + 1 through shared
+// memory (double-buffered, one barrier a step); the top group takes (0,
+// hin0).  So a store instruction of a warp writes one word of `lanes`
+// consecutive lanes: whole 32-byte sectors (a whole 128-byte line at 32
+// lanes) of each output, where n_lanes is a multiple of 8.  Nothing is
+// read back from the outputs.  The block brings its lanes' tiles of
+// symbols into a ring in shared memory two steps ahead (cp.async,
+// coalesced: a lane's 16 symbols are 64 contiguous bytes), where every
+// group reads them as its tile comes; Eq comes from the block's lanes'
+// profile rows, staged in shared memory where they fit kCapSmemWords
+// (else read from global memory).  A group of 1 or 2 words loads its
+// tile's symbols and Eq words into registers before the tile's columns,
+// so no load sits on a column's chain.  The wrapper plans the shape
+// (cuda_kernel.capture_plan): the most lanes a block that still gives
+// every SM a block, then the fewest words a group that keep a block
+// within kCapMaxThreads threads; a window of more than 8 *
+// kCapMaxThreads / 8 = 512 words (a tall, narrow PATH window of 513 to
+// 1,023 words: the batched route caps a window at 32,767 rows and 2^18
+// cells) keeps the read-back form below, one thread a lane (groups of 16
+// words took the build a quarter of its time and spilled).
+//
+// What bounds it: the stores, 8 bytes a word-column (16 with Ph and Mh)
+// against 13 operations: at 3.35 TB/s and 16.7e12 operations/s the bytes
+// take 2.4-4.8 ps and the operations 0.78 ps a word-column, so the bytes
+// bind, at phase 12's shape (Ph and Mh kept) by six times.  The work a
+// launch offers is one chain of columns a (lane, word): a 512-lane slab
+// of 16-word windows is 8,192 threads, 64 blocks of 128 on 64 SMs, one
+// warp a scheduler, so a launch runs far from that bound on latency.
+constexpr int kCapMaxThreads = 512;
+constexpr int kCapMaxWords = 8;      // words a group holds, at most
+constexpr int kCapSmemWords = 8192;  // profile words a block may stage
+
+// p + i as one wide multiply-add (the compiler would otherwise rebuild each
+// output's 64-bit address from a shared 64-bit index, column by column).
+__device__ __forceinline__ uint32_t* word_at(uint32_t* p, uint32_t i) {
+  uint32_t* q;
+  asm("mad.wide.u32 %0, %1, 4, %2;" : "=l"(q) : "r"(i), "l"(p));
+  return q;
+}
+
+// One column of a capture group: its K words advanced from the carry bits
+// (hneg, hpos), word i's state stored at word o + i * L of each output
+// (pv, mv; WANT_H: ph, mh, all offset to the tile's first column, the
+// group's first word and the lane), the bottom word's horizontal deltas
+// shifted into (o_p, o_n) (bit 0 the newest column).
+template <int K, bool WANT_H>
+__device__ __forceinline__ void capture_column(
+    uint32_t (&pv)[K], uint32_t (&mv)[K], const uint32_t (&e)[K],
+    int n_words, uint32_t hneg, uint32_t hpos, uint32_t* const (&q)[4],
+    uint32_t o, uint32_t L, uint32_t& o_p, uint32_t& o_n) {
+  uint32_t ph = 0u, mh = 0u;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (K == 1 || i < n_words) {
+      advance_word_h(pv[i], mv[i], e[i], hneg, hpos, ph, mh);
+      const uint32_t oi = o + i * L;
+      *word_at(q[0], oi) = pv[i];
+      *word_at(q[1], oi) = mv[i];
+      if constexpr (WANT_H) {
+        *word_at(q[2], oi) = ph;
+        *word_at(q[3], oi) = mh;
+      }
+    }
+  }
+  o_p = __funnelshift_l(ph, o_p, 1);
+  o_n = __funnelshift_l(mh, o_n, 1);
+}
+
+// The Eq words of a group's K words for symbol sym: from the registers
+// loaded before the tile (1-2 words) or from the profile row.
+template <int K, int P>
+__device__ __forceinline__ void capture_eq(uint32_t (&e)[K],
+                                           const uint32_t (&pre)[P],
+                                           const uint32_t* prof, int32_t sym,
+                                           int nw, int w0) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if constexpr (K <= 2)
+      e[i] = pre[i];
+    else
+      e[i] = prof[sym * nw + min(w0 + i, nw - 1)];
+  }
+}
+
+template <int K, bool WANT_H>
+__global__ void __launch_bounds__(kCapMaxThreads)
+capture_words_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
+                     const int32_t* __restrict__ targets, int n_cols,
+                     int n_lanes, uint32_t hin_pos, int lanes, int staged,
+                     uint32_t* __restrict__ pvo, uint32_t* __restrict__ mvo,
+                     uint32_t* __restrict__ pho,
+                     uint32_t* __restrict__ mho) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // symbol ring, profiles
+  __shared__ uint32_t link[2][kCapMaxThreads];    // [buffer][thread]
+  constexpr uint32_t kMask = (1u << kWordTile) - 1u;
+  constexpr int kPre = K <= 2 ? K : 1;  // Eq words loaded before a tile
+  const int l = threadIdx.x % lanes, g = threadIdx.x / lanes;
+  const int n_groups = blockDim.x / lanes;
+  const int b0 = blockIdx.x * lanes;
+  // Threads past the last lane run its sweep and store its words, as the
+  // lane's own thread does in the same instruction.
+  const int b = min(b0 + l, n_lanes - 1);
+  const int last = n_cols - 1;
+  const int n_tiles = (n_cols + kWordTile - 1) / kWordTile;
+  // The ring holds tiles s - n_groups + 1 .. s + 2 at step s: tile tau's
+  // symbol k of lane l at slot(tau) + k * lanes + l, a slot padded by
+  // `lanes` words so that the four groups of a warp read distinct banks.
+  const int ring_n = n_groups + 2, slot_words = (kWordTile + 1) * lanes;
+  int32_t* ring = reinterpret_cast<int32_t*>(dyn);
+  const int rw = s1 * nw;
+  if (staged) {
+    uint32_t* rows = dyn + ring_n * slot_words;
+    const int n = min(lanes, n_lanes - b0) * rw;
+    const uint32_t* src = peq + (size_t)b0 * rw;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) rows[i] = src[i];
+  }
+  const uint32_t* prof = staged ? dyn + ring_n * slot_words + (b - b0) * rw
+                                : peq + (size_t)b * rw;
+  // Tile tau's symbols of the block's lanes into ring slot `slot`, 16
+  // consecutive threads on one lane's tile, as one commit group (empty
+  // past the row).
+  const auto fetch = [&](int tau, int slot) {
+    if (tau < n_tiles)
+      for (int i = threadIdx.x; i < kWordTile * lanes; i += blockDim.x) {
+        const int li = i / kWordTile, k = i % kWordTile;
+        cp_async4(ring + slot * slot_words + k * lanes + li,
+                  targets + (size_t)min(b0 + li, n_lanes - 1) * n_cols +
+                      min(kWordTile * tau + k, last));
+      }
+    cp_async_commit();
+  };
+  fetch(0, 0);
+  fetch(1, 1);
+  cp_async_wait<1>();
+  __syncthreads();
+  const int w0 = g * K;
+  const int n_words = min(K, nw - w0);  // this group's words
+  const int n_steps = n_tiles + n_groups - 1;
+  const uint32_t L = n_lanes;
+  const uint32_t col = nw * L;  // a column's words (16 of them fit 32
+                                // bits: the launch checks)
+  uint32_t pv[K], mv[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    pv[i] = ~0u;
+    mv[i] = 0u;
+  }
+  int fetch_slot = 2 % ring_n;                // tile s + 2's slot
+  int slot = (ring_n - g % ring_n) % ring_n;  // tile s - g's slot
+  for (int s = 0; s < n_steps; ++s) {
+    fetch(s + 2, fetch_slot);
+    fetch_slot = fetch_slot + 1 == ring_n ? 0 : fetch_slot + 1;
+    const int tau = s - g;
+    const uint32_t y = g > 0 ? link[s & 1][threadIdx.x - lanes] : 0u;
+    const uint32_t hp_in = g > 0 ? y & kMask : (hin_pos ? kMask : 0u);
+    const uint32_t hn_in = g > 0 ? y >> kWordTile : 0u;
+    uint32_t o_p = 0u, o_n = 0u;
+    if (tau >= 0 && tau < n_tiles) {
+      // The tile's symbols, and with 1-2 words a group their Eq words, in
+      // registers before any column's stores.
+      const int32_t* ts = ring + slot * slot_words + l;
+      int32_t sym[kWordTile];
+      uint32_t pre[kWordTile][kPre];
+#pragma unroll
+      for (int k = 0; k < kWordTile; ++k) {
+        sym[k] = ts[k * lanes];
+        if constexpr (K <= 2) {
+#pragma unroll
+          for (int i = 0; i < K; ++i)
+            pre[k][i] = prof[sym[k] * nw + min(w0 + i, nw - 1)];
+        }
+      }
+      const int c0 = kWordTile * tau;
+      const size_t at = (size_t)c0 * col + (size_t)w0 * L + b;
+      uint32_t* const q[4] = {pvo + at, mvo + at, pho + at, mho + at};
+      if (c0 + kWordTile <= n_cols) {
+#pragma unroll
+        for (int k = 0; k < kWordTile; ++k) {
+          uint32_t e[K];
+          capture_eq<K>(e, pre[k], prof, sym[k], nw, w0);
+          capture_column<K, WANT_H>(pv, mv, e, n_words, (hn_in >> k) & 1u,
+                                    (hp_in >> k) & 1u, q, k * col, L, o_p,
+                                    o_n);
+        }
+      } else {  // the row's last, ragged tile
+#pragma unroll
+        for (int k = 0; k < kWordTile; ++k) {
+          if (c0 + k <= last) {
+            uint32_t e[K];
+            capture_eq<K>(e, pre[k], prof, sym[k], nw, w0);
+            capture_column<K, WANT_H>(pv, mv, e, n_words,
+                                      (hn_in >> k) & 1u, (hp_in >> k) & 1u,
+                                      q, k * col, L, o_p, o_n);
+          } else {  // past the row: no delta
+            o_p <<= 1;
+            o_n <<= 1;
+          }
+        }
+      }
+      o_p = __brev(o_p) >> kWordTile;  // bit k: column c0 + k
+      o_n = __brev(o_n) >> kWordTile;
+    }
+    link[(s + 1) & 1][threadIdx.x] = (o_n << kWordTile) | o_p;
+    slot = slot + 1 == ring_n ? 0 : slot + 1;
+    cp_async_wait<1>();
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+// The read-back form, one thread a lane: windows past the word groups'
+// 512 words.  The previous column's state is read back from the lane's
+// own pv/mv output (no scratch).
+template <bool WANT_H>
 __global__ void __launch_bounds__(kThreads)
 capture_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
                const int32_t* __restrict__ targets, int n_cols, int n_lanes,
@@ -1874,41 +2412,20 @@ capture_kernel(const uint32_t* __restrict__ peq, int s1, int nw,
   const uint32_t* prof = peq + (size_t)lane * s1 * nw;
   const int32_t* tg = targets + (size_t)lane * n_cols;
   const size_t L = n_lanes;
-  uint32_t pv[NW > 0 ? NW : 1], mv[NW > 0 ? NW : 1];
-  if constexpr (NW > 0) {
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      pv[w] = ~0u;
-      mv[w] = 0u;
-    }
-  }
   for (int c = 0; c < n_cols; ++c) {
     const uint32_t* row = prof + (size_t)tg[c] * nw;
     const size_t o = (size_t)c * nw * L + lane;
     uint32_t hneg = 0u, hpos = hin_pos, ph, mh;
-    if constexpr (NW > 0) {
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        advance_word_h(pv[w], mv[w], row[w], hneg, hpos, ph, mh);
-        pvo[o + w * L] = pv[w];
-        mvo[o + w * L] = mv[w];
-        if constexpr (WANT_H) {
-          pho[o + w * L] = ph;
-          mho[o + w * L] = mh;
-        }
-      }
-    } else {
-      for (int w = 0; w < nw; ++w) {
-        const size_t at = o + w * L;
-        uint32_t p = c ? pvo[at - nw * L] : ~0u;
-        uint32_t m = c ? mvo[at - nw * L] : 0u;
-        advance_word_h(p, m, row[w], hneg, hpos, ph, mh);
-        pvo[at] = p;
-        mvo[at] = m;
-        if constexpr (WANT_H) {
-          pho[at] = ph;
-          mho[at] = mh;
-        }
+    for (int w = 0; w < nw; ++w) {
+      const size_t at = o + w * L;
+      uint32_t p = c ? pvo[at - nw * L] : ~0u;
+      uint32_t m = c ? mvo[at - nw * L] : 0u;
+      advance_word_h(p, m, row[w], hneg, hpos, ph, mh);
+      pvo[at] = p;
+      mvo[at] = m;
+      if constexpr (WANT_H) {
+        pho[at] = ph;
+        mho[at] = mh;
       }
     }
   }
@@ -2299,17 +2816,21 @@ int launch_words(const SplitConfig& cfg, const uint32_t* peq, int s1,
 // the blocks and threads a block of its (first) launch, and the form's own
 // figures.
 enum PlanForm {
-  kFormThread = 0,  // a thread a lane
-  kFormWords = 1,   // the word-parallel lane
-  kFormGroups = 2,  // warp groups
-  kFormCores = 3,   // the split-lane cores
-  kFormWave = 4,    // a block a lane (sweep_wave)
+  kFormThread = 0,     // a thread a lane
+  kFormWords = 1,      // the word-parallel lane
+  kFormGroups = 2,     // warp groups
+  kFormCores = 3,      // the split-lane cores
+  kFormWave = 4,       // a block a lane (sweep_wave)
+  kFormLaneWords = 5,  // word groups over lanes (capture_words_kernel)
+  kFormBand = 6,       // the word-parallel band (nw_banded_words_kernel)
 };
 constexpr int kPlanFields = 10;
 
+// The lane words form reports its lanes a block in width's place and its
+// words a group in cores' (cuda_kernel._PLAN_FORM_KEYS reads them so).
 struct LaunchPlan {
   long long form = kFormThread, blocks = 0, threads = 0;
-  long long width = 0;             // words: threads a lane's segment
+  long long width = 0;             // words, band: threads a lane's segment
   long long cores = 0, core = 0;   // reduce: cores a lane, their columns
   long long groups = 0, ring = 0;  // groups: a lane's groups, ring tiles,
   long long passes = 0, pass_groups = 0;  // launches, groups a launch
@@ -2322,6 +2843,89 @@ struct LaunchPlan {
     std::copy(v, v + kPlanFields, static_cast<long long*>(out));
   }
 };
+
+// #6 on the word-parallel band in W = width threads a lane, blocks by
+// split_config (words_config's shape), the block's rows staged.
+int launch_band_words(int device, const uint32_t* peq, int s1, const Band& band,
+                      const LaneArgs& a, int width, void* plan,
+                      cudaStream_t st) {
+  if (width != band_width(band.n_win) || band.n_win < 2 ||
+      band.n_win > kBandMaxWidth || band.chunk % kWordTile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SplitConfig cfg =
+      split_config(device, (long long)a.n_lanes * width, a.n_lanes,
+                   s1 * band.nw, kPeqSmemWords, 0, width,
+                   band_ring_words(width));
+  const SplitArgs sp{nullptr, 0, 0, cfg.peq_words, width};
+  switch (width) {
+#define LAUNCH(N)                                                         \
+  case N:                                                                 \
+    nw_banded_words_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \
+        peq, s1, band, a, sp);                                            \
+    break;
+    LAUNCH(2) LAUNCH(4) LAUNCH(8) LAUNCH(16)
+#undef LAUNCH
+  }
+  LaunchPlan lp;
+  lp.form = kFormBand;
+  lp.blocks = cfg.blocks;
+  lp.threads = cfg.threads;
+  lp.width = width;
+  lp.write(plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// #14 as word groups over lanes: `lanes` lanes a block (8, 16 or 32),
+// `words` words a group (1-kCapMaxWords, a power of two), as the wrapper
+// planned it (cuda_kernel.capture_plan); lanes = 0: the read-back form.
+template <bool WANT_H>
+int launch_capture(const uint32_t* peq, int s1, int nw, const int32_t* t,
+                   int n_cols, int n_lanes, uint32_t hp, int lanes, int words,
+                   uint32_t* o_pv, uint32_t* o_mv, uint32_t* o_ph,
+                   uint32_t* o_mh, void* plan, cudaStream_t st) {
+  LaunchPlan lp;
+  if (lanes == 0) {
+    lp.blocks = blocks_for(n_lanes);
+    lp.threads = kThreads;
+    capture_kernel<WANT_H><<<static_cast<unsigned>(lp.blocks), kThreads, 0,
+                             st>>>(
+        peq, s1, nw, t, n_cols, n_lanes, hp, o_pv, o_mv, o_ph, o_mh);
+  } else {
+    const int groups = (nw + words - 1) / words;
+    if ((lanes != 8 && lanes != 16 && lanes != 32) || words < 1 ||
+        words > kCapMaxWords || (words & (words - 1)) != 0 ||
+        lanes * groups > kCapMaxThreads ||
+        (long long)nw * n_lanes * kWordTile >= (1LL << 32))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int rw = s1 * nw;
+    const int staged = (long long)lanes * rw <= kCapSmemWords;
+    const size_t smem =
+        ((size_t)(groups + 2) * (kWordTile + 1) * lanes +
+         (staged ? (size_t)lanes * rw : 0)) * sizeof(uint32_t);
+    lp.form = kFormLaneWords;
+    lp.blocks = (n_lanes + lanes - 1) / lanes;
+    lp.threads = lanes * groups;
+    lp.width = lanes;
+    lp.cores = words;
+    switch (words) {
+#define LAUNCH(K)                                                      \
+  case K:                                                              \
+    cudaFuncSetAttribute(capture_words_kernel<K, WANT_H>,              \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                         static_cast<int>(smem));                      \
+    capture_words_kernel<K, WANT_H>                                    \
+        <<<static_cast<unsigned>(lp.blocks),                           \
+           static_cast<unsigned>(lp.threads), smem, st>>>(             \
+            peq, s1, nw, t, n_cols, n_lanes, hp, lanes, staged, o_pv,  \
+            o_mv, o_ph, o_mh);                                         \
+    break;
+      LAUNCH(1) LAUNCH(2) LAUNCH(4) LAUNCH(8)
+#undef LAUNCH
+    }
+  }
+  lp.write(plan);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The shape of one launch of the score stream's groups: the fewest warps
 // on the busiest SM (group_geometry), or blocks of kGroupMaxWarps where
@@ -2634,15 +3238,37 @@ int myers_hits_bitplane(int device, const void* planes, const void* pad,
 // [0, nw - n_win], n_chunks * chunk >= n_cols.
 //
 // myers_nw_banded: last int32 (n_lanes,), the score at hi-1 (no lo).
+// width: the word-parallel band's threads a lane (band_width(n_win), for
+// n_win 2-kBandMaxWidth and a chunk of whole tiles), or 0: a thread a
+// lane.  plan int64 (kPlanFields,), or null: what the call launched.
 int myers_nw_banded(int device, const void* peq, int s1, int nw,
                     const void* targets, int n_cols, const void* woff,
                     int n_chunks, int chunk, int n_win, const void* hi,
                     const void* prow, const void* trow, int n_lanes,
-                    void* last, void* scratch, void* stream) {
-  return launch_banded(0, device, peq, s1, nw, targets, n_cols, woff,
-                       n_chunks, chunk, n_win, nullptr, hi, prow, trow,
-                       n_lanes, last, nullptr, nullptr, nullptr, nullptr, 0,
-                       scratch, stream);
+                    void* last, void* scratch, int width, void* plan,
+                    void* stream) {
+  if (width == 0) {
+    LaunchPlan lp;
+    lp.blocks = blocks_for(n_lanes);
+    lp.threads = kThreads;
+    lp.write(plan);
+    return launch_banded(0, device, peq, s1, nw, targets, n_cols, woff,
+                         n_chunks, chunk, n_win, nullptr, hi, prow, trow,
+                         n_lanes, last, nullptr, nullptr, nullptr, nullptr,
+                         0, scratch, stream);
+  }
+  if (n_lanes <= 0) return 0;
+  if (n_win < 1 || n_win > nw || chunk < 1 || n_chunks < 1 ||
+      (long long)n_chunks * chunk < n_cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(targets, n_cols, nullptr, hi, prow, trow, n_lanes, 1,
+                         scratch);
+  set_reduction(a, last, nullptr, nullptr, last);
+  const Band band{static_cast<const int32_t*>(woff), chunk, n_win, nw};
+  return launch_band_words(device, static_cast<const uint32_t*>(peq), s1,
+                           band, a, width, plan,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // myers_shw_banded: best, pfirst, plast int32 (n_lanes,) over [lo, hi).
@@ -2715,10 +3341,13 @@ int myers_sweep_shared(int device, const void* peq, int s1, int nw,
 // peq uint32 (n_lanes, s1, nw); targets int32 (n_lanes, n_cols), symbols in
 // [0, s1); pv, mv (and with ph, mh non-null also ph, mh) uint32
 // (n_cols, nw, n_lanes): lane b's word w after column c.  hin0 as
-// myers_reduce_lanes.
+// myers_reduce_lanes.  lanes, words: the word groups' shape (lanes a block,
+// words a group; cuda_kernel.capture_plan), lanes = 0 for the read-back
+// form.  plan int64 (kPlanFields,), or null: what the call launched.
 int myers_capture(int device, const void* peq, int s1, int nw,
                   const void* targets, int n_cols, int n_lanes, int hin0,
-                  void* pv, void* mv, void* ph, void* mh, void* stream) {
+                  int lanes, int words, void* pv, void* mv, void* ph,
+                  void* mh, void* plan, void* stream) {
   if (n_lanes <= 0 || n_cols <= 0) return 0;
   if (nw < 1 || (ph == nullptr) != (mh == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2731,20 +3360,11 @@ int myers_capture(int device, const void* peq, int s1, int nw,
   uint32_t* o_ph = static_cast<uint32_t*>(ph);
   uint32_t* o_mh = static_cast<uint32_t*>(mh);
   const uint32_t hp = hin0 ? 1u : 0u;
-  if (ph != nullptr) {
-#define LAUNCH(N)                                                     \
-  capture_kernel<N, true><<<blocks_for(n_lanes), kThreads, 0, st>>>( \
-      p, s1, nw, t, n_cols, n_lanes, hp, o_pv, o_mv, o_ph, o_mh)
-    MYERS_DISPATCH_NW(nw, LAUNCH)
-#undef LAUNCH
-  } else {
-#define LAUNCH(N)                                                      \
-  capture_kernel<N, false><<<blocks_for(n_lanes), kThreads, 0, st>>>( \
-      p, s1, nw, t, n_cols, n_lanes, hp, o_pv, o_mv, o_ph, o_mh)
-    MYERS_DISPATCH_NW(nw, LAUNCH)
-#undef LAUNCH
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (ph != nullptr)
+    return launch_capture<true>(p, s1, nw, t, n_cols, n_lanes, hp, lanes,
+                                words, o_pv, o_mv, o_ph, o_mh, plan, st);
+  return launch_capture<false>(p, s1, nw, t, n_cols, n_lanes, hp, lanes,
+                               words, o_pv, o_mv, o_ph, o_mh, plan, st);
 }
 
 // peq, targets, prow, trow as myers_reduce_lanes; every lane sweeps all

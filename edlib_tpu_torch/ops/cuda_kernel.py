@@ -1715,6 +1715,198 @@ def sweep_scores_groups_plain(peq, targets, prow, trow, hin0: int, pv0=None,
 
 
 # ---------------------------------------------------------------------------
+# The column capture's word groups over lanes and banded NW's word-parallel
+# band (csrc/myers.cu says how each runs): the shapes the wrappers plan and
+# plain emulations of both schedules, step by step, which the tests hold
+# against the plain versions and the JAX package.
+# ---------------------------------------------------------------------------
+
+_CAP_MAX_THREADS = 512     # csrc/myers.cu kCapMaxThreads
+_CAP_MAX_WORDS = 8         # csrc/myers.cu kCapMaxWords
+_CARD_SMS = 132            # an H100 SXM's SMs: capture_plan's default
+_BAND_MAX_WIDTH = 16       # csrc/myers.cu kBandMaxWidth
+
+
+def capture_plan(n_words: int, n_lanes: int, sms: int = _CARD_SMS) -> dict:
+    """The capture kernel's launch shape: {"form": "lane_words", "lanes":
+    lanes a block, "words": words a group}, or {"form": "thread"} (the
+    read-back form, one thread a lane) for a window of more than 512
+    words (or 16 columns of 2^32 words or more: offsets inside a tile are
+    32-bit).  The most lanes a block (32, 16 or 8) that still gives each
+    of the card's sms SMs a block, then the fewest words a group (1, 2, 4
+    or 8) that keep a block within 512 threads, fewer lanes where even 8
+    do not."""
+    lanes = 32
+    while lanes > 8 and -(-n_lanes // lanes) < sms:
+        lanes //= 2
+    words = 1
+    while (words < _CAP_MAX_WORDS
+           and lanes * -(-n_words // words) > _CAP_MAX_THREADS):
+        words *= 2
+    while lanes > 8 and lanes * -(-n_words // words) > _CAP_MAX_THREADS:
+        lanes //= 2
+    if (lanes * -(-n_words // words) > _CAP_MAX_THREADS
+            or n_words * n_lanes * WORD_TILE >= 1 << 32):
+        return {"form": "thread"}
+    return {"form": "lane_words", "lanes": lanes, "words": words}
+
+
+def band_width(n_win: int, chunk: int) -> int:
+    """Threads a lane's segment of nw_banded's word-parallel band: the
+    smallest of 2, 4, 8 and 16 that is at least n_win; 0 where the kernel
+    keeps one thread a lane (n_win = 1, a chunk that is not a whole number
+    of WORD_TILE-column tiles, n_win past 16)."""
+    if n_win < 2 or n_win > _BAND_MAX_WIDTH or chunk % WORD_TILE:
+        return 0
+    return 2 if n_win <= 2 else 4 if n_win <= 4 else 8 if n_win <= 8 else 16
+
+
+def capture_words_plain(peq, targets, hin0: int, want_h: bool = False, *,
+                        words=None):
+    """The capture kernel's word groups in plain PyTorch, step by step
+    (lanes and groups vectorised): group g of a lane holds the words
+    [g K, (g + 1) K) (K = words, or capture_plan's) and advances the
+    WORD_TILE columns [WORD_TILE (s - g), + WORD_TILE) at step s, each
+    column taking its carry bit from the two masks (hneg << WORD_TILE |
+    hpos) group g - 1 sent for the same tile a step before (the top group
+    (0, hin0)).  Operands and outputs as capture."""
+    B, _, nw = peq.shape
+    T = targets.shape[1]
+    dev = peq.device
+    K = words or capture_plan(nw, B).get("words", _CAP_MAX_WORDS)
+    G = -(-nw // K)
+    outs = [torch.empty((T, nw, B), dtype=_I32, device=dev)
+            for _ in range(4 if want_h else 2)]
+    if not (B and T):
+        return tuple(o.permute(2, 0, 1) for o in outs)
+    g = torch.arange(G, device=dev)
+    lanes = torch.arange(B, device=dev)[:, None]
+    pv = torch.full((B, G, K), -1, dtype=_I32, device=dev)
+    mv = torch.zeros((B, G, K), dtype=_I32, device=dev)
+    mask = (1 << WORD_TILE) - 1
+    link = torch.zeros((B, G), dtype=_I32, device=dev)
+    for s in range(-(-T // WORD_TILE) + G - 1):
+        tau = s - g
+        y = torch.cat([link[:, :1], link[:, :-1]], 1)       # group g - 1
+        hp_in, hn_in = y & mask, (y >> WORD_TILE) & mask
+        hp_in[:, 0] = mask if hin0 else 0
+        hn_in[:, 0] = 0
+        o = torch.zeros((B, G), dtype=_I32, device=dev)
+        for k in range(WORD_TILE):
+            c = WORD_TILE * tau + k
+            act = (tau >= 0) & (c < T)                      # (G,)
+            sym = targets[:, c.clamp(0, T - 1)].long()      # (B, G)
+            hneg, hpos = (hn_in >> k) & 1, (hp_in >> k) & 1
+            for i in range(K):
+                w = g * K + i
+                upd = act & (w < nw)
+                e = peq[lanes, sym, w.clamp(max=nw - 1)[None, :]]
+                pv2, mv2, hn2, hp2, ph, mh = _advance_word_h(
+                    pv[:, :, i], mv[:, :, i], e, hneg, hpos)
+                pv[:, :, i] = torch.where(upd, pv2, pv[:, :, i])
+                mv[:, :, i] = torch.where(upd, mv2, mv[:, :, i])
+                hneg = torch.where(upd, hn2, hneg)
+                hpos = torch.where(upd, hp2, hpos)
+                at = upd.nonzero()[:, 0]
+                for out, val in zip(outs, (pv2, mv2, ph, mh)):
+                    out[c[at], w[at]] = val[:, at].t()
+            o |= torch.where(act, (hpos << k) | (hneg << (k + WORD_TILE)), 0)
+        link = o
+    return tuple(x.permute(2, 0, 1) for x in outs)
+
+
+def nw_banded_words_plain(peq, targets, woff, hi, prow, trow, n_win: int,
+                          chunk: int):
+    """nw_banded on the word-parallel band's schedule in plain PyTorch,
+    step by step (lanes and segment threads vectorised): absolute word x
+    runs tile tau at step tau + x - woff[0] on thread x mod W (W =
+    band_width), the tiles in flight at a step those with start(tau) =
+    tau + off(tau) - woff[0] <= step < start(tau) + n_win; a thread's new
+    word starts from the reset state; word x takes its carry masks from
+    thread x - 1 mod W a step before, or hin = +1 where it is its tile's
+    top word; each tile's bottom word carries the score, +32 a word the
+    window slides.  Operands and output as nw_banded (W > 0)."""
+    W = band_width(n_win, chunk)
+    if not W:
+        raise ValueError(f"nw_banded_words_plain: no band form at n_win="
+                         f"{n_win}, chunk={chunk}")
+    B, T, nw = hi.shape[0], targets.shape[1], peq.shape[2]
+    dev = hi.device
+    last = torch.full((B,), _BIG, dtype=_I32, device=dev)
+    if not (B and T):
+        return last
+    woff = [int(v) for v in woff]
+    tpc = chunk // WORD_TILE
+    off0 = woff[0]
+    n_tiles = -(-T // WORD_TILE)
+
+    def off(tau):
+        return woff[tau // tpc]
+
+    def start(tau):
+        return tau + off(tau) - off0
+
+    prof = peq[prow.long()]                                # (B, S1, NW)
+    tg = targets[trow.long()]                              # (B, T)
+    lanes = torch.arange(B, device=dev)[:, None]
+    j = torch.arange(W, device=dev)
+    pv = torch.full((B, W), -1, dtype=_I32, device=dev)
+    mv = torch.zeros((B, W), dtype=_I32, device=dev)
+    cur = torch.full((W,), -1, dtype=torch.int64, device=dev)
+    out = torch.zeros((B, W), dtype=_I32, device=dev)
+    score = torch.full((B,), (off0 + n_win) * WORD_SIZE, dtype=_I32,
+                       device=dev)
+    mask = (1 << WORD_TILE) - 1
+    lo, hi_t = 0, -1
+    for s in range(start(n_tiles - 1) + n_win):
+        while hi_t + 1 < n_tiles and start(hi_t + 1) <= s:
+            hi_t += 1
+        while lo <= hi_t and start(lo) + n_win <= s:
+            lo += 1
+        x_min = s - hi_t + off0
+        x = x_min + (j - x_min) % W
+        valid = (x <= s - lo + off0) & (lo <= hi_t)
+        tau = s - x + off0
+        new = valid & (x != cur)                           # entering words
+        pv[:, new], mv[:, new] = -1, 0
+        cur = torch.where(valid, x, cur)
+        top = valid & (x == torch.tensor(
+            [off(int(t)) if v else -1 for t, v in zip(tau, valid)],
+            device=dev))
+        y = out.roll(1, 1)                                 # thread j - 1
+        hp_in = torch.where(top, mask, y & mask)
+        hn_in = torch.where(top, 0, (y >> WORD_TILE) & mask)
+        xr = x.clamp(0, nw - 1)
+        o_p = torch.zeros((B, W), dtype=_I32, device=dev)
+        o_n = torch.zeros_like(o_p)
+        for k in range(WORD_TILE):
+            c = WORD_TILE * tau + k
+            act = valid & (c < T)
+            e = prof[lanes, tg[:, c.clamp(0, T - 1)].long(), xr[None, :]]
+            pv2, mv2, hn2, hp2 = _advance_word(pv, mv, e, (hn_in >> k) & 1,
+                                               (hp_in >> k) & 1)
+            pv = torch.where(act, pv2, pv)
+            mv = torch.where(act, mv2, mv)
+            o_p |= torch.where(act, hp2, 0) << k
+            o_n |= torch.where(act, hn2, 0) << k
+        out = (o_n << WORD_TILE) | o_p
+        if lo <= hi_t and start(lo) + n_win - 1 == s:      # a tile's bottom
+            ob = off(lo)
+            jb = (ob + n_win - 1) % W
+            bp, bn = o_p[:, jb], o_n[:, jb]
+            cb = WORD_TILE * lo
+            for k in range(WORD_TILE):
+                if ob == nw - n_win and cb + k < T:
+                    m = (2 << k) - 1
+                    sk = score + _popc(bp & m) - _popc(bn & m)
+                    last = torch.where(hi - 1 == cb + k, sk, last)
+            score = score + _popc(bp) - _popc(bn)
+            if lo + 1 < n_tiles:
+                score = score + (off(lo + 1) - ob) * WORD_SIZE
+    return last
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
@@ -1998,7 +2190,8 @@ def _band_head(peq, targets, woff, n_win: int, chunk: int, n: int):
     return head, scratch
 
 
-def nw_banded(peq, targets, woff, hi, prow, trow, n_win: int, chunk: int):
+def nw_banded(peq, targets, woff, hi, prow, trow, n_win: int, chunk: int,
+              *, plan=None):
     """Banded NW: each lane's score at scan column hi-1, advancing only the
     window words [woff[c // chunk], +n_win) at column c.
 
@@ -2006,7 +2199,10 @@ def nw_banded(peq, targets, woff, hi, prow, trow, n_win: int, chunk: int):
     nondecreasing in [0, NW - n_win] with n_chunks * chunk >= T.  Returns
     int32 (B,): exact where the distance is within the band, otherwise an
     overestimate (never below the distance); _BIG where the window had not
-    reached the bottom word at hi-1."""
+    reached the bottom word at hi-1.  The kernel runs the word-parallel
+    band (nw_banded_words_plain) where band_width gives it a segment, else
+    one thread a lane; a dict `plan` receives what it launched
+    (sweep_scores; checks only)."""
     name = "nw_banded"
     n, on_cuda = _banded_common(name, peq, targets, woff, n_win, chunk,
                                 dict(hi=hi, prow=prow, trow=trow))
@@ -2018,9 +2214,11 @@ def nw_banded(peq, targets, woff, hi, prow, trow, n_win: int, chunk: int):
     if n == 0:
         return last
     head, scratch = _band_head(peq, targets, woff, n_win, chunk, n)
+    buf = _plan_buffer()
     _launch(name, "myers_nw_banded", dev.index, *head,
             *_ptrs(hi, prow, trow), n, last.data_ptr(), scratch.data_ptr(),
-            _stream(dev))
+            band_width(n_win, chunk), ctypes.addressof(buf), _stream(dev))
+    _fill_plan(plan, buf)
     return last
 
 
@@ -2068,7 +2266,11 @@ def shw_banded_hits(peq, targets, woff, lo, hi, prow, trow, best,
     return hits
 
 
-def capture(peq, targets, hin0: int, want_h: bool = False):
+def _card_sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def capture(peq, targets, hin0: int, want_h: bool = False, *, plan=None):
     """Every column's Myers state per lane (the column-capture kernel).
 
     peq: int32 (B, S1, NW) profile bit words; targets: int32 (B, T) symbols
@@ -2077,7 +2279,10 @@ def capture(peq, targets, hin0: int, want_h: bool = False):
     w of lane b after column c, Ph/Mh the unshifted horizontal deltas
     (bit i set where cell(32w+i, c) - cell(32w+i, c-1) is +1 / -1).  The
     tensors are views of (T, NW, B) storage, lane-minor: x.permute(1, 2, 0)
-    is contiguous.  hin0: 0 for HW, 1 for SHW/NW."""
+    is contiguous.  hin0: 0 for HW, 1 for SHW/NW.  The kernel runs word
+    groups over lanes in capture_plan's shape (capture_words_plain), one
+    thread a lane past 512 words; a dict `plan` receives what it
+    launched (sweep_scores; checks only)."""
     name = "capture"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
@@ -2093,18 +2298,26 @@ def capture(peq, targets, hin0: int, want_h: bool = False):
             for _ in range(4 if want_h else 2)]
     if B and T:
         ptrs = _ptrs(*outs) + ([None, None] if not want_h else [])
+        shape = capture_plan(nw, B, _card_sms(dev))
+        buf = _plan_buffer()
         _launch(name, "myers_capture", dev.index, peq.data_ptr(), s1, nw,
-                targets.data_ptr(), T, B, int(hin0), *ptrs, _stream(dev))
+                targets.data_ptr(), T, B, int(hin0), shape.get("lanes", 0),
+                shape.get("words", 0), *ptrs, ctypes.addressof(buf),
+                _stream(dev))
+        _fill_plan(plan, buf)
     return tuple(o.permute(2, 0, 1) for o in outs)
 
 
 # A launch plan as csrc/myers.cu's entries report it (LaunchPlan): the
 # form, the blocks and threads a block of its (first) launch, then the
-# segment width, the cores a lane and their columns, and the groups a lane,
-# ring tiles, passes and groups a pass.
-_PLAN_FORMS = ("thread", "words", "groups", "cores", "wave")
+# segment width, the cores a lane and their columns, the groups a lane,
+# ring tiles, passes and groups a pass; the capture's word groups give
+# their lanes a block and words a group in the first two figures' places.
+_PLAN_FORMS = ("thread", "words", "groups", "cores", "wave", "lane_words",
+               "band")
 _PLAN_KEYS = ("width", "cores", "core", "groups", "ring", "passes",
               "pass_groups")
+_PLAN_FORM_KEYS = {"lane_words": ("lanes", "words")}
 
 
 def _plan_buffer():
@@ -2114,13 +2327,16 @@ def _plan_buffer():
 def _fill_plan(plan, buf) -> None:
     """Write a reported plan into the caller's dict `plan` (None: not
     asked): form, blocks, threads (in all) and block (threads a block),
-    and the form's own figures (the keys of _PLAN_KEYS that are set)."""
+    and the form's own figures (those of its _PLAN_FORM_KEYS, else of
+    _PLAN_KEYS, that are set)."""
     if plan is None:
         return
     plan.clear()
-    plan.update(form=_PLAN_FORMS[buf[0]], blocks=buf[1],
-                threads=buf[1] * buf[2], block=buf[2])
-    plan.update((k, v) for k, v in zip(_PLAN_KEYS, buf[3:]) if v)
+    form = _PLAN_FORMS[buf[0]]
+    plan.update(form=form, blocks=buf[1], threads=buf[1] * buf[2],
+                block=buf[2])
+    keys = _PLAN_FORM_KEYS.get(form, _PLAN_KEYS)
+    plan.update((k, v) for k, v in zip(keys, buf[3:]) if v)
 
 
 def _scores_scratch(dev, s1: int, nw: int, T: int, n: int, ring: int,
