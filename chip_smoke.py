@@ -45,10 +45,14 @@ Phases, each of which exits non-zero on any failure:
    in forced passes, chained segments, and a 140,000-word lane in passes
    unforced against the wavefront; nw_banded's word-parallel band at
    n_win 2-16 (segments of 2-16 threads, windows sliding by 0, 1 and
-   several words, the whole profile, edge lanes) and the capture's word
+   several words, the whole profile, edge lanes), shw_banded_hits on the
+   same band cases and the one-thread ones, and the capture's word
    groups over lanes (NW 1-500, blocks of 8, 16 and 32 lanes, groups of
-   1-8 words, the read-back form at 600 words); the plain emulation of
-   each schedule beside a first case; each call's reported form checked.
+   1-8 words, the read-back form at 600 words); hits_bitplane on its
+   split-lane cores over K3's staged rows (K3's operand cases, forced
+   cores of 32-160 columns and one core a lane, both hin0, NW 1-8 and
+   the one-thread form at 9); the plain emulation of each schedule beside
+   a first case; each call's reported form checked.
 3. The main path at full width: 8192 reads of 120 bp (96 of them random,
    unmappable) against a 4,194,304-bp sigma=4 target (a random 1 Mbp tiled
    4x, so exact repeats tie first positions across windows), through
@@ -119,8 +123,9 @@ Phases, each of which exits non-zero on any failure:
    and threads, and the cores and core, the segment width or the warp
    groups a lane, ring and passes); hits_eqstream must run the word lane at
    width 4 on phase 18, nw_banded the word-parallel band at width 16 on
-   phases 8 and 12, and capture its word groups over lanes on phases 11
-   and 12 (NEW_FORMS).
+   phases 8 and 12, shw_banded_hits the band on phase 9, hits_bitplane its
+   split-lane cores on phase 10, and capture its word groups over lanes on
+   phases 11 and 12 (NEW_FORMS).
 14-17. Long single pairs through nw_distance_long, shw_best_long,
    semiglobal_locations_long and align, each with its launch counts, a
    warm repeat that must agree, and its k ladder rung by rung (k, banded
@@ -1211,10 +1216,11 @@ def check_banded_words(rng, dev, ck):
     the tiles, 300 lanes with the edge lanes (hi = 0, hi past the row, hi -
     1 in a chunk whose window has not reached the bottom word, hi - 1 in
     the last chunk): the raw scores, values above any k and _BIG included;
-    the schedule's plain emulation beside the first case; and the
-    one-thread form where the band cannot run (n_win 1, chunks of 8, 24
-    and 40 columns, n_win 20).  The form and segment width each call
-    reports are checked; the plain versions run on the host."""
+    shw_banded_hits on the same bands (check_band_hits); the schedules'
+    plain emulations beside the first case; and the one-thread form where
+    the band cannot run (n_win 1, chunks of 8, 24 and 40 columns, n_win
+    20), for both.  The form and segment width each call reports are
+    checked; the plain versions run on the host."""
     import torch
     n = 300
     for i, (n_win, nw, chunk, T, first, slides) in enumerate(BAND_CASES):
@@ -1246,6 +1252,8 @@ def check_banded_words(rng, dev, ck):
         if i == 0:
             check_equal(f"nw_banded_words_plain {tag}",
                         [on_host(ck.nw_banded_words_plain, *band)], [want])
+        check_band_hits(rng, ck, band, tag, "band",
+                        width=ck.band_width(n_win, chunk), emulate=i == 0)
     # The one-thread form where the band cannot run: n_win = 1, chunks that
     # are not whole 16-column tiles (register windows of 4, 12 and 16 words),
     # n_win past 16 (the scratch window).
@@ -1265,6 +1273,37 @@ def check_banded_words(rng, dev, ck):
                     [ck.nw_banded(*band, plan=plan)],
                     [on_host(ck.nw_banded_plain, *band)])
         check_form(f"nw_banded {tag}", plan, "thread")
+        check_band_hits(rng, ck, band, tag, "thread")
+
+
+def check_band_hits(rng, ck, band, tag, form, emulate=False, **want_plan):
+    """shw_banded_hits on nw_banded's operands `band` (peq, targets, woff,
+    hi, prow, trow, n_win, chunk) with lo drawn beside hi (lo past hi on
+    every 7th lane, a multiple of 32 on others), best the card's banded
+    reduce (#7) with every 5th lane at -(1 << 30), == its plain version
+    (on the host), the launch in `form` (want_plan its figures); with
+    emulate the band's plain emulation beside it."""
+    import torch
+    peq, targets, woff, hi, prow, trow, n_win, chunk = band
+    T = targets.shape[1]
+    hi_h = hi.cpu().numpy()
+    lo_h = rng.randint(0, T // 2, len(hi_h))
+    lo_h[4::7] = hi_h[4::7] + 2
+    lo_h[5::7] -= lo_h[5::7] % 32
+    lo = torch.from_numpy(lo_h.astype(np.int32)).to(hi.device)
+    lanes = (peq, targets, woff, lo, hi, prow, trow)
+    best = ck.shw_banded(*lanes, n_win, chunk)[0].clone()
+    best[::5] = -(1 << 30)
+    want = on_host(ck.shw_banded_hits_plain, *lanes, best, n_win, chunk)
+    plan = {}
+    check_equal(f"shw_banded_hits {form} {tag}",
+                [ck.shw_banded_hits(*lanes, best, n_win, chunk, plan=plan)],
+                [want])
+    check_form(f"shw_banded_hits {tag}", plan, form, **want_plan)
+    if emulate:
+        check_equal(f"shw_banded_hits_words_plain {tag}",
+                    [on_host(ck.shw_banded_hits_words_plain, *lanes, best,
+                             n_win, chunk)], [want])
 
 
 def check_capture_words(rng, dev, ck):
@@ -1444,18 +1483,13 @@ def check_split_kernels(rng, dev, ck):
                             want)
 
 
-def check_bitplane_split(rng, dev, ck):
-    """K3 with forced small cores == its plain version: NW 1, 4, 8 and 9
-    (9: one thread a lane), both hin0, 300 lanes with the edge lanes over
-    40 reads' bit planes, prow sorted
-    (the main path's order: few rows a block, the profiles expanded in
-    shared memory) and random (many rows a block: the planes staged), one
-    and two alternatives, targets holding the wildcard and the symbol past
-    it; and sigma = 300 at 8 words (nb = 9: profiles too large to expand,
-    Eq from the staged planes), also with four alternatives (planes past
-    the block's shared-memory budget even at 32 threads)."""
+def bitplane_cases(rng, dev, ck, T):
+    """K3's operand cases, one a (sigma, NW): 40 reads' bit planes (one
+    alternative, two, and at sigma = 300 four), 300 lanes of T columns over
+    the alphabet, the wildcard and the symbol past it, with the edge lanes:
+    (sigma, nw, nb, pad, [(n_alts, q_alts)], targets, lo, hi, prow,
+    trow)."""
     import torch
-    T = 131
     for sigma, nw in ((100, 1), (100, 4), (100, 8), (100, 9), (300, 8)):
         nb = ck.bitplane_nb(sigma)
         q = torch.from_numpy(rng.randint(0, sigma, (40, nw * 32))
@@ -1469,12 +1503,29 @@ def check_bitplane_split(rng, dev, ck):
         _, targets, lo, hi, prow, trow = lane_operands(
             rng, dev, n_lanes=300, n_rows=40, T=T, s1=sigma + 2, nw=1)
         edge_lanes(lo, hi, T)
+        alts = [(1, q_alts), (2, torch.cat([q_alts, alt], 1))]
+        if sigma == 300:
+            alts.append((4, torch.cat([q_alts, alt, alt.flip(0),
+                                       alt.roll(1, 0)], 1)))
+        yield sigma, nw, nb, pad, alts, targets, lo, hi, prow, trow
+
+
+def check_bitplane_split(rng, dev, ck):
+    """K3 with forced small cores == its plain version: NW 1, 4, 8 and 9
+    (9: one thread a lane), both hin0, 300 lanes with the edge lanes over
+    40 reads' bit planes, prow sorted
+    (the main path's order: few rows a block, the profiles expanded in
+    shared memory) and random (many rows a block: the planes staged), one
+    and two alternatives, targets holding the wildcard and the symbol past
+    it; and sigma = 300 at 8 words (nb = 9: profiles too large to expand,
+    Eq from the staged planes), also with four alternatives (planes past
+    the block's shared-memory budget even at 32 threads)
+    (bitplane_cases)."""
+    import torch
+    for (sigma, nw, nb, pad, alts, targets, lo, hi, prow,
+         trow) in bitplane_cases(rng, dev, ck, 131):
         hi[5::7] = 0
         for hin0 in (0, 1):
-            alts = [(1, q_alts), (2, torch.cat([q_alts, alt], 1))]
-            if sigma == 300:
-                alts.append((4, torch.cat([q_alts, alt, alt.flip(0),
-                                           alt.roll(1, 0)], 1)))
             for n_alts, qa in alts:
                 planes = ck.bitplane_planes(qa.contiguous(), nb)
                 for order, rows in (("sorted", torch.sort(prow)[0]),
@@ -1487,6 +1538,62 @@ def check_bitplane_split(rng, dev, ck):
                     for core in (None, 1, 7, 40):
                         check_equal(f"reduce_bitplane {tag} core={core}",
                                     ck.reduce_bitplane(*bp, core=core), want)
+
+
+def check_hits_bitplane_split(rng, dev, ck):
+    """hits_bitplane on its split-lane cores over K3's staged rows == its
+    plain version: K3's operand cases (bitplane_cases: sigma 100 at NW 1,
+    4, 8 and 9, sigma 300 at 8 words, the planes staged, also with four
+    alternatives past the block's budget at 32 threads; rows sorted and
+    random), both hin0, forced cores of 32, 64, 96 and 160 columns and the
+    unforced plan (one core a lane on the split kernel, thread i lane i),
+    300 lanes of 200 columns with the edge lanes and lo a multiple of 32 on
+    every 7th, best from K3 with every 5th lane at -(1 << 30); NW 9 one
+    thread a lane.  The form each call reports is checked; the plain
+    versions run on the host (once a case: the sorted rows are the random
+    ones' lanes permuted); the schedule's plain emulation beside the first
+    case."""
+    import torch
+    T, n = 200, 300
+    emulated = False
+    for (sigma, nw, nb, pad, alts, targets, lo, hi, prow,
+         trow) in bitplane_cases(rng, dev, ck, T):
+        lo[5::7] -= lo[5::7] % 32
+        order = torch.argsort(prow)
+        for hin0 in (0, 1):
+            for n_alts, qa in alts:
+                planes = ck.bitplane_planes(qa.contiguous(), nb)
+                ops = (planes, pad, targets, lo, hi, prow, trow)
+                tail = (hin0, nb, n_alts, sigma)
+                best = ck.reduce_bitplane(*ops, *tail)[0].clone()
+                best[::5] = -(1 << 30)
+                want = on_host(ck.hits_bitplane_plain, *ops, best, *tail)
+                by_rows = (("random", ops + (best,), want),
+                           ("sorted", ops[:3] + tuple(
+                               x[order].contiguous()
+                               for x in ops[3:] + (best,)), want[order]))
+                tag = f"sigma={sigma} nw={nw} hin0={hin0} alts={n_alts}"
+                for rows, args, w in by_rows:
+                    for core in (32, 64, 96, 160, None):
+                        plan = {}
+                        check_equal(f"hits_bitplane {tag} rows {rows} "
+                                    f"core={core}",
+                                    [ck.hits_bitplane(*args, *tail,
+                                                      core=core, plan=plan)],
+                                    [w])
+                        if nw > 8:
+                            check_form(f"hits_bitplane {tag}", plan,
+                                       "thread")
+                        else:
+                            check_form(f"hits_bitplane {tag} core={core}",
+                                       plan, "cores",
+                                       core=ck.hits_core(n, T, nw, hin0,
+                                                         core))
+                if not emulated:
+                    check_equal(f"split_hits_bitplane_plain {tag}",
+                                [on_host(ck.split_hits_bitplane_plain, *ops,
+                                         best, *tail, core=64)], [want])
+                    emulated = True
 
 
 def wavefront_work(ck, name, args):
@@ -1727,19 +1834,25 @@ def profile_call(fn, top: int = 8, groups=None) -> dict:
 
 
 # The forms the redesigned kernels must report on their paths (phase 7's
-# hits_lanes: several cores a lane; phase 18's hits_eqstream: segments of 4
-# threads; phases 8 and 12's nw_banded: the word-parallel band, 16 threads
-# a lane at their 12-16-word windows; phases 11 and 12's capture: word
-# groups over 8, 16 or 32 lanes a block).
+# hits_lanes: several cores a lane; phase 10's hits_bitplane: the split
+# kernel, one core a lane of whole hit words; phase 18's hits_eqstream:
+# segments of 4 threads; phases 8 and 12's nw_banded and phase 9's
+# shw_banded_hits: the word-parallel band, 16 threads a lane at their
+# 12-16-word windows; phases 11 and 12's capture: word groups over 8, 16 or
+# 32 lanes a block).
 NEW_FORMS = {"hits_lanes": ("cores", lambda p: p.get("cores", 0) > 1),
+             "hits_bitplane": ("cores",
+                               lambda p: p.get("core", 0) % 32 == 0),
              "hits_eqstream": ("words", lambda p: p.get("width") == 4),
              "nw_banded": ("band", lambda p: p.get("width") == 16),
+             "shw_banded_hits": ("band", lambda p: p.get("width") == 16),
              "capture": ("lane_words",
                          lambda p: p.get("lanes") in (8, 16, 32))}
 
 # The wrappers that take plan= (their C entries report what they launched).
 PLANNED = ("reduce_resume", "sweep_scores", "sweep_scores_resume",
-           "hits_lanes", "hits_eqstream", "nw_banded", "capture")
+           "hits_lanes", "hits_bitplane", "hits_eqstream", "nw_banded",
+           "shw_banded_hits", "capture")
 
 # The kernels whose calls phase 13 also traces, with substrings of their
 # CUDA kernels' names (the traced device time sums the kernels that hold
@@ -2635,10 +2748,11 @@ def main(argv=None) -> int:
 
     # 2. Kernels vs plain versions, small shapes, each check's seconds
     # logged.  The checks added since PR 7 draw from generators of their
-    # own (--seed + 1, ..., + 5), so the paths below see the same data as
+    # own (--seed + 1, ..., + 6), so the paths below see the same data as
     # before.
     phase2_s = {}
-    extra = [np.random.RandomState(args.seed + i) for i in (1, 2, 3, 4, 5)]
+    extra = [np.random.RandomState(args.seed + i)
+             for i in (1, 2, 3, 4, 5, 6)]
     for check, gen in ((check_kernels, rng), (check_wavefront_kernels, rng),
                        (check_resumable_kernels, rng),
                        (check_adaptive_kernel, rng),
@@ -2652,7 +2766,8 @@ def main(argv=None) -> int:
                        (check_split_hits, extra[3]),
                        (check_word_hits, extra[3]),
                        (check_banded_words, extra[4]),
-                       (check_capture_words, extra[4])):
+                       (check_capture_words, extra[4]),
+                       (check_hits_bitplane_split, extra[5])):
         t0 = time.perf_counter()
         check(gen, dev, ck)
         phase2_s[check.__name__] = time.perf_counter() - t0

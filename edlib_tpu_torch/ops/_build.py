@@ -47,13 +47,14 @@ SIGNATURES = {
     "myers_hits_lanes": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
                          _L, _I, _I, _P, _P, _I, _P, _P, _P],
     "myers_hits_bitplane": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
-                            _P, _I, _I, _P, _P, _I, _P, _P],
+                            _P, _I, _I, _P, _L, _I, _I, _P, _P, _I, _P, _P,
+                            _P],
     "myers_nw_banded": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P,
                         _I, _P, _P, _I, _P, _P],
     "myers_shw_banded": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P,
                          _P, _I, _P, _P, _P, _P, _P],
     "myers_shw_banded_hits": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
-                              _P, _P, _P, _I, _P, _P, _I, _P, _P],
+                              _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
     "myers_capture": [_I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                       _P, _P, _P],
     "myers_sweep_scores": [_I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P,

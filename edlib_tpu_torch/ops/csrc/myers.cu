@@ -4,9 +4,10 @@
 // launch (0 = cudaSuccess) and never synchronises or allocates.
 //
 // Fourteen kernels, one thread per alignment lane (one per core of a
-// lane in K1, K2, K3 and myers_hits_lanes at 1-8 words; a block, in the
-// wave form below; a segment of 2-8 threads in the word-parallel lane and
-// of 2-16 in myers_nw_banded's word-parallel band; warp groups for the
+// lane in K1, K2, K3, myers_hits_lanes and myers_hits_bitplane at 1-8
+// words; a block, in the wave form below; a segment of 2-8 threads in the
+// word-parallel lane and of 2-16 in the word-parallel band of
+// myers_nw_banded and myers_shw_banded_hits; warp groups for the
 // score stream's long lanes; a thread a word of 8-32 lanes in
 // myers_capture's word groups; a block per 1,024-lane tile for
 // myers_hw_adaptive).  Each replaces a kernel of
@@ -32,13 +33,16 @@
 //                          (as myers_reduce_lanes), its cores aligned to
 //                          whole hit words.
 //   myers_hits_bitplane    its bit-plane form, _sweep_hits_bitplane_call
-//                          (:2062, pallas_call :2083).
+//                          (:2062, pallas_call :2083); split-lane at 1-8
+//                          words on K3's staged rows, its cores aligned to
+//                          whole hit words.
 //   myers_nw_banded        _nw_banded_kernel (:961, pallas_call :1066);
 //                          the word-parallel band at window widths 2-16
 //                          (below).
 //   myers_shw_banded       _shw_banded_kernel (:1091, pallas_call :1215).
 //   myers_shw_banded_hits  _shw_banded_hits_kernel (:1243, pallas_call
-//                          :1348).
+//                          :1348); the word-parallel band at window
+//                          widths 2-16, as myers_nw_banded.
 //   myers_capture          _capture_kernel (:2548), launched by
 //                          _sweep_capture_call (:2605, pallas_call :2635)
 //                          through capture_flat_device (:2655); word
@@ -96,15 +100,16 @@
 // launch of a few long lanes is latency-bound.
 //
 // K1 (myers_reduce_lanes), K3 (myers_reduce_bitplane), K2
-// (myers_sweep_shared), #5 (myers_hits_lanes) and the resumable reduce at
-// 1-8 words take the split-lane schedule (see "The split-lane schedule" below): in HW mode a
+// (myers_sweep_shared), #5 (myers_hits_lanes), #13 (myers_hits_bitplane)
+// and the resumable reduce at 1-8 words take the split-lane schedule (see "The split-lane schedule" below): in HW mode a
 // long lane is cut into cores of columns, each core one thread that starts
 // from the fresh state a halo of 2 * 32 * NW columns before its core (the
 // resumable reduce's first cores from the carry), so a few long lanes (K2's
 // overflow stragglers, K1's and K3's segmented fallbacks, the shared row,
 // the sharded pipelines' segments) fill the card; each thread streams its target columns through shared memory
-// with cp.async, keeps its block's profile rows (K3: its rows' expanded
-// bit-plane profiles) in shared memory and loads the next column's Eq words
+// with cp.async, keeps its block's profile rows (K3 and #13: its rows'
+// expanded bit-plane profiles) in shared memory and loads the next
+// column's Eq words
 // before the current column advances.  Past 8 words, and in the other
 // kernels, each thread sweeps one lane and loads each column's symbol and
 // Eq words from memory on the critical path.  A lane stops at its own window end hi, so padded
@@ -154,7 +159,8 @@
 // column's chain is the word update's Pv recurrence.  Banded NW's window
 // of 2-16 words runs the same way on the word-parallel band, each
 // absolute word a tile behind the one above so that the words keep their
-// lag as the window slides; the capture runs each word of a block's lanes
+// lag as the window slides, and banded SHW's hit words on the same band;
+// the capture runs each word of a block's lanes
 // on a group of threads, a tile behind the word above.
 //
 // Semantics are the TPU kernels' exactly:
@@ -775,11 +781,14 @@ hits_lanes_kernel(const uint32_t* __restrict__ peq, int s1, int nw, LaneArgs a) 
                  (size_t)a.n_lanes, a.wave, lane_carry(a, nw, lane), h);
 }
 
+// #13 past 8 words: a thread a lane (state in scratch) or the wave form;
+// 1-8 words take hits_bitplane_split_kernel.
 template <int NW>
-__global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
+__global__ void __launch_bounds__(kWaveThreads)
 hits_bitplane_kernel(const uint32_t* __restrict__ planes,
                      const uint32_t* __restrict__ pad, int nw, int nb,
                      int n_alts, int wildcard, LaneArgs a) {
+  static_assert(NW == 0, "1-8 words take hits_bitplane_split_kernel");
   const int lane = lane_index(a);
   if (lane >= a.n_lanes) return;
   HitMask h{a.lo[lane], a.want[lane], a.hits + (size_t)lane * a.n_out};
@@ -894,8 +903,8 @@ shw_banded_hits_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
 
 // ---------------------------------------------------------------------------
 // The split-lane schedule of K1 (myers_reduce_lanes), K3
-// (myers_reduce_bitplane), K2 (myers_sweep_shared) and #5
-// (myers_hits_lanes) at 1-8 words.
+// (myers_reduce_bitplane), K2 (myers_sweep_shared), #5 (myers_hits_lanes)
+// and #13 (myers_hits_bitplane) at 1-8 words.
 //
 // In HW mode (hin = 0) every cell of row i is at most i, so every bottom-row
 // score is at most R = 32 * nw, and an alignment of cost d that ends at
@@ -1264,6 +1273,24 @@ __device__ __forceinline__ void split_sweep(const LaneArgs& a,
   if (hi - 1 >= k.c_lo && hi - 1 < k.c_hi) a.last[p.lane] = r.last;
 }
 
+// Sweep one core of the hit words' plan (word-aligned, below) from the
+// fresh state at its start, marking hits only in its own core.
+template <int NW, class Eq>
+__device__ __forceinline__ void split_hits(const LaneArgs& a,
+                                           const SplitArgs& sp,
+                                           const SplitPlace& p,
+                                           uint32_t* rings, const Eq& eq) {
+  const int lo = a.lo[p.lane];
+  const Core k(lo, a.hi[p.lane], a.n_cols, p.core, sp.core, sp.halo,
+               a.hin_pos, true);
+  const int32_t* tg = a.targets + (size_t)a.trow[p.lane] * a.n_cols;
+  const SymStream st(rings, tg + k.start, tg + a.n_cols, k.c_hi - k.start);
+  HitMask h{max(lo, k.c_lo), a.want[p.lane],
+            a.hits + (size_t)p.lane * a.n_out};
+  sweep_core<NW>(st, eq, a.hin_pos, k.start, h);
+  h.finish(k.c_hi);
+}
+
 // K1, split-lane.
 template <int NW>
 __global__ void __launch_bounds__(kSplitMaxThreads, 4)
@@ -1286,7 +1313,8 @@ reduce_split_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
 // 32, so every hit word lies in exactly one core and has one writer;
 // plain stores suffice (no atomicOr).  Its sweep starts at a multiple of
 // 32 too (c_lo - halo, halo = 64 * NW, or 0), and the halo's columns lie
-// before c_lo, so they mark nothing.
+// before c_lo, so they mark nothing.  (split_hits; #13 runs the same on
+// K3's staged rows, hits_bitplane_split_kernel.)
 template <int NW>
 __global__ void __launch_bounds__(kSplitMaxThreads, 4)
 hits_lanes_split_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
@@ -1297,15 +1325,7 @@ hits_lanes_split_kernel(const uint32_t* __restrict__ peq, int s1, LaneArgs a,
   if (!split_place(a, sp, p, slot_row)) return;
   const EqRows eq = stage_rows<NW>(peq, s1, sp, p, slot_row, dyn);
   if (!p.active) return;
-  const int lo = a.lo[p.lane];
-  const Core k(lo, a.hi[p.lane], a.n_cols, p.core, sp.core, sp.halo, 0u,
-               true);
-  const int32_t* tg = a.targets + (size_t)a.trow[p.lane] * a.n_cols;
-  const SymStream st(dyn, tg + k.start, tg + a.n_cols, k.c_hi - k.start);
-  HitMask h{max(lo, k.c_lo), a.want[p.lane],
-            a.hits + (size_t)p.lane * a.n_out};
-  sweep_core<NW>(st, eq, 0u, k.start, h);
-  h.finish(k.c_hi);
+  split_hits<NW>(a, sp, p, dyn, eq);
 }
 
 // The resumable reduce, split-lane (1-8 words): every lane's n_cols columns
@@ -1683,11 +1703,13 @@ hits_eqstream_words_kernel(const uint32_t* __restrict__ eq, LaneArgs a) {
 // segment brings a tile's symbols into its ring in shared memory (cp.async)
 // the step before the tile starts, so its words read them there.
 //
-// The one-thread kernel (sweep_banded) keeps n_win = 1, a chunk that is
-// not a whole number of tiles and n_win past kBandMaxWidth; the wrapper
-// (cuda_kernel.band_width) picks the form.  The SHW kernels keep it too:
-// sweep_band takes their visitors (Reduction's take, WordHits) as
-// sweep_words does.
+// #8 (myers_shw_banded_hits) runs the same band with WordHits in place
+// of BandLast (ops/cuda_kernel.py shw_banded_hits_words_plain).  The
+// one-thread kernel (sweep_banded) keeps n_win = 1, a chunk that is not a
+// whole number of tiles and n_win past kBandMaxWidth; the wrapper
+// (cuda_kernel.band_width) picks the form.  #7 keeps it too: sweep_band
+// would take its visitor (Reduction's take, merged as merge_words does)
+// as sweep_words does.
 constexpr int kBandMaxWidth = 16;
 
 __host__ __device__ constexpr int band_width(int n_win) {
@@ -1906,9 +1928,36 @@ __device__ __forceinline__ void sweep_band(const int32_t* tg, const BandEq& eq,
   }
 }
 
-// #6 on the word-parallel band: thread t is thread t % W of lane t / W
+// A band kernel's lane: the block's rows staged (every thread of the
+// block calls it), then thread j = t % W of the segment sweeps lane
+// `lane`'s band with visitor v.  Thread t is thread t % W of lane t / W
 // (split_place with sp.n_cores = W); the threads past the last lane run
-// its sweep and store nothing.
+// its sweep (lane = the last) and store nothing.
+template <int W, class Visit>
+__device__ __forceinline__ void band_lane(const uint32_t* peq, int s1,
+                                          const Band& band,
+                                          const LaneArgs& a,
+                                          const SplitArgs& sp,
+                                          const SplitPlace& p,
+                                          const int* slot_row, uint32_t* dyn,
+                                          int lane, Visit& v) {
+  constexpr int kRing = band_ring_words(W);
+  stage_rows(peq, s1, band.nw, sp, p, slot_row, dyn, kRing);
+  if (a.n_cols <= 0) return;
+  const int rw = s1 * band.nw;
+  const int j = threadIdx.x % W;
+  int32_t* ring = reinterpret_cast<int32_t*>(dyn) + (threadIdx.x - j) * kRing;
+  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
+  if (p.n_slots * rw <= sp.peq_words)  // stage_rows staged the rows
+    sweep_band<W>(tg, BandEq{dyn + blockDim.x * kRing + p.slot * rw, band.nw},
+                  band, a.n_cols, j, ring, v);
+  else
+    sweep_band<W>(tg, BandEq{peq + (size_t)max(p.row, 0) * rw, band.nw},
+                  band, a.n_cols, j, ring, v);
+}
+
+// #6 on the word-parallel band: the score at hi - 1 (BandLast), merged
+// over the segment.
 template <int W>
 __global__ void __launch_bounds__(kSplitMaxThreads, 4)
 nw_banded_words_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
@@ -1917,25 +1966,32 @@ nw_banded_words_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
   __shared__ int slot_row[kSplitMaxThreads];
   SplitPlace p;
   if (!split_place(a, sp, p, slot_row)) return;
-  constexpr int kRing = band_ring_words(W);
-  stage_rows(peq, s1, band.nw, sp, p, slot_row, dyn, kRing);
-  const int rw = s1 * band.nw;
   const int lane = p.active ? p.lane : a.n_lanes - 1;
-  const int j = threadIdx.x % W;
-  int32_t* ring = reinterpret_cast<int32_t*>(dyn) + (threadIdx.x - j) * kRing;
-  const int32_t* tg = a.targets + (size_t)a.trow[lane] * a.n_cols;
   BandLast r{a.hi[lane]};
-  if (a.n_cols > 0) {
-    if (p.n_slots * rw <= sp.peq_words)  // stage_rows staged the rows
-      sweep_band<W>(tg, BandEq{dyn + blockDim.x * kRing + p.slot * rw,
-                               band.nw},
-                    band, a.n_cols, j, ring, r);
-    else
-      sweep_band<W>(tg, BandEq{peq + (size_t)max(p.row, 0) * rw, band.nw},
-                    band, a.n_cols, j, ring, r);
-  }
+  band_lane<W>(peq, s1, band, a, sp, p, slot_row, dyn, lane, r);
   const int32_t last = merge_last<W>(r.last);
-  if (p.active && j == 0) a.last[lane] = last;
+  if (p.active && threadIdx.x % W == 0) a.last[lane] = last;
+}
+
+// #8 on the word-parallel band: the hit words of the live columns in [lo,
+// min(hi, n_cols)) that score best (WordHits: the segment ORs its bits at
+// every tile that ends a hit word or the row, its first thread stores
+// them).  sweep_band calls WordHits::tile at most once a step, in tile
+// order, at steps that every lane of the launch shares, so its shuffles
+// never diverge.
+template <int W>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+shw_banded_hits_words_kernel(const uint32_t* __restrict__ peq, int s1,
+                             Band band, LaneArgs a, SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profile rows
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  const int lane = p.active ? p.lane : a.n_lanes - 1;
+  WordHits<W> v{a.lo[lane], min(a.hi[lane], a.n_cols), a.want[lane],
+                a.hits + (size_t)lane * a.n_out,
+                p.active && threadIdx.x % W == 0};
+  band_lane<W>(peq, s1, band, a, sp, p, slot_row, dyn, lane, v);
 }
 
 // ---------------------------------------------------------------------------
@@ -2036,24 +2092,21 @@ sweep_scores_groups_kernel(ScoreGroupArgs a) {
   group_tasks(a.n_lanes, a.n_groups, a.wpb, a.ring, a.s1, a.next_task, run);
 }
 
-// K3, split-lane: K1's schedule with Eq from the query-id bit planes.  A row
-// is n_alts * nb + 1 plane words a query word (the planes, then pad).  Each
-// of the block's rows has its planes staged in shared memory (split_config
-// sizes the block so that they fit).  Where the rows also fit sp.peq_words
-// with their expanded profiles (2^nb symbols x NW words each), each row is
-// expanded once, every Eq word the PlaneRows function of its symbol, and
-// the sweep reads one word per word and column (EqRows); else Eq is built
-// from the staged planes per column.
-template <int NW>
-__global__ void __launch_bounds__(kSplitMaxThreads, 4)
-reduce_bitplane_split_kernel(const uint32_t* __restrict__ planes,
-                             const uint32_t* __restrict__ pad, int nb,
-                             int n_alts, int wildcard, LaneArgs a,
-                             SplitArgs sp) {
-  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profiles, planes
-  __shared__ int slot_row[kSplitMaxThreads];
-  SplitPlace p;
-  if (!split_place(a, sp, p, slot_row)) return;
+// K3's rows in shared memory, for K3 and #13 at 1-8 words.  A row is
+// n_alts * nb + 1 plane words a query word (the planes, then pad).  Each
+// of the block's rows has its planes staged in shared memory after the
+// threads' rings (split_config sizes the block so that they fit).  Where
+// the rows also fit sp.peq_words with their expanded profiles (2^nb
+// symbols x NW words each), each row is expanded once, every Eq word the
+// PlaneRows function of its symbol, and the sweep reads one word per word
+// and column (EqRows); else Eq is built from the staged planes per
+// column.  Every thread of the block calls it; an active thread then runs
+// sweep(eq) on its row.
+template <int NW, class Sweep>
+__device__ __forceinline__ void bitplane_rows(
+    const uint32_t* planes, const uint32_t* pad, int nb, int n_alts,
+    int wildcard, const SplitArgs& sp, const SplitPlace& p,
+    const int* slot_row, uint32_t* dyn, const Sweep& sweep) {
   const int T = blockDim.x;
   const int n_sym = 1 << nb;
   const int pw = n_alts * nb * NW;   // plane words a row, pad after them
@@ -2083,12 +2136,45 @@ reduce_bitplane_split_kernel(const uint32_t* __restrict__ planes,
   }
   if (!p.active) return;
   if (expand) {
-    split_sweep<NW>(a, sp, p, dyn,
-                    EqRows{profs + p.slot * prof_w, NW, 1, n_sym - 1});
+    sweep(EqRows{profs + p.slot * prof_w, NW, 1, n_sym - 1});
     return;
   }
   const uint32_t* r = rows + p.slot * rs;
-  split_sweep<NW>(a, sp, p, dyn, PlaneRows{r, r + pw, nb, n_alts, wildcard});
+  sweep(PlaneRows{r, r + pw, nb, n_alts, wildcard});
+}
+
+// K3, split-lane: K1's schedule with Eq from the query-id bit planes
+// (bitplane_rows).
+template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+reduce_bitplane_split_kernel(const uint32_t* __restrict__ planes,
+                             const uint32_t* __restrict__ pad, int nb,
+                             int n_alts, int wildcard, LaneArgs a,
+                             SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profiles, planes
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  bitplane_rows<NW>(planes, pad, nb, n_alts, wildcard, sp, p, slot_row, dyn,
+                    [&](const auto& eq) { split_sweep<NW>(a, sp, p, dyn, eq); });
+}
+
+// #13 (myers_hits_bitplane) at 1-8 words: #5's hit words (split_hits, cores
+// that own whole hit words, plain stores) on K3's staged rows, in K3's
+// launch shape.  Where no lane has two cores (offsets null) thread t is lane
+// t; at hin0 = 1 that is one core a lane swept from column 0.
+template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+hits_bitplane_split_kernel(const uint32_t* __restrict__ planes,
+                           const uint32_t* __restrict__ pad, int nb,
+                           int n_alts, int wildcard, LaneArgs a,
+                           SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profiles, planes
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  bitplane_rows<NW>(planes, pad, nb, n_alts, wildcard, sp, p, slot_row, dyn,
+                    [&](const auto& eq) { split_hits<NW>(a, sp, p, dyn, eq); });
 }
 
 // K2, split-lane: n_cores cores a lane, thread t is core t % n_cores of lane
@@ -2711,44 +2797,6 @@ void set_carry(LaneArgs& a, const void* pv0, const void* mv0, const void* s0,
 
 namespace {
 
-// The three banded kernels' common launch.  kind 0: NW (out0 = last);
-// 1: SHW reduce (out0..2 = best, pfirst, plast); 2: SHW hits.
-int launch_banded(int kind, int device, const void* peq, int s1, int nw,
-                  const void* targets, int n_cols, const void* woff,
-                  int n_chunks, int chunk, int n_win, const void* lo,
-                  const void* hi, const void* prow, const void* trow,
-                  int n_lanes, void* out0, void* out1, void* out2,
-                  const void* want, void* hits, int n_out, void* scratch,
-                  void* stream) {
-  if (n_lanes <= 0) return 0;
-  if (n_win < 1 || n_win > nw || chunk < 1 || n_chunks < 1 ||
-      (long long)n_chunks * chunk < n_cols)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, 1,
-                         scratch);
-  set_reduction(a, out0, out1, out2, out0);
-  set_hits(a, want, hits, n_out);
-  const Band band{static_cast<const int32_t*>(woff), chunk, n_win, nw};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t* p = static_cast<const uint32_t*>(peq);
-  const int blocks = blocks_for(n_lanes);
-  if (kind == 0) {
-#define LAUNCH(N) nw_banded_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
-    MYERS_DISPATCH_WIN(n_win, LAUNCH)
-#undef LAUNCH
-  } else if (kind == 1) {
-#define LAUNCH(N) shw_banded_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
-    MYERS_DISPATCH_WIN(n_win, LAUNCH)
-#undef LAUNCH
-  } else {
-#define LAUNCH(N) shw_banded_hits_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
-    MYERS_DISPATCH_WIN(n_win, LAUNCH)
-#undef LAUNCH
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Launch shape of a split-lane kernel: the largest block (of 32, 64 or
 // kSplitMaxThreads threads) that still gives every SM two blocks, so that a
 // launch of few threads spreads over the SMs; and the profile words its
@@ -2822,7 +2870,7 @@ enum PlanForm {
   kFormCores = 3,      // the split-lane cores
   kFormWave = 4,       // a block a lane (sweep_wave)
   kFormLaneWords = 5,  // word groups over lanes (capture_words_kernel)
-  kFormBand = 6,       // the word-parallel band (nw_banded_words_kernel)
+  kFormBand = 6,       // the word-parallel band (band_lane)
 };
 constexpr int kPlanFields = 10;
 
@@ -2844,13 +2892,15 @@ struct LaunchPlan {
   }
 };
 
-// #6 on the word-parallel band in W = width threads a lane, blocks by
-// split_config (words_config's shape), the block's rows staged.
-int launch_band_words(int device, const uint32_t* peq, int s1, const Band& band,
-                      const LaneArgs& a, int width, void* plan,
-                      cudaStream_t st) {
-  if (width != band_width(band.n_win) || band.n_win < 2 ||
-      band.n_win > kBandMaxWidth || band.chunk % kWordTile != 0)
+// #6 (kind 0, launch_banded's kinds) and #8 (kind 2) on the
+// word-parallel band in W = width threads a lane, blocks by split_config
+// (words_config's shape), the block's rows staged.
+int launch_band_words(int kind, int device, const uint32_t* peq, int s1,
+                      const Band& band, const LaneArgs& a, int width,
+                      void* plan, cudaStream_t st) {
+  if ((kind != 0 && kind != 2) || width != band_width(band.n_win) ||
+      band.n_win < 2 || band.n_win > kBandMaxWidth ||
+      band.chunk % kWordTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const SplitConfig cfg =
       split_config(device, (long long)a.n_lanes * width, a.n_lanes,
@@ -2858,10 +2908,14 @@ int launch_band_words(int device, const uint32_t* peq, int s1, const Band& band,
                    band_ring_words(width));
   const SplitArgs sp{nullptr, 0, 0, cfg.peq_words, width};
   switch (width) {
-#define LAUNCH(N)                                                         \
-  case N:                                                                 \
-    nw_banded_words_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \
-        peq, s1, band, a, sp);                                            \
+#define LAUNCH(N)                                                           \
+  case N:                                                                   \
+    if (kind == 0)                                                          \
+      nw_banded_words_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \
+          peq, s1, band, a, sp);                                            \
+    else                                                                    \
+      shw_banded_hits_words_kernel<N>                                       \
+          <<<cfg.blocks, cfg.threads, cfg.smem, st>>>(peq, s1, band, a, sp); \
     break;
     LAUNCH(2) LAUNCH(4) LAUNCH(8) LAUNCH(16)
 #undef LAUNCH
@@ -2872,6 +2926,53 @@ int launch_band_words(int device, const uint32_t* peq, int s1, const Band& band,
   lp.threads = cfg.threads;
   lp.width = width;
   lp.write(plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The three banded kernels' common launch.  kind 0: NW (out0 = last);
+// 1: SHW reduce (out0..2 = best, pfirst, plast); 2: SHW hits.  width: the
+// word-parallel band's threads a lane (kinds 0 and 2, band_width(n_win)
+// for n_win 2-kBandMaxWidth and a chunk of whole tiles), or 0: a thread a
+// lane.  plan int64 (kPlanFields,), or null: what the call launched.
+int launch_banded(int kind, int device, const void* peq, int s1, int nw,
+                  const void* targets, int n_cols, const void* woff,
+                  int n_chunks, int chunk, int n_win, const void* lo,
+                  const void* hi, const void* prow, const void* trow,
+                  int n_lanes, void* out0, void* out1, void* out2,
+                  const void* want, void* hits, int n_out, void* scratch,
+                  int width, void* plan, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (n_win < 1 || n_win > nw || chunk < 1 || n_chunks < 1 ||
+      (long long)n_chunks * chunk < n_cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, 1,
+                         scratch);
+  set_reduction(a, out0, out1, out2, out0);
+  set_hits(a, want, hits, n_out);
+  const Band band{static_cast<const int32_t*>(woff), chunk, n_win, nw};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* p = static_cast<const uint32_t*>(peq);
+  if (width)
+    return launch_band_words(kind, device, p, s1, band, a, width, plan, st);
+  const int blocks = blocks_for(n_lanes);
+  LaunchPlan lp;
+  lp.blocks = blocks;
+  lp.threads = kThreads;
+  lp.write(plan);
+  if (kind == 0) {
+#define LAUNCH(N) nw_banded_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
+    MYERS_DISPATCH_WIN(n_win, LAUNCH)
+#undef LAUNCH
+  } else if (kind == 1) {
+#define LAUNCH(N) shw_banded_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
+    MYERS_DISPATCH_WIN(n_win, LAUNCH)
+#undef LAUNCH
+  } else {
+#define LAUNCH(N) shw_banded_hits_kernel<N><<<blocks, kThreads, 0, st>>>(p, s1, band, a)
+    MYERS_DISPATCH_WIN(n_win, LAUNCH)
+#undef LAUNCH
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -3211,14 +3312,24 @@ int myers_hits_lanes(int device, const void* peq, int s1, int nw,
 }
 
 // Operands as myers_reduce_bitplane; want and hits as myers_hits_lanes.
+// At 1-8 words hits_bitplane_split_kernel: offsets, n_threads, core and
+// halo as myers_hits_lanes' split-lane form (at hin0 = 0 core and halo
+// multiples of 32 and the word-aligned plan), but null offsets here mean
+// one core a lane on the same kernel, thread t lane t (no lane has two
+// cores, or hin0 = 1: swept from column 0), as K3 takes them.  Past 8
+// words one thread a lane or the wave form; offsets, n_threads, core and
+// halo are not read.  plan as myers_hits_lanes.
 int myers_hits_bitplane(int device, const void* planes, const void* pad,
                         int nw, int nb, int n_alts, int wildcard,
                         const void* targets, int n_cols, const void* lo,
                         const void* hi, const void* prow, const void* trow,
-                        int n_lanes, int hin0, const void* want, void* hits,
-                        int n_out, void* scratch, void* stream) {
+                        int n_lanes, int hin0, const void* offsets,
+                        long long n_threads, int core, int halo,
+                        const void* want, void* hits, int n_out,
+                        void* scratch, void* plan, void* stream) {
   if (n_lanes <= 0) return 0;
-  if (nb < 1 || nb > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (nw < 1 || n_alts < 1 || nb < 1 || nb > kMaxPlanes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   LaneArgs a = lane_args(targets, n_cols, lo, hi, prow, trow, n_lanes, hin0,
                          scratch);
@@ -3226,52 +3337,77 @@ int myers_hits_bitplane(int device, const void* planes, const void* pad,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* pl = static_cast<const uint32_t*>(planes);
   const uint32_t* pd = static_cast<const uint32_t*>(pad);
-#define LAUNCH(N) \
-  LANE_LAUNCH(N, hits_bitplane_kernel, pl, pd, nw, nb, n_alts, wildcard, a)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
+  LaunchPlan lp;
+  if (nw > 8) {
+    LaneArgs probe = a;
+    const Config cfg = lane_config(0, nw, probe);
+    lp.form = probe.wave ? kFormWave : kFormThread;
+    lp.blocks = cfg.blocks;
+    lp.threads = cfg.threads;
+    lp.write(plan);
+    LANE_LAUNCH(0, hits_bitplane_kernel, pl, pd, nw, nb, n_alts, wildcard,
+                a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (n_threads <= 0) {
+    lp.write(plan);
+    return 0;
+  }
+  if (core < 1 || halo < 0 || (!hin0 && (core % 32 || halo % 32)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // K3's shape: whole rows with their expanded profiles where they fit,
+  // the planes of every row a block holds always.
+  const int rs = ((n_alts * nb + 1) * nw) | 1;  // the kernel's row stride
+  const SplitConfig cfg = split_config(device, n_threads, n_lanes,
+                                       (1 << nb) * nw + rs,
+                                       kBitplaneSmemWords, rs);
+  lp.form = kFormCores;
+  lp.blocks = cfg.blocks;
+  lp.threads = cfg.threads;
+  lp.cores = (n_threads + n_lanes - 1) / n_lanes;
+  lp.core = core;
+  lp.write(plan);
+  const SplitArgs sp{static_cast<const int32_t*>(offsets), core, halo,
+                     cfg.peq_words};
+#define LAUNCH(N)                                                          \
+  do {                                                                     \
+    if (const cudaError_t e = cudaFuncSetAttribute(                        \
+            hits_bitplane_split_kernel<N>,                                 \
+            cudaFuncAttributeMaxDynamicSharedMemorySize,                   \
+            static_cast<int>(cfg.smem)))                                   \
+      return static_cast<int>(e);                                          \
+    hits_bitplane_split_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem,     \
+                                    st>>>(pl, pd, nb, n_alts, wildcard, a, \
+                                          sp);                             \
+  } while (0)
+  MYERS_DISPATCH_SPLIT(nw, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
 // The banded kernels: peq, targets, lo, hi, prow, trow as
 // myers_reduce_lanes (hin is +1); woff int32 (n_chunks,) nondecreasing in
-// [0, nw - n_win], n_chunks * chunk >= n_cols.
+// [0, nw - n_win], n_chunks * chunk >= n_cols.  width (myers_nw_banded,
+// myers_shw_banded_hits): the word-parallel band's threads a lane
+// (band_width(n_win), for n_win 2-kBandMaxWidth and a chunk of whole
+// tiles), or 0: a thread a lane.  plan int64 (kPlanFields,), or null: what
+// the call launched.
 //
 // myers_nw_banded: last int32 (n_lanes,), the score at hi-1 (no lo).
-// width: the word-parallel band's threads a lane (band_width(n_win), for
-// n_win 2-kBandMaxWidth and a chunk of whole tiles), or 0: a thread a
-// lane.  plan int64 (kPlanFields,), or null: what the call launched.
 int myers_nw_banded(int device, const void* peq, int s1, int nw,
                     const void* targets, int n_cols, const void* woff,
                     int n_chunks, int chunk, int n_win, const void* hi,
                     const void* prow, const void* trow, int n_lanes,
                     void* last, void* scratch, int width, void* plan,
                     void* stream) {
-  if (width == 0) {
-    LaunchPlan lp;
-    lp.blocks = blocks_for(n_lanes);
-    lp.threads = kThreads;
-    lp.write(plan);
-    return launch_banded(0, device, peq, s1, nw, targets, n_cols, woff,
-                         n_chunks, chunk, n_win, nullptr, hi, prow, trow,
-                         n_lanes, last, nullptr, nullptr, nullptr, nullptr,
-                         0, scratch, stream);
-  }
-  if (n_lanes <= 0) return 0;
-  if (n_win < 1 || n_win > nw || chunk < 1 || n_chunks < 1 ||
-      (long long)n_chunks * chunk < n_cols)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  LaneArgs a = lane_args(targets, n_cols, nullptr, hi, prow, trow, n_lanes, 1,
-                         scratch);
-  set_reduction(a, last, nullptr, nullptr, last);
-  const Band band{static_cast<const int32_t*>(woff), chunk, n_win, nw};
-  return launch_band_words(device, static_cast<const uint32_t*>(peq), s1,
-                           band, a, width, plan,
-                           static_cast<cudaStream_t>(stream));
+  return launch_banded(0, device, peq, s1, nw, targets, n_cols, woff,
+                       n_chunks, chunk, n_win, nullptr, hi, prow, trow,
+                       n_lanes, last, nullptr, nullptr, nullptr, nullptr, 0,
+                       scratch, width, plan, stream);
 }
 
-// myers_shw_banded: best, pfirst, plast int32 (n_lanes,) over [lo, hi).
+// myers_shw_banded: best, pfirst, plast int32 (n_lanes,) over [lo, hi); a
+// thread a lane.
 int myers_shw_banded(int device, const void* peq, int s1, int nw,
                      const void* targets, int n_cols, const void* woff,
                      int n_chunks, int chunk, int n_win, const void* lo,
@@ -3280,21 +3416,23 @@ int myers_shw_banded(int device, const void* peq, int s1, int nw,
                      void* scratch, void* stream) {
   return launch_banded(1, device, peq, s1, nw, targets, n_cols, woff,
                        n_chunks, chunk, n_win, lo, hi, prow, trow, n_lanes,
-                       best, pfirst, plast, nullptr, nullptr, 0, scratch,
-                       stream);
+                       best, pfirst, plast, nullptr, nullptr, 0, scratch, 0,
+                       nullptr, stream);
 }
 
-// myers_shw_banded_hits: want and hits as myers_hits_lanes.
+// myers_shw_banded_hits: want and hits as myers_hits_lanes, over the
+// columns where the window has reached the bottom word.
 int myers_shw_banded_hits(int device, const void* peq, int s1, int nw,
                           const void* targets, int n_cols, const void* woff,
                           int n_chunks, int chunk, int n_win, const void* lo,
                           const void* hi, const void* prow, const void* trow,
                           int n_lanes, const void* want, void* hits,
-                          int n_out, void* scratch, void* stream) {
+                          int n_out, void* scratch, int width, void* plan,
+                          void* stream) {
   return launch_banded(2, device, peq, s1, nw, targets, n_cols, woff,
                        n_chunks, chunk, n_win, lo, hi, prow, trow, n_lanes,
                        nullptr, nullptr, nullptr, want, hits, n_out, scratch,
-                       stream);
+                       width, plan, stream);
 }
 
 // peq uint32 (s1, nw, n_lanes); target int32 (n_cols,), 16-byte aligned;

@@ -14,11 +14,14 @@ one of them:
   sweep_shared     every lane against ONE target (_shared_kernel);
   hits_lanes       packed mask of the columns reaching a given best
                    (_hits_kernel, per-lane and shared forms);
-  hits_bitplane    the same with bit-plane Eq (_hits_kernel, bit-plane);
+  hits_bitplane    the same with bit-plane Eq (_hits_kernel, bit-plane;
+                   hits_lanes' split-lane plan on K3's staged rows);
   nw_banded        NW score at hi-1 inside a sliding word window
                    (_nw_banded_kernel);
   shw_banded       banded SHW (best, pfirst, plast) (_shw_banded_kernel);
-  shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel);
+  shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel; on
+                   nw_banded's word-parallel band where band_width
+                   allows);
   capture          every column's (Pv, Mv[, Ph, Mh]) words, stored
                    (_capture_kernel), for the batched PATH decode;
   sweep_scores     every column's bottom-row score, stored (_sweep_kernel),
@@ -47,9 +50,9 @@ one of them:
 Each wrapper checks its operands, runs the plain version when they lie on
 the CPU, and otherwise launches its kernel on the current stream, raises on
 a CUDA error, and counts the launch (launch_counts()).  A CUDA tensor never
-falls back to the plain version.  reduce_lanes, reduce_bitplane and
-sweep_shared plan their launches here (the split-lane schedule: split_core
-and below).
+falls back to the plain version.  reduce_lanes, reduce_bitplane,
+sweep_shared, hits_lanes and hits_bitplane plan their launches here (the
+split-lane schedule: split_core and below).
 
 Layouts follow the JAX package's flat wrappers, (B, S1, NW) profiles and
 (B, T) targets, without its (8, 128) lane tiles.  Bit words travel as int32
@@ -892,50 +895,82 @@ def split_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
 
 def hits_core(n_lanes: int, cols: int, n_words: int, hin0: int,
               core=None) -> int:
-    """Columns a core of hits_lanes' split-lane plan: split_core's, rounded
-    up to a multiple of 32 so that cores counted from a multiple of 32
-    (split_cores with word_aligned) own whole hit words; hin0 = 1 and lanes
-    past 8 words keep one core a lane (max(cols, 1))."""
+    """Columns a core of hits_lanes' and hits_bitplane's split-lane plan:
+    split_core's, rounded up to a multiple of 32 so that cores counted
+    from a multiple of 32 (split_cores with word_aligned) own whole hit
+    words; hin0 = 1 and lanes past 8 words keep one core a lane
+    (max(cols, 1))."""
     c = split_core(n_lanes, cols, n_words, hin0, core)
     if hin0 or n_words > _SPLIT_MAX_WORDS:
         return c
     return -(-c // WORD_SIZE) * WORD_SIZE
 
 
-def split_hits_plain(peq, targets, lo, hi, prow, trow, best, hin0: int,
-                     core=None):
-    """hits_lanes' split-lane schedule in plain PyTorch: every (lane, core)
-    of the word-aligned plan (hits_core, split_cores with word_aligned)
-    swept by hits_lanes_plain from the fresh state at its start, marking
-    its core's columns, and the cores' hit bits OR-ed into their lane's
-    words.  Where the plan is one core a lane (hin0 = 1, past 8 words, a
-    row no longer than a core) the plain version itself.  Operands and
-    output as hits_lanes."""
-    n_cols, B, nw = targets.shape[1], lo.shape[0], peq.shape[2]
-    c = hits_core(B, n_cols, nw, hin0, core)
-    if c >= n_cols:
-        return hits_lanes_plain(peq, targets, lo, hi, prow, trow, best, hin0)
+def _split_hits_emulate(hits, nw: int, targets, lo, hi, prow, trow, best,
+                        hin0: int, core: int):
+    """The word-aligned hit-word schedule in plain PyTorch: every (lane,
+    core) of split_cores(..., word_aligned=True) swept by hits(rows, lo,
+    hi, prow, trow, best), the plain per-lane hits, from the fresh state
+    at its start (split_halo before its core; column 0 at hin0 = 1),
+    marking its core's columns, and the cores' hit bits OR-ed into their
+    lane's words."""
+    n_cols, B = targets.shape[1], lo.shape[0]
     dev = lo.device
-    lane, c_lo, c_hi, start = split_core_ranges(lo, hi, n_cols, c,
-                                                split_halo(nw), True)
+    lane, c_lo, c_hi, start = split_core_ranges(
+        lo, hi, n_cols, core, None if hin0 else split_halo(nw), True)
     n_out = -(-n_cols // WORD_SIZE)
     bits = torch.zeros((B, n_out * WORD_SIZE), dtype=torch.int64, device=dev)
     n = lane.shape[0]
     if n:
         width = int((c_hi - start).max())
         cols = start[:, None] + torch.arange(width, device=dev)
-        words = hits_lanes_plain(
-            peq, targets[trow.long()[lane][:, None], cols.clamp(
-                max=n_cols - 1)],
+        words = hits(
+            targets[trow.long()[lane][:, None], cols.clamp(max=n_cols - 1)],
             (torch.maximum(lo.long()[lane], c_lo) - start).to(_I32),
             (c_hi - start).to(_I32), prow[lane],
-            torch.arange(n, dtype=_I32, device=dev), best[lane], hin0)
+            torch.arange(n, dtype=_I32, device=dev), best[lane])
         j = torch.arange(width, device=dev)
         got = (words[:, j // WORD_SIZE] >> (j % WORD_SIZE)) & 1  # (n, width)
         on = cols < n_cols
         bits.index_put_((lane[:, None].expand(-1, width)[on], cols[on]),
                         got[on], accumulate=True)
     return _pack_bits(bits > 0)
+
+
+def split_hits_plain(peq, targets, lo, hi, prow, trow, best, hin0: int,
+                     core=None):
+    """hits_lanes' split-lane schedule in plain PyTorch (_split_hits_emulate
+    over hits_lanes_plain).  Where the plan is one core a lane (hin0 = 1,
+    past 8 words, a row no longer than a core) the kernel keeps one thread
+    a lane: the plain version itself.  Operands and output as
+    hits_lanes."""
+    n_cols, nw = targets.shape[1], peq.shape[2]
+    c = hits_core(lo.shape[0], n_cols, nw, hin0, core)
+    if c >= n_cols:
+        return hits_lanes_plain(peq, targets, lo, hi, prow, trow, best, hin0)
+    return _split_hits_emulate(
+        lambda *ops: hits_lanes_plain(peq, *ops, hin0), nw, targets, lo, hi,
+        prow, trow, best, hin0, c)
+
+
+def split_hits_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
+                              best, hin0: int, nb: int, n_alts: int,
+                              wildcard: int, core=None):
+    """hits_bitplane's split-lane schedule in plain PyTorch
+    (_split_hits_emulate over hits_bitplane_plain): at 1-8 words every
+    lane on the word-aligned plan, one core a lane included (swept from a
+    halo before it, or from column 0 at hin0 = 1); past 8 words the plain
+    version itself (one thread a lane).  Operands and output as
+    hits_bitplane."""
+    nw = pad.shape[1]
+    if nw > _SPLIT_MAX_WORDS:
+        return hits_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
+                                   best, hin0, nb, n_alts, wildcard)
+    return _split_hits_emulate(
+        lambda *ops: hits_bitplane_plain(planes, pad, *ops, hin0, nb, n_alts,
+                                         wildcard),
+        nw, targets, lo, hi, prow, trow, best, hin0,
+        hits_core(lo.shape[0], targets.shape[1], nw, hin0, core))
 
 
 def _shared_span(n_cols: int, col_lo: int, col_hi: int) -> int:
@@ -1815,26 +1850,28 @@ def capture_words_plain(peq, targets, hin0: int, want_h: bool = False, *,
     return tuple(x.permute(2, 0, 1) for x in outs)
 
 
-def nw_banded_words_plain(peq, targets, woff, hi, prow, trow, n_win: int,
-                          chunk: int):
-    """nw_banded on the word-parallel band's schedule in plain PyTorch,
-    step by step (lanes and segment threads vectorised): absolute word x
-    runs tile tau at step tau + x - woff[0] on thread x mod W (W =
-    band_width), the tiles in flight at a step those with start(tau) =
-    tau + off(tau) - woff[0] <= step < start(tau) + n_win; a thread's new
-    word starts from the reset state; word x takes its carry masks from
-    thread x - 1 mod W a step before, or hin = +1 where it is its tile's
-    top word; each tile's bottom word carries the score, +32 a word the
-    window slides.  Operands and output as nw_banded (W > 0)."""
+def _band_words_columns(name: str, peq, targets, woff, prow, trow,
+                        n_win: int, chunk: int):
+    """The word-parallel band's schedule in plain PyTorch, step by step
+    (lanes and segment threads vectorised): absolute word x runs tile tau
+    at step tau + x - woff[0] on thread x mod W (W = band_width), the tiles
+    in flight at a step those with start(tau) = tau + off(tau) - woff[0] <=
+    step < start(tau) + n_win; a thread's new word starts from the reset
+    state; word x takes its carry masks from thread x - 1 mod W a step
+    before, or hin = +1 where it is its tile's top word; each tile's bottom
+    word carries the score, +32 a word the window slides.  Yields (column,
+    score (B,), live) for every column of each tile at its bottom word's
+    step, in column order, as the kernels' visitors see them (live where
+    the tile's window has reached the bottom word); _reduction and
+    _hit_words reduce them as the band kernels' visitors do."""
     W = band_width(n_win, chunk)
     if not W:
-        raise ValueError(f"nw_banded_words_plain: no band form at n_win="
-                         f"{n_win}, chunk={chunk}")
-    B, T, nw = hi.shape[0], targets.shape[1], peq.shape[2]
-    dev = hi.device
-    last = torch.full((B,), _BIG, dtype=_I32, device=dev)
+        raise ValueError(f"{name}: no band form at n_win={n_win}, "
+                         f"chunk={chunk}")
+    B, T, nw = prow.shape[0], targets.shape[1], peq.shape[2]
     if not (B and T):
-        return last
+        return
+    dev = prow.device
     woff = [int(v) for v in woff]
     tpc = chunk // WORD_TILE
     off0 = woff[0]
@@ -1895,15 +1932,34 @@ def nw_banded_words_plain(peq, targets, woff, hi, prow, trow, n_win: int,
             jb = (ob + n_win - 1) % W
             bp, bn = o_p[:, jb], o_n[:, jb]
             cb = WORD_TILE * lo
-            for k in range(WORD_TILE):
-                if ob == nw - n_win and cb + k < T:
-                    m = (2 << k) - 1
-                    sk = score + _popc(bp & m) - _popc(bn & m)
-                    last = torch.where(hi - 1 == cb + k, sk, last)
+            for k in range(min(WORD_TILE, T - cb)):
+                m = (2 << k) - 1
+                yield (cb + k, score + _popc(bp & m) - _popc(bn & m),
+                       ob == nw - n_win)
             score = score + _popc(bp) - _popc(bn)
             if lo + 1 < n_tiles:
                 score = score + (off(lo + 1) - ob) * WORD_SIZE
-    return last
+
+
+def nw_banded_words_plain(peq, targets, woff, hi, prow, trow, n_win: int,
+                          chunk: int):
+    """nw_banded on the word-parallel band's schedule in plain PyTorch
+    (_band_words_columns): the score at hi - 1 where live.  Operands and
+    output as nw_banded (band_width > 0)."""
+    cols = _band_words_columns("nw_banded_words_plain", peq, targets, woff,
+                               prow, trow, n_win, chunk)
+    return _reduction(cols, torch.zeros_like(hi), hi)[3]
+
+
+def shw_banded_hits_words_plain(peq, targets, woff, lo, hi, prow, trow,
+                                best, n_win: int, chunk: int):
+    """shw_banded_hits on the word-parallel band's schedule in plain
+    PyTorch (_band_words_columns): the live columns in [lo, min(hi, T))
+    that score best.  Operands and output as shw_banded_hits (band_width
+    > 0)."""
+    cols = _band_words_columns("shw_banded_hits_words_plain", peq, targets,
+                               woff, prow, trow, n_win, chunk)
+    return _hit_words(cols, lo, hi, best, targets.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -2031,6 +2087,30 @@ def _split_launch(name, fn, head, nw: int, targets, lo, hi, prow, trow,
     return _unpack_keys(keys) + (last,)
 
 
+def _hits_launch(name, fn, head, nw: int, targets, lo, hi, prow, trow,
+                 best, hin0: int, core, plan, dev):
+    """Launch #5 or #13 (fn, its leading operands head) on the hit words'
+    word-aligned plan (hits_core); offsets only where some lane has two
+    cores.  Returns the hit words."""
+    n, n_cols = lo.shape[0], targets.shape[1]
+    hits = _hit_output(n, n_cols, dev)
+    if n == 0:
+        return hits
+    c = hits_core(n, n_cols, nw, hin0, core)
+    offsets = (split_offsets(split_cores(lo, hi, n_cols, c, True)[2])
+               if c < n_cols else None)
+    targets = _aligned(targets)
+    buf = _plan_buffer()
+    _launch(name, fn, dev.index, *head, targets.data_ptr(), n_cols,
+            *_ptrs(lo, hi, prow, trow), n, int(hin0),
+            None if offsets is None else offsets.data_ptr(),
+            n * -(-n_cols // c), c, split_halo(nw), best.data_ptr(),
+            hits.data_ptr(), hits.shape[1], _scratch(nw, n, dev).data_ptr(),
+            ctypes.addressof(buf), _stream(dev))
+    _fill_plan(plan, buf)
+    return hits
+
+
 def reduce_lanes(peq, targets, lo, hi, prow, trow, hin0: int, *, core=None):
     """Per-lane Myers sweep with in-sweep reduction (kernel K1).
 
@@ -2121,54 +2201,37 @@ def hits_lanes(peq, targets, lo, hi, prow, trow, best, hin0: int, *,
     name = "hits_lanes"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
-    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow,
-                                best=best))
+    _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow, best=best))
     if not _on_cuda(name, peq, targets, lo, hi, prow, trow, best):
         return hits_lanes_plain(peq, targets, lo, hi, prow, trow, best, hin0)
     s1, nw = peq.shape[1], peq.shape[2]
-    n_cols = targets.shape[1]
-    dev = peq.device
-    hits = _hit_output(n, n_cols, dev)
-    if n == 0:
-        return hits
-    c = hits_core(n, n_cols, nw, hin0, core)
-    offsets = (split_offsets(split_cores(lo, hi, n_cols, c, True)[2])
-               if c < n_cols else None)
-    targets = _aligned(targets)
-    buf = _plan_buffer()
-    _launch(name, "myers_hits_lanes", dev.index, peq.data_ptr(), s1, nw,
-            targets.data_ptr(), n_cols, *_ptrs(lo, hi, prow, trow), n,
-            int(hin0), None if offsets is None else offsets.data_ptr(),
-            n * -(-n_cols // c), c, split_halo(nw), best.data_ptr(),
-            hits.data_ptr(), hits.shape[1], _scratch(nw, n, dev).data_ptr(),
-            ctypes.addressof(buf), _stream(dev))
-    _fill_plan(plan, buf)
-    return hits
+    return _hits_launch(name, "myers_hits_lanes", (peq.data_ptr(), s1, nw),
+                        nw, targets, lo, hi, prow, trow, best, hin0, core,
+                        plan, peq.device)
 
 
 def hits_bitplane(planes, pad, targets, lo, hi, prow, trow, best, hin0: int,
-                  nb: int, n_alts: int, wildcard: int):
+                  nb: int, n_alts: int, wildcard: int, *, core=None,
+                  plan=None):
     """hits_lanes with bit-plane Eq; operands as reduce_bitplane plus
-    best, output as hits_lanes."""
+    best, output as hits_lanes.  At 1-8 words the kernel runs #5's
+    split-lane plan (hits_core, cores that own whole hit words) on K3's
+    staged rows, one core a lane included (split_hits_bitplane_plain);
+    past 8 words one thread a lane.  For checks only: `core` forces the
+    core length (rounded up to 32), and a dict `plan` receives what the
+    kernel launched (sweep_scores)."""
     name = "hits_bitplane"
     _check_planes(name, planes, pad, nb, n_alts)
     _check(name, targets, "targets", 2)
-    n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow,
-                                best=best))
+    _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow, best=best))
     if not _on_cuda(name, planes, pad, targets, lo, hi, prow, trow, best):
         return hits_bitplane_plain(planes, pad, targets, lo, hi, prow, trow,
                                    best, hin0, nb, n_alts, wildcard)
     nw = pad.shape[1]
-    dev = planes.device
-    hits = _hit_output(n, targets.shape[1], dev)
-    if n == 0:
-        return hits
-    _launch(name, "myers_hits_bitplane", dev.index, planes.data_ptr(),
-            pad.data_ptr(), nw, nb, n_alts, wildcard, targets.data_ptr(),
-            targets.shape[1], *_ptrs(lo, hi, prow, trow), n, int(hin0),
-            best.data_ptr(), hits.data_ptr(), hits.shape[1],
-            _scratch(nw, n, dev).data_ptr(), _stream(dev))
-    return hits
+    return _hits_launch(name, "myers_hits_bitplane",
+                        (planes.data_ptr(), pad.data_ptr(), nw, nb, n_alts,
+                         wildcard), nw, targets, lo, hi, prow, trow, best,
+                        hin0, core, plan, planes.device)
 
 
 def _banded_common(name, peq, targets, woff, n_win, chunk, lanes: dict):
@@ -2245,9 +2308,12 @@ def shw_banded(peq, targets, woff, lo, hi, prow, trow, n_win: int,
 
 
 def shw_banded_hits(peq, targets, woff, lo, hi, prow, trow, best,
-                    n_win: int, chunk: int):
+                    n_win: int, chunk: int, *, plan=None):
     """Banded SHW hit mask: as hits_lanes over the columns where the window
-    has reached the bottom word; operands as shw_banded plus best."""
+    has reached the bottom word; operands as shw_banded plus best.  The
+    kernel runs the word-parallel band (shw_banded_hits_words_plain) where
+    band_width gives it a segment, else one thread a lane; a dict `plan`
+    receives what it launched (sweep_scores; checks only)."""
     name = "shw_banded_hits"
     n, on_cuda = _banded_common(name, peq, targets, woff, n_win, chunk,
                                 dict(lo=lo, hi=hi, prow=prow, trow=trow,
@@ -2260,9 +2326,12 @@ def shw_banded_hits(peq, targets, woff, lo, hi, prow, trow, best,
     if n == 0:
         return hits
     head, scratch = _band_head(peq, targets, woff, n_win, chunk, n)
+    buf = _plan_buffer()
     _launch(name, "myers_shw_banded_hits", dev.index, *head,
             *_ptrs(lo, hi, prow, trow), n, best.data_ptr(), hits.data_ptr(),
-            hits.shape[1], scratch.data_ptr(), _stream(dev))
+            hits.shape[1], scratch.data_ptr(), band_width(n_win, chunk),
+            ctypes.addressof(buf), _stream(dev))
+    _fill_plan(plan, buf)
     return hits
 
 

@@ -8,9 +8,10 @@ machine with the card:
     python3 smoke_on_parent.py [--seed N]
 
 The checks and plan reports of kernels the earlier commit lacks are left
-out: nw_banded's word-parallel band and the capture's word groups (their
-phase-2 checks, their plan= on the measured calls and their NEW_FORMS
-entries).  Everything else runs as chip_smoke.py does.
+out: hits_bitplane's split-lane cores and shw_banded_hits' word-parallel
+band (their phase-2 checks, check_banded_words with them, their plan= on
+the measured calls and their NEW_FORMS entries).  Everything else runs as
+chip_smoke.py does.
 """
 
 import sys
@@ -18,11 +19,14 @@ import sys
 sys.path.insert(0, ".")
 import chip_smoke as cs  # noqa: E402
 
-for name in ("check_banded_words", "check_capture_words"):
+NEW_CHECKS = ("check_banded_words", "check_hits_bitplane_split")
+NEW_PLANS = ("hits_bitplane", "shw_banded_hits")
+
+for name in NEW_CHECKS:
     skipped = lambda *a: None  # noqa: E731
     skipped.__name__ = name + "_skipped"
     setattr(cs, name, skipped)
-for name in ("nw_banded", "capture"):
+for name in NEW_PLANS:
     cs.NEW_FORMS.pop(name)
-cs.PLANNED = tuple(n for n in cs.PLANNED if n not in ("nw_banded", "capture"))
+cs.PLANNED = tuple(n for n in cs.PLANNED if n not in NEW_PLANS)
 sys.exit(cs.main())
