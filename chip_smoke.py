@@ -45,8 +45,11 @@ Phases, each of which exits non-zero on any failure:
    in forced passes, chained segments, and a 140,000-word lane in passes
    unforced against the wavefront; nw_banded's word-parallel band at
    n_win 2-16 (segments of 2-16 threads, windows sliding by 0, 1 and
-   several words, the whole profile, edge lanes), shw_banded_hits on the
-   same band cases and the one-thread ones, and the capture's word
+   several words, the whole profile, edge lanes), shw_banded and
+   shw_banded_hits on the same band cases and the one-thread ones,
+   reduce_eqstream beside hits_eqstream on the word-parallel lane (and
+   one thread a lane at one word and on an empty stream), and the
+   capture's word
    groups over lanes (NW 1-500, blocks of 8, 16 and 32 lanes, groups of
    1-8 words, the read-back form at 600 words); hits_bitplane on its
    split-lane cores over K3's staged rows (K3's operand cases, forced
@@ -119,11 +122,12 @@ Phases, each of which exits non-zero on any failure:
    time a call by torch.profiler and the device's idle share) and the
    device time of their launches alone (launch_ms).  The resumable reduce
    has an entry at each hin0; its calls, the score stream's and the
-   hit-word sweeps' give their plan as the kernel reports it (form, blocks
-   and threads, and the cores and core, the segment width or the warp
-   groups a lane, ring and passes); hits_eqstream must run the word lane at
-   width 4 on phase 18, nw_banded the word-parallel band at width 16 on
-   phases 8 and 12, shw_banded_hits the band on phase 9, hits_bitplane its
+   hit-word sweeps', the banded and the eq-stream reduces' give their plan
+   as the kernel reports it (form, blocks and threads, and the cores and
+   core, the segment width or the warp groups a lane, ring and passes); hits_eqstream must run the word lane at
+   width 4 on phase 18, reduce_eqstream on phases 18 and 19, nw_banded the
+   word-parallel band at width 16 on phases 8 and 12, shw_banded and
+   shw_banded_hits the band on phase 9, hits_bitplane its
    split-lane cores on phase 10, and capture its word groups over lanes on
    phases 11 and 12 (NEW_FORMS).
 14-17. Long single pairs through nw_distance_long, shw_best_long,
@@ -1161,30 +1165,44 @@ def check_split_hits(rng, dev, ck):
 
 
 def check_word_hits(rng, dev, ck):
-    """hits_eqstream on the word-parallel lane == its plain version: NW 2-8
-    (segments of 2, 4 and 8 threads), both hin0, 70 lanes with the edge
-    lanes, rows of 197 columns (a hit word straddling two tiles) and at NW
-    3 and 8 also of 101, 5 and 2 columns (rows shorter than the words),
-    best from the plain reduce with every 5th lane at -(1 << 30); the
-    schedule's plain emulation beside one case.  The form and segment width
-    each call reports are checked; the plain versions run on the host."""
+    """reduce_eqstream (#10) and hits_eqstream (#11) on the word-parallel
+    lane == their plain versions: NW 2-8 (segments of 2, 4 and 8 threads),
+    both hin0, 70 lanes with the edge lanes (hi past the row, lo past hi,
+    lo a multiple of 32) and a profile row matching nothing (its lanes'
+    bests tie over columns of different threads), rows of 197 columns (a hit word straddling two
+    tiles) and at NW 3 and 8 also of 101, 5 and 2 columns (rows shorter
+    than the words), the hits' best from the plain reduce with every 5th
+    lane at -(1 << 30); the schedule's plain emulations beside one case;
+    and the old forms, one thread a lane, at one word and on an empty
+    stream (the reduce still writes its outputs).  The form and segment
+    width each call reports are checked; the plain versions run on the
+    host."""
+    import torch
     n = 70
     for nw in range(2, 9):
         for T in ((197, 101, 5, 2) if nw in (3, 8) else (197,)):
             peq, targets, lo, hi, prow, trow = lane_operands(
                 rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+            peq[0] = 0  # a row matching nothing: best ties across threads
             edge_lanes(lo, hi, T)
             lo[5::7] -= lo[5::7] % 32         # lo a multiple of 32
             eq_t = ck.eqstream_gather(peq[prow.long()],
                                       targets[trow.long()]).permute(1, 2, 0)
             width = 2 if nw <= 2 else 4 if nw <= 4 else 8
             for hin0 in (0, 1):
-                best = on_host(ck.reduce_eqstream_plain, eq_t, lo, hi,
-                               hin0)[0].clone()
+                tag = f"nw={nw} T={T} hin0={hin0}"
+                reduced = on_host(ck.reduce_eqstream_plain, eq_t, lo, hi,
+                                  hin0)
+                plan = {}
+                check_equal(f"reduce_eqstream words {tag}",
+                            ck.reduce_eqstream(eq_t, lo, hi, hin0,
+                                               plan=plan), reduced)
+                check_form(f"reduce_eqstream {tag}", plan, "words",
+                           width=width)
+                best = reduced[0].clone()
                 best[::5] = -(1 << 30)
                 want = on_host(ck.hits_eqstream_plain, eq_t, lo, hi, best,
                                hin0)
-                tag = f"nw={nw} T={T} hin0={hin0}"
                 plan = {}
                 check_equal(f"hits_eqstream words {tag}",
                             [ck.hits_eqstream(eq_t, lo, hi, best, hin0,
@@ -1192,9 +1210,39 @@ def check_word_hits(rng, dev, ck):
                 check_form(f"hits_eqstream {tag}", plan, "words",
                            width=width)
                 if (nw, T, hin0) == (3, 197, 1):
+                    check_equal(f"reduce_eqstream_words_plain {tag}",
+                                on_host(ck.reduce_eqstream_words_plain, eq_t,
+                                        lo, hi, hin0), reduced)
                     check_equal(f"hits_words_plain {tag}",
                                 [on_host(ck.hits_words_plain, eq_t, lo, hi,
                                          best, hin0)], [want])
+    # The old forms: one word (a thread a lane) and an empty stream.
+    peq, targets, lo, hi, prow, trow = lane_operands(
+        rng, dev, n_lanes=n, n_rows=6, T=197, s1=5, nw=1)
+    edge_lanes(lo, hi, 197)
+    streams = (ck.eqstream_gather(peq[prow.long()], targets[trow.long()])
+               .permute(1, 2, 0), torch.zeros((0, 4, n), dtype=torch.int32,
+                                             device=dev))
+    for eq_t in streams:
+        T, nw = eq_t.shape[:2]
+        for hin0 in (0, 1):
+            tag = f"nw={nw} T={T} hin0={hin0}"
+            reduced = on_host(ck.reduce_eqstream_plain, eq_t, lo, hi, hin0)
+            plan = {}
+            check_equal(f"reduce_eqstream thread {tag}",
+                        ck.reduce_eqstream(eq_t, lo, hi, hin0, plan=plan),
+                        reduced)
+            check_form(f"reduce_eqstream {tag}", plan, "thread")
+            if T == 0:
+                continue
+            best = hit_targets(rng, reduced)
+            plan = {}
+            check_equal(f"hits_eqstream thread {tag}",
+                        [ck.hits_eqstream(eq_t, lo, hi, best, hin0,
+                                          plan=plan)],
+                        [on_host(ck.hits_eqstream_plain, eq_t, lo, hi, best,
+                                 hin0)])
+            check_form(f"hits_eqstream {tag}", plan, "thread")
 
 
 # (n_win, nw, chunk, T, woff[0], slides at the chunk boundaries, cycled):
@@ -1215,9 +1263,11 @@ def check_banded_words(rng, dev, ck):
     windows equal to the whole profile, rows ragged against the chunk and
     the tiles, 300 lanes with the edge lanes (hi = 0, hi past the row, hi -
     1 in a chunk whose window has not reached the bottom word, hi - 1 in
-    the last chunk): the raw scores, values above any k and _BIG included;
-    shw_banded_hits on the same bands (check_band_hits); the schedules'
-    plain emulations beside the first case; and the one-thread form where
+    the last chunk) and a profile row matching nothing (its lanes' bests
+    tie over columns of different threads): the raw scores, values above
+    any k and _BIG included; shw_banded and shw_banded_hits on the same
+    bands (check_band_hits); the schedules' plain emulations beside the
+    first case; and the one-thread form where
     the band cannot run (n_win 1, chunks of 8, 24 and 40 columns, n_win
     20), for both.  The form and segment width each call reports are
     checked; the plain versions run on the host."""
@@ -1226,6 +1276,7 @@ def check_banded_words(rng, dev, ck):
     for i, (n_win, nw, chunk, T, first, slides) in enumerate(BAND_CASES):
         peq, targets, _, hi, prow, trow = lane_operands(
             rng, dev, n_lanes=n, n_rows=6, T=T, s1=5, nw=nw)
+        peq[0] = 0      # a row matching nothing: best ties across threads
         n_chunks = -(-T // chunk)
         steps = [slides[j % len(slides)] for j in range(n_chunks - 1)]
         woff = np.minimum(first + np.concatenate([[0], np.cumsum(steps)]),
@@ -1277,12 +1328,13 @@ def check_banded_words(rng, dev, ck):
 
 
 def check_band_hits(rng, ck, band, tag, form, emulate=False, **want_plan):
-    """shw_banded_hits on nw_banded's operands `band` (peq, targets, woff,
-    hi, prow, trow, n_win, chunk) with lo drawn beside hi (lo past hi on
-    every 7th lane, a multiple of 32 on others), best the card's banded
-    reduce (#7) with every 5th lane at -(1 << 30), == its plain version
-    (on the host), the launch in `form` (want_plan its figures); with
-    emulate the band's plain emulation beside it."""
+    """shw_banded (#7) and shw_banded_hits (#8) on nw_banded's operands
+    `band` (peq, targets, woff, hi, prow, trow, n_win, chunk) with lo drawn
+    beside hi (lo past hi on every 7th lane, a multiple of 32 on others),
+    each == its plain version (on the host), the launches in `form`
+    (want_plan their figures); the hits' best the card's banded reduce with
+    every 5th lane at -(1 << 30); with emulate the band's plain emulations
+    beside them."""
     import torch
     peq, targets, woff, hi, prow, trow, n_win, chunk = band
     T = targets.shape[1]
@@ -1292,7 +1344,16 @@ def check_band_hits(rng, ck, band, tag, form, emulate=False, **want_plan):
     lo_h[5::7] -= lo_h[5::7] % 32
     lo = torch.from_numpy(lo_h.astype(np.int32)).to(hi.device)
     lanes = (peq, targets, woff, lo, hi, prow, trow)
-    best = ck.shw_banded(*lanes, n_win, chunk)[0].clone()
+    reduced = on_host(ck.shw_banded_plain, *lanes, n_win, chunk)
+    plan = {}
+    got = ck.shw_banded(*lanes, n_win, chunk, plan=plan)
+    check_equal(f"shw_banded {form} {tag}", got, reduced)
+    check_form(f"shw_banded {tag}", plan, form, **want_plan)
+    if emulate:
+        check_equal(f"shw_banded_words_plain {tag}",
+                    on_host(ck.shw_banded_words_plain, *lanes, n_win, chunk),
+                    reduced)
+    best = got[0].clone()
     best[::5] = -(1 << 30)
     want = on_host(ck.shw_banded_hits_plain, *lanes, best, n_win, chunk)
     plan = {}
@@ -1835,8 +1896,9 @@ def profile_call(fn, top: int = 8, groups=None) -> dict:
 
 # The forms the redesigned kernels must report on their paths (phase 7's
 # hits_lanes: several cores a lane; phase 10's hits_bitplane: the split
-# kernel, one core a lane of whole hit words; phase 18's hits_eqstream:
-# segments of 4 threads; phases 8 and 12's nw_banded and phase 9's
+# kernel, one core a lane of whole hit words; phase 18's hits_eqstream and
+# phases 18 and 19's reduce_eqstream: the word-parallel lane, segments of 4
+# threads; phases 8 and 12's nw_banded and phase 9's shw_banded and
 # shw_banded_hits: the word-parallel band, 16 threads a lane at their
 # 12-16-word windows; phases 11 and 12's capture: word groups over 8, 16 or
 # 32 lanes a block).
@@ -1844,15 +1906,17 @@ NEW_FORMS = {"hits_lanes": ("cores", lambda p: p.get("cores", 0) > 1),
              "hits_bitplane": ("cores",
                                lambda p: p.get("core", 0) % 32 == 0),
              "hits_eqstream": ("words", lambda p: p.get("width") == 4),
+             "reduce_eqstream": ("words", lambda p: p.get("width") == 4),
              "nw_banded": ("band", lambda p: p.get("width") == 16),
+             "shw_banded": ("band", lambda p: p.get("width") == 16),
              "shw_banded_hits": ("band", lambda p: p.get("width") == 16),
              "capture": ("lane_words",
                          lambda p: p.get("lanes") in (8, 16, 32))}
 
 # The wrappers that take plan= (their C entries report what they launched).
 PLANNED = ("reduce_resume", "sweep_scores", "sweep_scores_resume",
-           "hits_lanes", "hits_bitplane", "hits_eqstream", "nw_banded",
-           "shw_banded_hits", "capture")
+           "hits_lanes", "hits_bitplane", "hits_eqstream", "reduce_eqstream",
+           "nw_banded", "shw_banded", "shw_banded_hits", "capture")
 
 # The kernels whose calls phase 13 also traces, with substrings of their
 # CUDA kernels' names (the traced device time sums the kernels that hold
@@ -1862,7 +1926,7 @@ TRACED = {
     "hits_lanes": ("hits_lanes",),
     "hits_bitplane": ("hits_bitplane",),
     "nw_banded": ("nw_banded",),
-    "shw_banded": ("shw_banded_kernel",),
+    "shw_banded": ("shw_banded_kernel", "shw_banded_words_kernel"),
     "shw_banded_hits": ("shw_banded_hits",),
     "capture": ("capture_kernel", "capture_words_kernel"),
     "reduce_eqstream": ("reduce_eqstream",),

@@ -52,7 +52,7 @@ SIGNATURES = {
     "myers_nw_banded": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P,
                         _I, _P, _P, _I, _P, _P],
     "myers_shw_banded": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P,
-                         _P, _I, _P, _P, _P, _P, _P],
+                         _P, _I, _P, _P, _P, _P, _I, _P, _P],
     "myers_shw_banded_hits": [_I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P,
                               _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
     "myers_capture": [_I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
@@ -67,7 +67,7 @@ SIGNATURES = {
     "myers_hw_adaptive": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "myers_reduce_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
-                              _P, _P, _P],
+                              _P, _P, _P, _P],
     "myers_hits_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _P,
                             _P, _P],
     "myers_wavefront": [_I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -7,8 +7,8 @@
 // lane in K1, K2, K3, myers_hits_lanes and myers_hits_bitplane at 1-8
 // words; a block, in the wave form below; a segment of 2-8 threads in the
 // word-parallel lane and of 2-16 in the word-parallel band of
-// myers_nw_banded and myers_shw_banded_hits; warp groups for the
-// score stream's long lanes; a thread a word of 8-32 lanes in
+// myers_nw_banded, myers_shw_banded and myers_shw_banded_hits; warp groups
+// for the score stream's long lanes; a thread a word of 8-32 lanes in
 // myers_capture's word groups; a block per 1,024-lane tile for
 // myers_hw_adaptive).  Each replaces a kernel of
 // edlib_tpu/ops/pallas_kernel.py:
@@ -39,7 +39,9 @@
 //   myers_nw_banded        _nw_banded_kernel (:961, pallas_call :1066);
 //                          the word-parallel band at window widths 2-16
 //                          (below).
-//   myers_shw_banded       _shw_banded_kernel (:1091, pallas_call :1215).
+//   myers_shw_banded       _shw_banded_kernel (:1091, pallas_call :1215);
+//                          the word-parallel band at window widths 2-16,
+//                          as myers_nw_banded.
 //   myers_shw_banded_hits  _shw_banded_hits_kernel (:1243, pallas_call
 //                          :1348); the word-parallel band at window
 //                          widths 2-16, as myers_nw_banded.
@@ -57,7 +59,8 @@
 //                          (below).
 //   myers_reduce_eqstream  _reduce_kernel with eq_stream=True, launched by
 //                          _sweep_reduce_eqstream_call (:1851, pallas_call
-//                          :1869): Eq words pre-gathered per column.
+//                          :1869): Eq words pre-gathered per column.  At
+//                          2-8 words the word-parallel lane.
 //   myers_hits_eqstream    _hits_kernel with eq_stream=True, launched by
 //                          _sweep_hits_eqstream_call (:1891, pallas_call
 //                          :1905).  At 2-8 words the word-parallel lane.
@@ -152,16 +155,16 @@
 //
 // Where a lane cannot be cut into column cores (the resumable reduce at
 // hin0 = 1, NW and SHW being prefix-anchored; the score stream, which
-// writes every column; myers_hits_eqstream, whose lanes are shorter than
+// writes every column; the eq-stream kernels, whose lanes are shorter than
 // a core's four halos) and has 2-8 words, its words run on a segment of
 // threads of one warp, each a tile of 16 columns behind the one above, the
 // word-parallel lane (below): a tile's carries go down in one shuffle, and a
 // column's chain is the word update's Pv recurrence.  Banded NW's window
 // of 2-16 words runs the same way on the word-parallel band, each
 // absolute word a tile behind the one above so that the words keep their
-// lag as the window slides, and banded SHW's hit words on the same band;
-// the capture runs each word of a block's lanes
-// on a group of threads, a tile behind the word above.
+// lag as the window slides, and banded SHW's reduce and hit words on the
+// same band; the capture runs each word of a block's lanes on a group of
+// threads, a tile behind the word above.
 //
 // Semantics are the TPU kernels' exactly:
 //   score starts at NW*32 (the padded bottom cell of column -1), hin of the
@@ -836,6 +839,8 @@ __device__ __forceinline__ StreamEq stream_eq(const uint32_t* eq, int nw,
   return StreamEq{eq + lane, (size_t)a.n_lanes, nw, nullptr};
 }
 
+// #10 one thread a lane at 1 word, past 8 (scratch, or the wave form) and
+// on an empty stream; 2-8 words take reduce_eqstream_words_kernel.
 template <int NW>
 __global__ void __launch_bounds__(NW == 0 ? kWaveThreads : kThreads)
 reduce_eqstream_kernel(const uint32_t* __restrict__ eq, int nw, LaneArgs a) {
@@ -874,6 +879,8 @@ nw_banded_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
   a.last[lane] = r.last;
 }
 
+// #7 one thread a lane where band_width gives no segment; else
+// shw_banded_words_kernel.
 template <int NWIN>
 __global__ void __launch_bounds__(kThreads)
 shw_banded_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
@@ -1665,6 +1672,34 @@ hits_eqstream_words_kernel(const uint32_t* __restrict__ eq, LaneArgs a) {
   sweep_words<NW>(src, a.n_cols, a.hin_pos, w, active, pv, mv, score, v);
 }
 
+// #10 (myers_reduce_eqstream) at 2-8 words on the word-parallel lane:
+// hits_eqstream_words_kernel's lanes and stream with the window reduction
+// in place of its hit words.  Every lane sweeps all n_cols columns, so
+// WindowReduction's take masks the columns c >= hi that the one-thread
+// kernel never sweeps, and last is the score at hi - 1 only (kBig past the
+// row).  Every thread of the warp merges its segment's partial reductions
+// (merge_words: the least best, the first and last columns reaching it);
+// the first thread of an active lane stores the four outputs.
+template <int NW>
+__global__ void __launch_bounds__(kSplitMaxThreads)
+reduce_eqstream_words_kernel(const uint32_t* __restrict__ eq, LaneArgs a) {
+  constexpr int kWidth = word_threads<NW>();
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = t / kWidth < a.n_lanes;
+  const int lane = active ? static_cast<int>(t / kWidth) : a.n_lanes - 1;
+  const int w = threadIdx.x % kWidth;
+  const StreamSource src{eq + (size_t)min(w, NW - 1) * a.n_lanes + lane,
+                         (size_t)NW * a.n_lanes, a.n_cols - 1};
+  WindowReduction r;
+  r.lo = a.lo[lane];
+  r.hi = a.hi[lane];
+  uint32_t pv = ~0u, mv = 0u;
+  int32_t score = NW * 32;
+  sweep_words<NW>(src, a.n_cols, a.hin_pos, w, active, pv, mv, score, r);
+  merge_words<kWidth>(r);
+  if (active && w == 0) store(a, lane, r);
+}
+
 // ---------------------------------------------------------------------------
 // #6 (myers_nw_banded) as a word-parallel band (ops/cuda_kernel.py
 // nw_banded_words_plain is the same schedule in PyTorch).  NW is
@@ -1703,13 +1738,14 @@ hits_eqstream_words_kernel(const uint32_t* __restrict__ eq, LaneArgs a) {
 // segment brings a tile's symbols into its ring in shared memory (cp.async)
 // the step before the tile starts, so its words read them there.
 //
-// #8 (myers_shw_banded_hits) runs the same band with WordHits in place
-// of BandLast (ops/cuda_kernel.py shw_banded_hits_words_plain).  The
-// one-thread kernel (sweep_banded) keeps n_win = 1, a chunk that is not a
-// whole number of tiles and n_win past kBandMaxWidth; the wrapper
-// (cuda_kernel.band_width) picks the form.  #7 keeps it too: sweep_band
-// would take its visitor (Reduction's take, merged as merge_words does)
-// as sweep_words does.
+// #7 (myers_shw_banded) and #8 (myers_shw_banded_hits) run the same band
+// with WindowReduction (its select-only take, the segment's partial
+// reductions merged by merge_words as the word-parallel lane's are) and
+// WordHits in place of BandLast (ops/cuda_kernel.py
+// shw_banded_words_plain, shw_banded_hits_words_plain).  The one-thread
+// kernels (sweep_banded) keep n_win = 1, a chunk that is not a whole
+// number of tiles and n_win past kBandMaxWidth; the wrapper
+// (cuda_kernel.band_width) picks the form.
 constexpr int kBandMaxWidth = 16;
 
 __host__ __device__ constexpr int band_width(int n_win) {
@@ -1971,6 +2007,34 @@ nw_banded_words_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
   band_lane<W>(peq, s1, band, a, sp, p, slot_row, dyn, lane, r);
   const int32_t last = merge_last<W>(r.last);
   if (p.active && threadIdx.x % W == 0) a.last[lane] = last;
+}
+
+// #7 on the word-parallel band: (best, pfirst, plast) over the live
+// columns in [lo, hi).  sweep_band visits every column of the row, so
+// WindowReduction's take masks the columns c >= hi that sweep_banded's end
+// = min(hi, n_cols) leaves out.  Every thread of the warp merges its
+// segment's partial reductions (merge_words); the first thread of an
+// active lane stores best, pfirst and plast only: launch_banded points
+// kind 1's last at best.
+template <int W>
+__global__ void __launch_bounds__(kSplitMaxThreads, 4)
+shw_banded_words_kernel(const uint32_t* __restrict__ peq, int s1, Band band,
+                        LaneArgs a, SplitArgs sp) {
+  extern __shared__ __align__(16) uint32_t dyn[];  // rings, profile rows
+  __shared__ int slot_row[kSplitMaxThreads];
+  SplitPlace p;
+  if (!split_place(a, sp, p, slot_row)) return;
+  const int lane = p.active ? p.lane : a.n_lanes - 1;
+  WindowReduction r;
+  r.lo = a.lo[lane];
+  r.hi = a.hi[lane];
+  band_lane<W>(peq, s1, band, a, sp, p, slot_row, dyn, lane, r);
+  merge_words<W>(r);
+  if (p.active && threadIdx.x % W == 0) {
+    a.best[lane] = r.best;
+    a.pfirst[lane] = r.pfirst;
+    a.plast[lane] = r.plast;
+  }
 }
 
 // #8 on the word-parallel band: the hit words of the live columns in [lo,
@@ -2892,13 +2956,13 @@ struct LaunchPlan {
   }
 };
 
-// #6 (kind 0, launch_banded's kinds) and #8 (kind 2) on the
-// word-parallel band in W = width threads a lane, blocks by split_config
-// (words_config's shape), the block's rows staged.
+// #6, #7 and #8 (launch_banded's kinds 0, 1 and 2) on the word-parallel
+// band in W = width threads a lane, blocks by split_config (words_config's
+// shape), the block's rows staged.
 int launch_band_words(int kind, int device, const uint32_t* peq, int s1,
                       const Band& band, const LaneArgs& a, int width,
                       void* plan, cudaStream_t st) {
-  if ((kind != 0 && kind != 2) || width != band_width(band.n_win) ||
+  if (kind < 0 || kind > 2 || width != band_width(band.n_win) ||
       band.n_win < 2 || band.n_win > kBandMaxWidth ||
       band.chunk % kWordTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2907,19 +2971,18 @@ int launch_band_words(int kind, int device, const uint32_t* peq, int s1,
                    s1 * band.nw, kPeqSmemWords, 0, width,
                    band_ring_words(width));
   const SplitArgs sp{nullptr, 0, 0, cfg.peq_words, width};
+  void (*kernel)(const uint32_t*, int, Band, LaneArgs, SplitArgs) = nullptr;
   switch (width) {
-#define LAUNCH(N)                                                           \
-  case N:                                                                   \
-    if (kind == 0)                                                          \
-      nw_banded_words_kernel<N><<<cfg.blocks, cfg.threads, cfg.smem, st>>>( \
-          peq, s1, band, a, sp);                                            \
-    else                                                                    \
-      shw_banded_hits_words_kernel<N>                                       \
-          <<<cfg.blocks, cfg.threads, cfg.smem, st>>>(peq, s1, band, a, sp); \
+#define LAUNCH(N)                                                \
+  case N:                                                        \
+    kernel = kind == 0   ? nw_banded_words_kernel<N>             \
+             : kind == 1 ? shw_banded_words_kernel<N>            \
+                         : shw_banded_hits_words_kernel<N>;      \
     break;
     LAUNCH(2) LAUNCH(4) LAUNCH(8) LAUNCH(16)
 #undef LAUNCH
   }
+  kernel<<<cfg.blocks, cfg.threads, cfg.smem, st>>>(peq, s1, band, a, sp);
   LaunchPlan lp;
   lp.form = kFormBand;
   lp.blocks = cfg.blocks;
@@ -2931,9 +2994,9 @@ int launch_band_words(int kind, int device, const uint32_t* peq, int s1,
 
 // The three banded kernels' common launch.  kind 0: NW (out0 = last);
 // 1: SHW reduce (out0..2 = best, pfirst, plast); 2: SHW hits.  width: the
-// word-parallel band's threads a lane (kinds 0 and 2, band_width(n_win)
-// for n_win 2-kBandMaxWidth and a chunk of whole tiles), or 0: a thread a
-// lane.  plan int64 (kPlanFields,), or null: what the call launched.
+// word-parallel band's threads a lane (band_width(n_win) for n_win
+// 2-kBandMaxWidth and a chunk of whole tiles), or 0: a thread a lane.
+// plan int64 (kPlanFields,), or null: what the call launched.
 int launch_banded(int kind, int device, const void* peq, int s1, int nw,
                   const void* targets, int n_cols, const void* woff,
                   int n_chunks, int chunk, int n_win, const void* lo,
@@ -3141,6 +3204,47 @@ int launch_score_groups(int device, ScoreGroupArgs g, const ScorePlan& q,
     case 7: LAUNCH(7); break;            \
     default: LAUNCH(8); break;           \
   }
+
+// The eq-stream kernels' launch (#10 the reduce, #11 with hits): at 2-8
+// words and n_cols > 0 the word-parallel lane, word_width(nw) threads a
+// lane in blocks of fill_threads; else one thread a lane or the wave form.
+// plan as LaunchPlan.
+int launch_eqstream(bool hits, int device, const uint32_t* q, int nw,
+                    LaneArgs& a, void* plan, cudaStream_t st) {
+  LaunchPlan lp;
+  if (nw >= 2 && nw <= 8 && a.n_cols > 0) {
+    const long long n_threads = (long long)a.n_lanes * word_width(nw);
+    const int t = fill_threads(device, n_threads);
+    lp.form = kFormWords;
+    lp.blocks = (n_threads + t - 1) / t;
+    lp.threads = t;
+    lp.width = word_width(nw);
+    lp.write(plan);
+    const unsigned blocks = static_cast<unsigned>(lp.blocks);
+#define LAUNCH(N)                                                  \
+  if (hits)                                                        \
+    hits_eqstream_words_kernel<N><<<blocks, t, 0, st>>>(q, a);     \
+  else                                                             \
+    reduce_eqstream_words_kernel<N><<<blocks, t, 0, st>>>(q, a)
+    MYERS_DISPATCH_WORDS(nw, LAUNCH)
+#undef LAUNCH
+    return static_cast<int>(cudaGetLastError());
+  }
+  LaneArgs probe = a;
+  const Config cfg = lane_config(nw > 8 ? 0 : nw, nw, probe);
+  lp.form = probe.wave ? kFormWave : kFormThread;
+  lp.blocks = cfg.blocks;
+  lp.threads = cfg.threads;
+  lp.write(plan);
+#define LAUNCH(N)                                        \
+  if (hits)                                              \
+    LANE_LAUNCH(N, hits_eqstream_kernel, q, nw, a);      \
+  else                                                   \
+    LANE_LAUNCH(N, reduce_eqstream_kernel, q, nw, a)
+  MYERS_DISPATCH_NW(nw, LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -3387,11 +3491,10 @@ int myers_hits_bitplane(int device, const void* planes, const void* pad,
 
 // The banded kernels: peq, targets, lo, hi, prow, trow as
 // myers_reduce_lanes (hin is +1); woff int32 (n_chunks,) nondecreasing in
-// [0, nw - n_win], n_chunks * chunk >= n_cols.  width (myers_nw_banded,
-// myers_shw_banded_hits): the word-parallel band's threads a lane
-// (band_width(n_win), for n_win 2-kBandMaxWidth and a chunk of whole
-// tiles), or 0: a thread a lane.  plan int64 (kPlanFields,), or null: what
-// the call launched.
+// [0, nw - n_win], n_chunks * chunk >= n_cols.  width: the word-parallel
+// band's threads a lane (band_width(n_win), for n_win 2-kBandMaxWidth and
+// a chunk of whole tiles), or 0: a thread a lane.  plan int64
+// (kPlanFields,), or null: what the call launched.
 //
 // myers_nw_banded: last int32 (n_lanes,), the score at hi-1 (no lo).
 int myers_nw_banded(int device, const void* peq, int s1, int nw,
@@ -3406,18 +3509,17 @@ int myers_nw_banded(int device, const void* peq, int s1, int nw,
                        scratch, width, plan, stream);
 }
 
-// myers_shw_banded: best, pfirst, plast int32 (n_lanes,) over [lo, hi); a
-// thread a lane.
+// myers_shw_banded: best, pfirst, plast int32 (n_lanes,) over [lo, hi).
 int myers_shw_banded(int device, const void* peq, int s1, int nw,
                      const void* targets, int n_cols, const void* woff,
                      int n_chunks, int chunk, int n_win, const void* lo,
                      const void* hi, const void* prow, const void* trow,
                      int n_lanes, void* best, void* pfirst, void* plast,
-                     void* scratch, void* stream) {
+                     void* scratch, int width, void* plan, void* stream) {
   return launch_banded(1, device, peq, s1, nw, targets, n_cols, woff,
                        n_chunks, chunk, n_win, lo, hi, prow, trow, n_lanes,
-                       best, pfirst, plast, nullptr, nullptr, 0, scratch, 0,
-                       nullptr, stream);
+                       best, pfirst, plast, nullptr, nullptr, 0, scratch,
+                       width, plan, stream);
 }
 
 // myers_shw_banded_hits: want and hits as myers_hits_lanes, over the
@@ -3668,28 +3770,27 @@ int myers_reduce_resume(int device, const void* peq, int s1, int nw,
 
 // eq uint32 (n_cols, nw, n_lanes): lane b's Eq word w of column c at
 // (c * nw + w) * n_lanes + b; lo, hi and the outputs as myers_reduce_lanes.
+// At 2-8 words and n_cols > 0 the word-parallel lane
+// (reduce_eqstream_words_kernel), else one thread a lane or the wave form.
+// plan int64 (kPlanFields,), or null: what the call launched (LaunchPlan).
 int myers_reduce_eqstream(int device, const void* eq, int nw, int n_cols,
                           const void* lo, const void* hi, int n_lanes,
                           int hin0, void* best, void* pfirst, void* plast,
-                          void* last, void* scratch, void* stream) {
+                          void* last, void* scratch, void* plan,
+                          void* stream) {
   if (n_lanes <= 0) return 0;
   if (nw < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   LaneArgs a = lane_args(nullptr, n_cols, lo, hi, nullptr, nullptr, n_lanes,
                          hin0, scratch);
   set_reduction(a, best, pfirst, plast, last);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t* q = static_cast<const uint32_t*>(eq);
-#define LAUNCH(N) LANE_LAUNCH(N, reduce_eqstream_kernel, q, nw, a)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
-#undef LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return launch_eqstream(false, device, static_cast<const uint32_t*>(eq), nw,
+                         a, plan, static_cast<cudaStream_t>(stream));
 }
 
 // eq, lo, hi as myers_reduce_eqstream; want and hits as myers_hits_lanes.
 // At 2-8 words the word-parallel lane (hits_eqstream_words_kernel), else one
-// thread a lane or the wave form.  plan int64 (kPlanFields,), or null: what
-// the call launched (LaunchPlan).
+// thread a lane or the wave form.  plan as myers_reduce_eqstream.
 int myers_hits_eqstream(int device, const void* eq, int nw, int n_cols,
                         const void* lo, const void* hi, int n_lanes, int hin0,
                         const void* want, void* hits, int n_out,
@@ -3700,34 +3801,8 @@ int myers_hits_eqstream(int device, const void* eq, int nw, int n_cols,
   LaneArgs a = lane_args(nullptr, n_cols, lo, hi, nullptr, nullptr, n_lanes,
                          hin0, scratch);
   set_hits(a, want, hits, n_out);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t* q = static_cast<const uint32_t*>(eq);
-  LaunchPlan lp;
-  if (nw >= 2 && nw <= 8) {
-    const long long n_threads = (long long)n_lanes * word_width(nw);
-    const int t = fill_threads(device, n_threads);
-    lp.form = kFormWords;
-    lp.blocks = (n_threads + t - 1) / t;
-    lp.threads = t;
-    lp.width = word_width(nw);
-    lp.write(plan);
-#define LAUNCH(N)                                                         \
-  hits_eqstream_words_kernel<N><<<static_cast<unsigned>(lp.blocks), t, 0, \
-                                  st>>>(q, a)
-    MYERS_DISPATCH_WORDS(nw, LAUNCH)
-#undef LAUNCH
-    return static_cast<int>(cudaGetLastError());
-  }
-  LaneArgs probe = a;
-  const Config cfg = lane_config(nw > 8 ? 0 : nw, nw, probe);
-  lp.form = probe.wave ? kFormWave : kFormThread;
-  lp.blocks = cfg.blocks;
-  lp.threads = cfg.threads;
-  lp.write(plan);
-#define LAUNCH(N) LANE_LAUNCH(N, hits_eqstream_kernel, q, nw, a)
-  MYERS_DISPATCH_NW(nw, LAUNCH)
-#undef LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return launch_eqstream(true, device, static_cast<const uint32_t*>(eq), nw,
+                         a, plan, static_cast<cudaStream_t>(stream));
 }
 
 // The value-adaptive banded reduce: peq, targets, lo, hi, prow, trow as

@@ -19,7 +19,7 @@ one of them:
   nw_banded        NW score at hi-1 inside a sliding word window
                    (_nw_banded_kernel);
   shw_banded       banded SHW (best, pfirst, plast) (_shw_banded_kernel);
-  shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel; on
+  shw_banded_hits  banded SHW hit mask (_shw_banded_hits_kernel; both on
                    nw_banded's word-parallel band where band_width
                    allows);
   capture          every column's (Pv, Mv[, Ph, Mh]) words, stored
@@ -31,7 +31,8 @@ one of them:
   reduce_eqstream  reduce_lanes with each column's Eq words gathered before
                    the launch (eqstream_gather; _reduce_kernel, eq-stream
                    form), for dense equalities past the per-lane cap;
-  hits_eqstream    hits_lanes on the same stream (_hits_kernel, eq-stream);
+  hits_eqstream    hits_lanes on the same stream (_hits_kernel, eq-stream;
+                   both at 2-8 words the word-parallel lane);
   reduce_resume    reduce_lanes over one whole target segment from a
                    carried (Pv, Mv, score), the exit state written out
                    (_reduce_kernel, resume form), for the sharded pipelines
@@ -1667,10 +1668,18 @@ def word_lanes_plain(peq, targets, prow, trow, hin0: int, pv0=None,
     return (scores.t(),) + tuple(state)
 
 
+def _stream_word_tiles(eq_t, hin0: int):
+    """_word_tiles with Eq from a gathered stream int32 (T, NW, B): every
+    lane over all T columns from the fresh state, as the eq-stream kernels'
+    word-parallel lane runs it."""
+    T, nw, B = eq_t.shape
+    return _word_tiles(lambda c, wr: eq_t[c, wr].t(), B, T, nw, eq_t.device,
+                       hin0)
+
+
 def hits_words_plain(eq_t, lo, hi, best, hin0: int):
     """hits_eqstream on the word-parallel lane's schedule in plain PyTorch
-    (_word_tiles, Eq from the stream, every lane over all T columns from
-    the fresh state) with the kernel's hit visitor: thread w of a lane's
+    (_stream_word_tiles) with the kernel's hit visitor: thread w of a lane's
     segment marks the columns cb + k, k = w (mod width), of each bottom tile
     that lie in [lo, min(hi, T)) and equal best; after a tile that ends a
     hit word or the row the segment's bits are OR-ed and the word stored
@@ -1683,8 +1692,7 @@ def hits_words_plain(eq_t, lo, hi, best, hin0: int):
     P = word_threads(nw)
     end = hi.clamp(max=T)
     masks = torch.zeros((B, P), dtype=_I32, device=dev)
-    for cb, tile in _word_tiles(lambda c, wr: eq_t[c, wr].t(), B, T, nw,
-                                dev, hin0):
+    for cb, tile in _stream_word_tiles(eq_t, hin0):
         for k in range(WORD_TILE):
             c = cb + k
             if 0 <= c < T:
@@ -1698,6 +1706,18 @@ def hits_words_plain(eq_t, lo, hi, best, hin0: int):
             out[:, g] = torch.where(m != 0, m, out[:, g])
             masks.zero_()
     return out
+
+
+def reduce_eqstream_words_plain(eq_t, lo, hi, hin0: int):
+    """reduce_eqstream on the word-parallel lane's schedule in plain PyTorch
+    (_stream_word_tiles and the window reduction of its bottom tiles'
+    scores: columns c >= hi are swept but not taken, last is the score at
+    hi - 1 only).  Operands and outputs as reduce_eqstream."""
+    T = eq_t.shape[0]
+    cols = ((cb + k, tile[:, k], True)
+            for cb, tile in _stream_word_tiles(eq_t, hin0)
+            for k in range(WORD_TILE) if 0 <= cb + k < T)
+    return _reduction(cols, lo, hi)
 
 
 def reduce_resume_words_plain(peq, targets, lo, hi, prow, trow, pv0, mv0, s0,
@@ -1949,6 +1969,16 @@ def nw_banded_words_plain(peq, targets, woff, hi, prow, trow, n_win: int,
     cols = _band_words_columns("nw_banded_words_plain", peq, targets, woff,
                                prow, trow, n_win, chunk)
     return _reduction(cols, torch.zeros_like(hi), hi)[3]
+
+
+def shw_banded_words_plain(peq, targets, woff, lo, hi, prow, trow,
+                           n_win: int, chunk: int):
+    """shw_banded on the word-parallel band's schedule in plain PyTorch
+    (_band_words_columns): (best, pfirst, plast) over the live columns in
+    [lo, hi).  Operands and outputs as shw_banded (band_width > 0)."""
+    cols = _band_words_columns("shw_banded_words_plain", peq, targets, woff,
+                               prow, trow, n_win, chunk)
+    return _reduction(cols, lo, hi)[:3]
 
 
 def shw_banded_hits_words_plain(peq, targets, woff, lo, hi, prow, trow,
@@ -2286,10 +2316,13 @@ def nw_banded(peq, targets, woff, hi, prow, trow, n_win: int, chunk: int,
 
 
 def shw_banded(peq, targets, woff, lo, hi, prow, trow, n_win: int,
-               chunk: int):
+               chunk: int, *, plan=None):
     """Banded SHW reduce: (best, pfirst, plast) int32 (B,) over columns in
     [lo, hi) where the window has reached the bottom word; operands as
-    nw_banded plus lo.  Exact for lanes whose best is within the band."""
+    nw_banded plus lo.  Exact for lanes whose best is within the band.  The
+    kernel runs the word-parallel band (shw_banded_words_plain) where
+    band_width gives it a segment, else one thread a lane; a dict `plan`
+    receives what it launched (sweep_scores; checks only)."""
     name = "shw_banded"
     n, on_cuda = _banded_common(name, peq, targets, woff, n_win, chunk,
                                 dict(lo=lo, hi=hi, prow=prow, trow=trow))
@@ -2301,9 +2334,11 @@ def shw_banded(peq, targets, woff, lo, hi, prow, trow, n_win: int,
     if n == 0:
         return tuple(out)
     head, scratch = _band_head(peq, targets, woff, n_win, chunk, n)
+    buf = _plan_buffer()
     _launch(name, "myers_shw_banded", dev.index, *head,
             *_ptrs(lo, hi, prow, trow), n, *_ptrs(*out), scratch.data_ptr(),
-            _stream(dev))
+            band_width(n_win, chunk), ctypes.addressof(buf), _stream(dev))
+    _fill_plan(plan, buf)
     return tuple(out)
 
 
@@ -2630,14 +2665,16 @@ def _check_stream(name, eq_t) -> None:
         raise ValueError(f"{name}: eq_t {tuple(eq_t.shape)} has no words")
 
 
-def reduce_eqstream(eq_t, lo, hi, hin0: int):
+def reduce_eqstream(eq_t, lo, hi, hin0: int, *, plan=None):
     """reduce_lanes on Eq words gathered before the launch (kernel
     reduce_eqstream).
 
     eq_t: int32 (T, NW, B), lane b's Eq word w of column c at [c, w, b]
     (eqstream_gather(...).permute(1, 2, 0)); lo, hi: int32 (B,).  Returns
     (best, pfirst, plast, last) int32 (B,) over columns [lo, hi), as
-    reduce_lanes."""
+    reduce_lanes.  At 2-8 words and T > 0 the kernel runs the word-parallel
+    lane (reduce_eqstream_words_plain), else one thread a lane; a dict
+    `plan` receives what it launched (sweep_scores; checks only)."""
     name = "reduce_eqstream"
     _check_stream(name, eq_t)
     n = _check_lanes(name, dict(lo=lo, hi=hi))
@@ -2650,9 +2687,12 @@ def reduce_eqstream(eq_t, lo, hi, hin0: int):
     out = _lane_outputs(n, dev)
     if n == 0:
         return tuple(out)
+    buf = _plan_buffer()
     _launch(name, "myers_reduce_eqstream", dev.index, eq_t.data_ptr(), nw, T,
             *_ptrs(lo, hi), n, int(hin0), *_ptrs(*out),
-            _scratch(nw, n, dev).data_ptr(), _stream(dev))
+            _scratch(nw, n, dev).data_ptr(), ctypes.addressof(buf),
+            _stream(dev))
+    _fill_plan(plan, buf)
     return tuple(out)
 
 

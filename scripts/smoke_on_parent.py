@@ -8,10 +8,10 @@ machine with the card:
     python3 smoke_on_parent.py [--seed N]
 
 The checks and plan reports of kernels the earlier commit lacks are left
-out: hits_bitplane's split-lane cores and shw_banded_hits' word-parallel
-band (their phase-2 checks, check_banded_words with them, their plan= on
-the measured calls and their NEW_FORMS entries).  Everything else runs as
-chip_smoke.py does.
+out: shw_banded's word-parallel band and reduce_eqstream's word-parallel
+lane (their phase-2 checks, check_banded_words and check_word_hits with
+them, their plan= on the measured calls and their NEW_FORMS entries).
+Everything else runs as chip_smoke.py does.
 """
 
 import sys
@@ -19,8 +19,8 @@ import sys
 sys.path.insert(0, ".")
 import chip_smoke as cs  # noqa: E402
 
-NEW_CHECKS = ("check_banded_words", "check_hits_bitplane_split")
-NEW_PLANS = ("hits_bitplane", "shw_banded_hits")
+NEW_CHECKS = ("check_banded_words", "check_word_hits")
+NEW_PLANS = ("shw_banded", "reduce_eqstream")
 
 for name in NEW_CHECKS:
     skipped = lambda *a: None  # noqa: E731
