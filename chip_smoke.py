@@ -19,7 +19,11 @@ Phases, each of which exits non-zero on any failure:
    random state, two chained segments equal to one reduce_lanes /
    sweep_scores sweep; and hw_adaptive at NW 1, 4 and 32 over two tiles of
    1,024 lanes, with and without the strong reduce (raw outputs and the
-   word-columns each tile swept); K1 and K2 with forced cores of 1-40
+   word-columns each tile swept), and its cluster launch at NW 1, 4, 32, 33
+   and 160 over two or three tiles whose windows end apart, C left to the
+   card and forced down to 4, 2 and 1, sigma=100 (profile rows read from
+   global memory) and per-lane targets at hin0 = 1, each call's plan
+   checked (check_adaptive_cluster); K1 and K2 with forced cores of 1-40
    columns (the split-lane schedule) at NW 1 and 4, both hin0 (hin0 = 1
    keeps one core a lane), 300 lanes of ragged spans with the edge lanes
    (hi = 0, hi - 1 < lo, lo past hi, hi past the row), and at NW 9 (the
@@ -128,8 +132,10 @@ Phases, each of which exits non-zero on any failure:
    width 4 on phase 18, reduce_eqstream on phases 18 and 19, nw_banded the
    word-parallel band at width 16 on phases 8 and 12, shw_banded and
    shw_banded_hits the band on phase 9, hits_bitplane its
-   split-lane cores on phase 10, and capture its word groups over lanes on
-   phases 11 and 12 (NEW_FORMS).
+   split-lane cores on phase 10, capture its word groups over lanes on
+   phases 11 and 12, and hw_adaptive the register form on a cluster of at
+   least 8 blocks on phase 23 (NEW_FORMS; its calls give their plan: form,
+   C, lanes a block, staging, NWC, and the clusters the card holds).
 14-17. Long single pairs through nw_distance_long, shw_best_long,
    semiglobal_locations_long and align, each with its launch counts, a
    warm repeat that must agree, and its k ladder rung by rung (k, banded
@@ -187,7 +193,10 @@ Phases, each of which exits non-zero on any failure:
 23. Sweeper.reduce_hw_adaptive: 8,192 reads of 1,000 bp (32 words) with 6%
    substitutions planted in one shared 100,000-bp target, k = 8, 16, 32 and
    64 (hw_adaptive); lanes whose unbanded best (reduce_lanes on the same
-   operands, timed beside it) is <= k equal it, the rest are above k.
+   operands) is <= k equal it, the rest are above k.  The unbanded sweep is
+   timed beside it: its wall (unbanded_s) and its reduce_lanes launch's
+   device ms (unbanded_ms, launch_ms), beside each k's hw_adaptive launch
+   (ms).
    Phase 13 holds the kernels of 21-23 against their plain versions on
    their phases' operands (hw_adaptive's raw outputs over the first
    2,048 columns) and times them; hw_adaptive's bound counts the live
@@ -1500,6 +1509,83 @@ def check_adaptive_kernel(rng, dev, ck):
                     list(got) + [live], list(want) + [live_plain])
 
 
+# check_adaptive_cluster's cases: (nw, sigma, tiles, per-lane targets,
+# hin0, columns, k, strong_every).
+ADAPT_CLUSTER_CASES = ((1, 4, 2, False, 0, 600, 6, 2),
+                       (4, 4, 3, False, 0, 600, 12, 4),
+                       (32, 4, 2, False, 0, 700, 40, 2),
+                       (33, 4, 2, False, 0, 500, 40, 2),
+                       (160, 4, 2, False, 0, 200, 150, 1),
+                       (32, 100, 2, False, 0, 400, 40, 2),
+                       (8, 4, 3, True, 1, 500, 20, 3))
+
+
+def check_adaptive_cluster(rng, dev, ck):
+    """hw_adaptive's cluster launch == its plain version (on the host), raw
+    outputs and the word-columns each tile swept, on ADAPT_CLUSTER_CASES:
+    NW 1, 4, 32, 33 and 160 (the scratch form past 32) over two or three
+    tiles whose windows end at different columns, sigma = 100 at 32 words
+    (profile rows past a block's budget, so read from global memory), and
+    per-lane targets at hin0 = 1; each with C left to the card (the first
+    of adaptive_plans it admits) and forced down to 4, 2 and 1.  Every
+    reported plan is checked: C within the cap, the scratch form past 32
+    words, the staging adaptive_plan gives, and the card's own C (the
+    largest admitted) at least 8 in the register form at 32 words."""
+    import torch
+    for nw, sigma, tiles, per_lane, hin0, cols, k, strong in \
+            ADAPT_CLUSTER_CASES:
+        # Reads shorter than the row where nw * 32 is not (their words past
+        # qlen match every symbol).
+        n = tiles * 1024
+        qlen = min(nw * 32 - 5, cols // 2)
+        t_ids = rng.randint(0, sigma, cols).astype(np.int32)
+        reads, _ = make_batch(rng, t_ids, sigma, n, qlen, n // 8, rate=0.06)
+        peq = ck.build_peq_device(
+            torch.from_numpy(reads).to(dev),
+            torch.full((n,), qlen, dtype=torch.int32, device=dev), sigma, nw)
+        W = 5
+        scan = np.concatenate([t_ids, np.full(W, sigma, np.int32)])
+        if per_lane:
+            rows = np.tile(scan, (n, 1))
+            at = rng.randint(0, cols, n // 2)
+            rows[np.arange(0, n, 2), at] = rng.randint(0, sigma, n // 2)
+        else:
+            rows = scan[None]
+        tg = torch.from_numpy(rows).to(dev)
+        lo = torch.full((n,), W, dtype=torch.int32, device=dev)
+        hi = lo + cols
+        for t in range(1, tiles):          # each tile ends elsewhere
+            hi[t * 1024:] -= 37 * t
+        lanes = torch.arange(n, dtype=torch.int32, device=dev)
+        trow = lanes if per_lane else lanes * 0
+        args = (peq, tg, lo, hi, lanes, trow, k, hin0, 8, strong)
+        live_plain = torch.zeros(tiles, dtype=torch.int64)
+        want = ck.hw_adaptive_plain(*[a.cpu() if isinstance(a, torch.Tensor)
+                                      else a for a in args], live=live_plain)
+        want = [w.to(dev) for w in want] + [live_plain.to(dev)]
+        for cap in (None, 4, 2, 1):
+            tag = (f"hw_adaptive nw={nw} sigma={sigma} tiles={tiles} "
+                   f"per_lane={per_lane} hin0={hin0} cluster<={cap}")
+            live = torch.zeros(tiles, dtype=torch.int64, device=dev)
+            plan = {}
+            got = ck.hw_adaptive(*args, live=live, cluster=cap, plan=plan)
+            check_equal(tag, list(got) + [live], want)
+            c = plan.get("cluster", 0)
+            staged = ck.adaptive_plan(nw, sigma + 1, max(c, 1),
+                                      plan.get("form") == "regs")["staged"]
+            if (c < 1 or (cap is not None and c > cap)
+                    or (nw > 32 and plan.get("form") != "scratch")
+                    or (cap is None and nw <= 32
+                        and plan.get("form") != "regs")
+                    or plan.get("staged") != staged
+                    or (sigma == 100 and nw == 32 and staged)):
+                fail(f"{tag}: launched {plan}")
+            if cap is None and nw == 32 and sigma == 4 and c < 8:
+                fail(f"{tag}: launched {plan}, not on a cluster of at least "
+                     "8 blocks")
+            log(f"{tag}: equal, plan {plan}")
+
+
 def check_split_kernels(rng, dev, ck):
     """K1, K3 and K2 with forced small cores (the split-lane schedule) ==
     their plain versions and the schedule's plain emulation: NW 1 and 4,
@@ -1911,12 +1997,14 @@ NEW_FORMS = {"hits_lanes": ("cores", lambda p: p.get("cores", 0) > 1),
              "shw_banded": ("band", lambda p: p.get("width") == 16),
              "shw_banded_hits": ("band", lambda p: p.get("width") == 16),
              "capture": ("lane_words",
-                         lambda p: p.get("lanes") in (8, 16, 32))}
+                         lambda p: p.get("lanes") in (8, 16, 32)),
+             "hw_adaptive": ("regs", lambda p: p.get("cluster", 0) >= 8)}
 
 # The wrappers that take plan= (their C entries report what they launched).
 PLANNED = ("reduce_resume", "sweep_scores", "sweep_scores_resume",
            "hits_lanes", "hits_bitplane", "hits_eqstream", "reduce_eqstream",
-           "nw_banded", "shw_banded", "shw_banded_hits", "capture")
+           "nw_banded", "shw_banded", "shw_banded_hits", "capture",
+           "hw_adaptive")
 
 # The kernels whose calls phase 13 also traces, with substrings of their
 # CUDA kernels' names (the traced device time sums the kernels that hold
@@ -2747,14 +2835,18 @@ def adaptive_phase(rng, dev, ck, rec):
     lo = np.full(ADAPT_READS, W, np.int64)
     hi = lo + ADAPT_TLEN
     sw = Sweeper(dev)
-    full, full_s = timed(lambda: sw.reduce(peq, t_ids, lo, hi, 0,
-                                           shared=True))
-    summary, calls = {"unbanded_s": full_s}, {}
+    unbanded = lambda: sw.reduce(peq, t_ids, lo, hi, 0, shared=True)
+    full, full_s = timed(unbanded)
+    # The unbanded reduce_lanes launch's device time (events around the
+    # launch alone), beside each k's hw_adaptive launch.
+    unbanded_ms = launch_ms(ck, unbanded, 3)
+    summary, calls = {"unbanded_s": full_s, "unbanded_ms": unbanded_ms}, {}
     for k in ADAPT_KS:
         label = f"hw_adaptive_k{k}"
+        adaptive = lambda: sw.reduce_hw_adaptive(peq, t_ids, lo, hi, k,
+                                                 shared=True)
         got, counts, rec_calls, cold, warm, _ = drive(
-            ck, rec, label, lambda: as_lists(sw.reduce_hw_adaptive(
-                peq, t_ids, lo, hi, k, shared=True)), ("hw_adaptive",))
+            ck, rec, label, lambda: as_lists(adaptive()), ("hw_adaptive",))
         got = [np.asarray(x) for x in got]
         within = full[0] <= k
         for g, w in zip(got, full[:3]):
@@ -2764,11 +2856,14 @@ def adaptive_phase(rng, dev, ck, rec):
         if (got[0][~within] <= k).any():
             fail(f"{label}: a lane with best > k reported <= k")
         calls[label] = rec_calls, counts
-        summary[label] = dict(cold_s=cold, warm_s=warm,
+        ms = launch_ms(ck, adaptive, 1)
+        summary[label] = dict(cold_s=cold, warm_s=warm, ms=ms,
+                              unbanded_ms=unbanded_ms,
                               lanes_within_k=int(within.sum()))
         log(f"{label}: {int(within.sum())} of {ADAPT_READS} lanes within k "
             f"equal the unbanded reduce ({warm:.2f} s warm, unbanded "
-            f"{full_s:.2f} s)")
+            f"{full_s:.2f} s; device {ms:.1f} ms, unbanded {unbanded_ms:.1f} "
+            "ms)")
     return summary, calls
 
 
@@ -2812,11 +2907,11 @@ def main(argv=None) -> int:
 
     # 2. Kernels vs plain versions, small shapes, each check's seconds
     # logged.  The checks added since PR 7 draw from generators of their
-    # own (--seed + 1, ..., + 6), so the paths below see the same data as
+    # own (--seed + 1, ..., + 7), so the paths below see the same data as
     # before.
     phase2_s = {}
     extra = [np.random.RandomState(args.seed + i)
-             for i in (1, 2, 3, 4, 5, 6)]
+             for i in (1, 2, 3, 4, 5, 6, 7)]
     for check, gen in ((check_kernels, rng), (check_wavefront_kernels, rng),
                        (check_resumable_kernels, rng),
                        (check_adaptive_kernel, rng),
@@ -2831,7 +2926,8 @@ def main(argv=None) -> int:
                        (check_word_hits, extra[3]),
                        (check_banded_words, extra[4]),
                        (check_capture_words, extra[4]),
-                       (check_hits_bitplane_split, extra[5])):
+                       (check_hits_bitplane_split, extra[5]),
+                       (check_adaptive_cluster, extra[6])):
         t0 = time.perf_counter()
         check(gen, dev, ck)
         phase2_s[check.__name__] = time.perf_counter() - t0
@@ -3202,6 +3298,7 @@ def main(argv=None) -> int:
              nwp_counts2["sweep_scores_resume"], "mesh_nw_pipeline"),
             ("hw_adaptive", ad_calls, ad_launches, "hw_adaptive")):
         m = measure(ck, name, calls)
+        check_new_forms(name, m, path)
         kernels.append(kernel_entry(name, m, n_launch, path, card))
         log(f"timed {name} ({path}): {m['ms']:.3f} ms (plain "
             f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms)")

@@ -65,7 +65,8 @@ SIGNATURES = {
                             _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P],
     "myers_hw_adaptive": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+                          _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "myers_hw_adaptive_clusters": [_I, _I, _I, _P, _P],
     "myers_reduce_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                               _P, _P, _P, _P],
     "myers_hits_eqstream": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _P,

@@ -42,7 +42,8 @@ one of them:
                    (jax_engine.sweep_scores_resumable, which the JAX package
                    leaves to XLA), for sharded_nw_pipeline;
   hw_adaptive      the value-adaptive banded HW/SHW reduce, one live word
-                   band a 1,024-lane tile (_hw_adaptive_kernel);
+                   band a 1,024-lane tile (_hw_adaptive_kernel), the tile
+                   on a thread-block cluster (adaptive_plan);
   wavefront        ONE pair, every query word of it (or a fixed word
                    window) an anti-diagonal a step (wavefront._wf_kernel);
   wavefront_banded the same over a window of word slots sliding along the
@@ -2611,11 +2612,72 @@ def reduce_resume(peq, targets, lo, hi, prow, trow, pv0, mv0, s0, hin0: int,
     return tuple(out) + state
 
 
-_ADAPTIVE_MAX_WORDS = 128   # csrc/myers.cu kAdaptiveMaxWords
+# The adaptive reduce's launch (csrc/myers.cu hw_adaptive_cluster_kernel):
+# a tile's 1,024 lanes over a thread-block cluster of C blocks, a lane's
+# words in registers at a capacity of _ADAPTIVE_WORDS, else in scratch.
+_ADAPTIVE_CLUSTERS = (16, 8, 4, 2, 1)
+_ADAPTIVE_WORDS = (1, 2, 4, 8, 16, 32)
+_ADAPTIVE_SMEM = 232_448   # a block's shared memory on the H100 (csrc
+#                            kAdaptiveSmemMax)
+_ADAPTIVE_PASS_WORDS = 2048  # words a barrier publishes (kAdaptivePassWords)
+_ADAPTIVE_FORMS = ("regs", "scratch")
+
+
+def adaptive_plan(nw: int, s1: int, cluster: int, regs: bool = True) -> dict:
+    """The adaptive reduce's launch for nw words and s1 profile rows with C =
+    `cluster` blocks a tile: form "regs" (a lane's words in registers, nwc
+    the least capacity of _ADAPTIVE_WORDS that holds nw) where regs and nw
+    <= 32, else "scratch" (nwc 0); lanes a block, 1,024 / C; staged: the
+    block's profile rows in shared memory, where they fit its budget beside
+    the minima (three buffers of two per word of a pass); smem: the bytes
+    it asks."""
+    if cluster not in _ADAPTIVE_CLUSTERS:
+        raise ValueError(f"hw_adaptive: cluster={cluster} not one of "
+                         f"{_ADAPTIVE_CLUSTERS}")
+    lanes = _TILE_LANES // cluster
+    nwc = next((c for c in _ADAPTIVE_WORDS if c >= nw), 0) if regs else 0
+    minima = 4 * 6 * min(nw, _ADAPTIVE_PASS_WORDS)  # adaptive_smem_words
+    rows = 4 * s1 * nw * lanes
+    staged = minima + rows <= _ADAPTIVE_SMEM
+    return dict(form="regs" if nwc else "scratch", cluster=cluster,
+                lanes=lanes, staged=staged, nwc=nwc,
+                smem=minima + rows * staged)
+
+
+def adaptive_plans(nw: int, s1: int, cluster=None):
+    """The plans hw_adaptive tries, in order: the register form at C = 16,
+    8, 4, 2 and 1 (those <= cluster), then the scratch form at the same;
+    it launches the first the card admits."""
+    cs = [c for c in _ADAPTIVE_CLUSTERS if cluster is None or c <= cluster]
+    return [adaptive_plan(nw, s1, c, regs) for regs in (True, False)
+            for c in cs if not regs or nw <= _ADAPTIVE_WORDS[-1]]
+
+
+def _plan_words(p: dict):
+    """A plan as myers_hw_adaptive takes it: int32 (5,)."""
+    return (ctypes.c_int32 * 5)(_ADAPTIVE_FORMS.index(p["form"]),
+                                p["cluster"], p["lanes"], int(p["staged"]),
+                                p["nwc"])
+
+
+def _adaptive_admitted(dev, nw: int, s1: int, cluster) -> dict:
+    """The first of adaptive_plans that the card admits (one cluster of it
+    at least can be resident), with `clusters`, how many can."""
+    lib = _build.load()
+    for p in adaptive_plans(nw, s1, cluster):
+        words, n = _plan_words(p), ctypes.c_int(0)
+        _build.check(lib, lib.myers_hw_adaptive_clusters(
+            dev.index, s1, nw, ctypes.addressof(words), ctypes.byref(n)),
+            "hw_adaptive")
+        if n.value > 0:
+            return dict(p, clusters=n.value)
+    raise RuntimeError(f"hw_adaptive: the card admits no cluster of any plan "
+                       f"for {nw} words and {s1} profile rows")
 
 
 def hw_adaptive(peq, targets, lo, hi, prow, trow, k: int, hin0: int,
-                group: int = 8, strong_every: int = 64, live=None):
+                group: int = 8, strong_every: int = 64, live=None, *,
+                cluster=None, plan=None):
     """The value-adaptive banded reduce (kernel hw_adaptive): operands as
     reduce_lanes with B a multiple of 1,024.  Each 1,024 lanes (a tile, the
     TPU kernel's (8, 128)) share one live word band, updated every `group`
@@ -2624,16 +2686,23 @@ def hw_adaptive(peq, targets, lo, hi, prow, trow, k: int, hin0: int,
     threshold.  Returns (best, pfirst, plast) int32 (B,) over [lo, hi),
     exact for lanes whose best is <= k, above k otherwise (the TPU kernel's
     raw outputs, overestimates included).  live: an int64 (B // 1024,)
-    tensor or None; the word-columns each tile swept are written there."""
+    tensor or None; the word-columns each tile swept are written there.
+    On the card a tile runs on a cluster of C blocks, the first of
+    adaptive_plans the card admits.  For checks only: `cluster` caps C (it
+    may only lower it), and a dict `plan` receives the launch (adaptive_plan's
+    fields, blocks, and the clusters the card holds at once)."""
     name = "hw_adaptive"
     _check(name, peq, "peq", 3)
     _check(name, targets, "targets", 2)
     n = _check_lanes(name, dict(lo=lo, hi=hi, prow=prow, trow=trow))
-    nw = peq.shape[2]
+    s1, nw = peq.shape[1], peq.shape[2]
     if n % _TILE_LANES or k < 0 or group < 1 or strong_every < 0:
         raise ValueError(f"{name}: lanes {n} (a multiple of {_TILE_LANES}), "
                          f"k={k} (>= 0), group={group} (>= 1), "
                          f"strong_every={strong_every} (>= 0)")
+    if cluster is not None and cluster not in _ADAPTIVE_CLUSTERS:
+        raise ValueError(f"{name}: cluster={cluster} not one of "
+                         f"{_ADAPTIVE_CLUSTERS}")
     if live is not None and (live.dtype != torch.int64
                              or live.shape != (n // _TILE_LANES,)):
         raise ValueError(f"{name}: live must be int64 ({n // _TILE_LANES},)")
@@ -2641,21 +2710,24 @@ def hw_adaptive(peq, targets, lo, hi, prow, trow, k: int, hin0: int,
                     *([] if live is None else [live])):
         return hw_adaptive_plain(peq, targets, lo, hi, prow, trow, k, hin0,
                                  group, strong_every, live)
-    if nw > _ADAPTIVE_MAX_WORDS:
-        raise ValueError(f"{name}: the kernel takes at most "
-                         f"{_ADAPTIVE_MAX_WORDS} words, got {nw}")
     dev = peq.device
     out = _lane_outputs(n, dev, 3)
     if n == 0:
         return tuple(out)
+    chosen = _adaptive_admitted(dev, nw, s1, cluster)
     classes = torch.tensor(adaptive_classes(nw), dtype=_I32, device=dev)
-    scratch = torch.empty(3 * nw * n, dtype=_I32, device=dev)
-    _launch(name, "myers_hw_adaptive", dev.index, peq.data_ptr(),
-            peq.shape[1], nw, targets.data_ptr(), targets.shape[1],
+    scratch = torch.empty(3 * nw * n if chosen["form"] == "scratch" else 1,
+                          dtype=_I32, device=dev)
+    words = _plan_words(chosen)
+    _launch(name, "myers_hw_adaptive", dev.index, peq.data_ptr(), s1, nw,
+            targets.data_ptr(), targets.shape[1],
             *_ptrs(lo, hi, prow, trow), n, int(k), int(hin0), int(group),
             int(strong_every), classes.data_ptr(), classes.shape[0],
             *_ptrs(*out), None if live is None else live.data_ptr(),
-            scratch.data_ptr(), _stream(dev))
+            scratch.data_ptr(), ctypes.addressof(words), _stream(dev))
+    if plan is not None:
+        plan.clear()
+        plan.update(chosen, blocks=n // _TILE_LANES * chosen["cluster"])
     return tuple(out)
 
 

@@ -8,10 +8,9 @@ machine with the card:
     python3 smoke_on_parent.py [--seed N]
 
 The checks and plan reports of kernels the earlier commit lacks are left
-out: shw_banded's word-parallel band and reduce_eqstream's word-parallel
-lane (their phase-2 checks, check_banded_words and check_word_hits with
-them, their plan= on the measured calls and their NEW_FORMS entries).
-Everything else runs as chip_smoke.py does.
+out: hw_adaptive's cluster launch (its phase-2 check,
+check_adaptive_cluster, its plan= on the measured calls and its NEW_FORMS
+entry).  Everything else runs as chip_smoke.py does.
 """
 
 import sys
@@ -19,8 +18,8 @@ import sys
 sys.path.insert(0, ".")
 import chip_smoke as cs  # noqa: E402
 
-NEW_CHECKS = ("check_banded_words", "check_word_hits")
-NEW_PLANS = ("shw_banded", "reduce_eqstream")
+NEW_CHECKS = ("check_adaptive_cluster",)
+NEW_PLANS = ("hw_adaptive",)
 
 for name in NEW_CHECKS:
     skipped = lambda *a: None  # noqa: E731
