@@ -4,7 +4,9 @@
 Phases, each of which exits non-zero on any failure:
 
 1. Build the CUDA kernels from edlib_tpu_torch/ops/csrc with nvcc (sm_90a)
-   and print the card's name and power limit.
+   and print the card's name and power limit; beside nvcc, in two threads,
+   g++ builds the native host engine (native/*.cpp: the library and its
+   CPython extension, native_loader.py), which must load.
 2. Hold every kernel against its plain PyTorch version on the card, at small
    shapes, for exact equality (every output is an integer); the capture
    kernel at NW 1, 4, 8, 16 and 64, both hin0, with and without Ph/Mh,
@@ -68,7 +70,12 @@ Phases, each of which exits non-zero on any failure:
    overflow stragglers' shared sweep (sweep_shared) must each have run.
    Every read must equal an unfiltered shared sweep over all reads; every
    overflow straggler and two sampled reads an O(Q*T) DP on the card over
-   the whole target, and the sampled two a numpy DP as well.
+   the whole target, and the sampled two a numpy DP as well.  The warm
+   profile's host-to-device copies, and the read upload on these reads
+   both ways: the uint8 symbols with int32 lengths that map_reads sends,
+   and the JAX package's 2-bit buffer (packed on the host, unpacked on the
+   card), which the port declines at sigma <= 4; bytes and walls, equal
+   tensors.
 4. The bit-plane path: the same read batch shape against a 1,048,576-bp
    sigma=100 target, where verification and fallback take reduce_bitplane;
    checked against the unfiltered shared sweep.
@@ -85,8 +92,9 @@ Phases, each of which exits non-zero on any failure:
 7-10. align_batch at full width, one phase per path, each with its launch
    counts zeroed just before and read just after the call, a warm repeat
    that must agree, a subsample of 128 pairs equal to device="cpu" (the
-   plain versions; phases 7 and 11 share one), and 4 sampled pairs equal
-   to a numpy DP (distance, every end location, start locations):
+   plain versions; phases 7 and 11 share one, held against the native host
+   route, backend="host"), and 4 sampled pairs equal to a numpy DP
+   (distance, every end location, start locations):
    7. HW locations, shared target: 10,240 reads x 120 bp, windows of one
       random 100,000-bp target with 6% substitutions (reduce_lanes on the
       shared row and the per-lane start re-runs, hits_lanes);
@@ -139,7 +147,12 @@ Phases, each of which exits non-zero on any failure:
 14-17. Long single pairs through nw_distance_long, shw_best_long,
    semiglobal_locations_long and align, each with its launch counts, a
    warm repeat that must agree, and its k ladder rung by rung (k, banded
-   and tail steps, whether the band died, whether the rung answered):
+   and tail steps, whether the band died, whether the rung answered);
+   nw_distance_long, shw_best_long and semiglobal_locations_long again on
+   14, 15 and 16's pairs with backend="native" (the native engine's k
+   ladder and banded searches), equal to the card's answers (15's, about a
+   minute of one host core, runs beside phases 24-26, after phase 13's
+   timings):
    14. NW: a random 1,000,000-bp target and its copy with 3% edits;
       nw_distance_long and align (distance, locations) on the banded
       wavefront (nw_banded must not run), equal to the unbanded wavefront,
@@ -151,9 +164,11 @@ Phases, each of which exits non-zero on any failure:
    16. HW: a 10,000-bp read with 5% edits planted twice in the target;
       semiglobal_locations_long equals align(task="locations")'s ends.
    17. NW path: align(task="path") on a 200,000-bp pair with 3% edits (the
-      banded distance, the root's half-sweeps on the card), a valid CIGAR
-      of that cost; on a 30,000-bp pair with the device gate lowered the
-      ops equal the host half-sweeps'.
+      banded distance, the half-sweeps of nodes of 1e10 cells on the card,
+      the nodes below on the native engine), a valid CIGAR of that cost,
+      cold and warm walls; on a 30,000-bp pair with the device gate
+      lowered the ops equal the native engine's alone; on a 5,000-bp pair
+      the native ops equal the host big-int engine's.
 18-19. align_batch past the per-lane alphabet cap with dense equalities,
    checked as 7-10 (the numpy DP compares equality classes): HW locations
    of 120-bp reads over sigma=100, each against its own 1,000-bp window
@@ -201,19 +216,44 @@ Phases, each of which exits non-zero on any failure:
    their phases' operands (hw_adaptive's raw outputs over the first
    2,048 columns) and times them; hw_adaptive's bound counts the live
    word-columns the kernel reports.
+24. The PATH host route: align_batch NW task="path" on 16 pairs of 40,000
+   bp with 3% edits, every window past the capture route's 32,767 columns
+   (path_route_counts: 16 host), on the native engine over a thread pool;
+   every CIGAR valid, 2 pairs' ops equal to the host big-int engine's.
+25. align_batch(backend="host") on 1,024 of phase 7's reads, task
+   "locations": equal to phase 7's device results, no launch.
+26. The CLI on FASTA files of 512 of phase 7's reads and its target, run
+   in this process (main(argv)): -m HW -l and -n 10 -k 20 under
+   --backend auto (the device batch: kernels must launch) and host (none),
+   -m HW -p -f CIG_EXT on 64 reads under jax and host (auto takes the host
+   loop below 256 queries); each pair of outputs byte-equal but for the
+   Cpu time line; and one python -m edlib_tpu_torch.cli run whose stdout
+   equals main(argv)'s.  Each wall.
 
-Output: the kernels' JSON line, the end-to-end JSON line, the card line, and
-last {"ok": true, "device": {...}}.  Data comes from --seed.
+Output: the kernels' JSON line, the end-to-end JSON line (the whole run's
+seconds last), the card line, and last {"ok": true, "device": {...}}.
+Data comes from --seed.
+
+Options: --skip-checks NAME,... leaves out phase-2 checks (by function
+name) and the checks native, read_upload, host_routes and cli, and
+--skip-plans NAME,... a kernel's reported plan, for a "before" run of this
+script on an earlier commit's package (unpack it with git archive, copy
+this file in, run it there).  --adaptive-sweep [--reps R] runs only the
+adaptive reduce's sweep (its checks, phase 23's operands at each cluster
+cap and band-update group) and prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import inspect
 import json
+import os
 import re
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -288,6 +328,15 @@ ADAPT_KS = (8, 16, 32, 64)
 # middle and last segments (wavefront_banded over enough steps to run the
 # launch form the path's segment ran).
 WF_PLAIN_STEPS = 1024
+# Phases 17 and 24-26: the native engine's routes.  A NATIVE_CHECK_LEN-bp
+# pair for the native ops against the big-int engine's; PATH_HOST_PAIRS NW
+# pairs of PATH_HOST_LEN bp, every window past the capture route's 32,767
+# columns (PATH_HOST_BIGINT of them also through the big-int engine);
+# HOST_READS of phase 7's reads through align_batch(backend="host"); the CLI
+# on CLI_READS of them (CLI_PATH_READS with -p).
+NATIVE_CHECK_LEN = 5_000
+PATH_HOST_PAIRS, PATH_HOST_LEN, PATH_HOST_BIGINT = 16, 40_000, 2
+HOST_READS, CLI_READS, CLI_PATH_READS = 1024, 512, 64
 KERNEL_SOURCE = {"wavefront": "edlib_tpu_torch/ops/csrc/wavefront.cu",
                  "wavefront_banded": "edlib_tpu_torch/ops/csrc/wavefront.cu"}
 KERNEL_SOURCE_DEFAULT = "edlib_tpu_torch/ops/csrc/myers.cu"
@@ -2389,6 +2438,18 @@ def drive(ck, rec, label, call, required):
     return out, launches, calls, cold, warm, routes
 
 
+def ref_route(cpu_key) -> dict:
+    """The reference route of a cpu_key's subsample: phases 7 and 11's
+    shared HW batch is held against the native host route
+    (backend="host"), the kernels' plain versions being held on these
+    operands in phase 13; other phases, and runs with the native checks
+    skipped (an earlier commit, whose host route runs the plain versions a
+    pair at a time), against device="cpu"."""
+    if cpu_key == "hw" and not skipped("native"):
+        return {"backend": "host"}
+    return {"device": "cpu"}
+
+
 def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
                 mode, task, rng, cpu_refs, cpu_key=None, eqs=None):
     """align_batch's results: one per pair, distances in range, a
@@ -2396,10 +2457,11 @@ def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
     stays shared; with the same equalities eqs), DP_SAMPLES of them equal
     to the numpy DP (q_ids, t_ids: symbols, or with equalities their
     classes, which the DP compares).  Phases that
-    name one cpu_key run the same batch: the first runs the device="cpu"
-    reference once with task "path" (its editDistance, alphabetLength and
-    locations are the other tasks' answers) on one subsample, kept in
-    cpu_refs, and every such phase compares against it."""
+    name one cpu_key run the same batch: the first runs the reference
+    (ref_route(cpu_key)) once with task "path" (its
+    editDistance, alphabetLength and locations are the other tasks'
+    answers) on one subsample, kept in cpu_refs, and every such phase
+    compares against it."""
     shared = isinstance(targets, bytes)
     if len(out) != len(queries):
         fail(f"{label}: {len(out)} results for {len(queries)} pairs")
@@ -2415,7 +2477,7 @@ def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
         ref = align_batch([queries[i] for i in idx],
                           targets if shared else [targets[i] for i in idx],
                           mode=mode, task="path" if cpu_key else task,
-                          additionalEqualities=eqs, device="cpu")
+                          additionalEqualities=eqs, **ref_route(cpu_key))
         if cpu_key:
             cpu_refs[cpu_key] = idx, ref
     cpu_s = time.perf_counter() - t0
@@ -2432,7 +2494,8 @@ def check_align(label, align_batch, out, queries, targets, q_ids, t_ids,
         if got != want:
             fail(f"{label}: pair {i} differs from the numpy DP: {got} vs "
                  f"{want}")
-    log(f"{label}: {SUBSAMPLE} pairs equal device='cpu' ({cpu_s:.1f} s), "
+    log(f"{label}: {SUBSAMPLE} pairs equal "
+        f"{ref_route(cpu_key)} ({cpu_s:.1f} s), "
         f"{DP_SAMPLES} the numpy DP")
     return cpu_s
 
@@ -2457,19 +2520,20 @@ def recorded(ck, rec, fn):
     return out, secs, rec.take(), ck.launch_counts()
 
 
-def long_pair_phases(rng, dev, ck, rec, et, acgt):
+def long_pair_phases(rng, dev, ck, rec, et, acgt, native_rng):
     """Phases 14-17 and 20: one long pair at a time through
     nw_distance_long, shw_best_long, semiglobal_locations_long and align
     (NW huge route, the device Hirschberg, the score-stream route), each
     held against the unbanded wavefront, the batched routes or the host
     engine; and hw_stream_segmented.  Returns (the e2e summary, {label:
-    (recorded calls, launch counts)} for the kernel timings)."""
+    (recorded calls, launch counts)} for the kernel timings, {label: a
+    backend="native" check left for the caller to run})."""
     import torch
     from edlib_tpu_torch.align import _filter_locations
     from edlib_tpu_torch.encode import transform_sequences
     from edlib_tpu_torch.ops.wavefront import Wavefront, take_rungs
     from edlib_tpu_torch.path import hirschberg as thb
-    summary, calls = {}, {}
+    summary, calls, deferred = {}, {}, {}
 
     def phase(label, call, required, forbidden=()):
         # The k ladder's rungs of the cold call (ops.wavefront.take_rungs).
@@ -2515,6 +2579,10 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
         fail(f"long_nw: banded {d} != unbanded wavefront {d_unb}")
     calls["long_nw_unbanded_check"] = unb_calls, unb_counts
     summary["long_nw"].update(distance=d, unbanded_s=unb_s)
+    if not skipped("native"):
+        summary["long_nw"].update(native_backends(
+            et, "long_nw", {"nw_distance_long": lambda: et.nw_distance_long(
+                qb, tb, backend="native")}, {"nw_distance_long": d}))
     log(f"long_nw: distance {d} (k contract holds), equal to the unbanded "
         f"wavefront ({unb_s:.2f} s)")
     # The break-even at BREAK_LEN: the banded wavefront against the one-lane
@@ -2563,6 +2631,14 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
              f"{want[0]}, {want[1][:5]}")
     summary["long_shw"].update(best=locs[0], n_locations=len(locs[1]),
                                unbanded_stream_s=stream_s)
+    if not skipped("native"):
+        # About a minute of one host core (the SHW band spans every row
+        # within k of the diagonal and below it): main runs it beside
+        # phases 24-26, after phase 13's timings.
+        deferred["long_shw"] = lambda: native_backends(et, "long_shw", {
+            "shw_best_long": lambda: et.shw_best_long(qb, sb,
+                                                      backend="native")},
+            {"shw_best_long": best})
     log(f"long_shw: best {locs[0]} at {len(locs[1])} ends, equal to the "
         f"unbanded stream ({stream_s:.2f} s)")
 
@@ -2582,6 +2658,11 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
         fail(f"long_hw: {locs} != align's {ref['editDistance']}, "
              f"{ref['locations']}")
     summary["long_hw"].update(best=locs[0], ends=locs[1], align_s=ref_s)
+    if not skipped("native"):
+        summary["long_hw"].update(native_backends(et, "long_hw", {
+            "semiglobal_locations_long": lambda: et.semiglobal_locations_long(
+                rb, hb, mode="HW", backend="native")},
+            {"semiglobal_locations_long": locs}))
     log(f"long_hw: best {locs[0]} at ends {locs[1]}, equal to align's "
         f"per-lane route ({ref_s:.1f} s)")
 
@@ -2599,8 +2680,9 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
                                 distance_only_s=dist_s)
     log(f"long_path: CIGAR valid, distance {out['editDistance']}; "
         f"distance alone {dist_s:.2f} s")
-    # The device half-sweeps against the host's on a smaller pair, the
-    # gate lowered so three Hirschberg levels take the card.
+    # The card's half-sweeps with the native engine below them against the
+    # host alone on a smaller pair, the gate lowered so three Hirschberg
+    # levels take the card.
     eq_q = rng.randint(0, 4, LONG_PATH_EQ_LEN).astype(np.int32)
     eq_t = edit_copy(rng, eq_q, LONG_EDITS, 4)
     cq, ct, alpha = transform_sequences(acgt[eq_q].tobytes(),
@@ -2621,12 +2703,15 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
         fail("long_path: the lowered gate took no half-sweep on the card")
     if not np.array_equal(ops_dev, ops_host):
         fail(f"long_path: {LONG_PATH_EQ_LEN} bp ops differ between the "
-             "device and the host half-sweeps")
+             "card's half-sweeps and the host's")
     summary["long_path"].update(eq_pair_len=LONG_PATH_EQ_LEN,
                                 eq_device_s=dev_s, eq_host_s=host_s,
                                 eq_half_sweep_launches=counts["wavefront"])
-    log(f"long_path: {LONG_PATH_EQ_LEN} bp ops byte-equal, device "
-        f"half-sweeps {dev_s:.2f} s vs host {host_s:.2f} s")
+    log(f"long_path: {LONG_PATH_EQ_LEN} bp ops byte-equal, card "
+        f"half-sweeps {dev_s:.2f} s vs the host alone {host_s:.2f} s")
+    if not skipped("native"):
+        summary["long_path"]["native_vs_bigint"] = native_vs_bigint(
+            native_rng, acgt, et)
 
     # 20. One long pair on the score-stream route: substitutions only, so
     # the Hamming bound keeps the pair under the wavefront gate, and past
@@ -2683,7 +2768,413 @@ def long_pair_phases(rng, dev, ck, rec, et, acgt):
     log(f"segmented stream: best {got[0]} at {got[1]} in {seg_s:.2f} s, "
         "equal to semiglobal_locations_long")
     torch.cuda.empty_cache()
-    return summary, calls
+    return summary, calls, deferred
+
+
+def adaptive_sweep(rng, dev, ck, card, build_s, lib_path, reps) -> dict:
+    """--adaptive-sweep: the value-adaptive reduce (hw_adaptive) alone.
+    ptxas's registers and spills for its instantiations, its two phase-2
+    checks (check_adaptive_kernel, check_adaptive_cluster), then phase 23's
+    operands (ADAPT_READS reads of ADAPT_QLEN bp in one shared
+    ADAPT_TLEN-bp target) at each k of ADAPT_KS with the cluster capped at
+    16, 8, 4, 2 and 1 (each cap's outputs and word-columns equal the
+    first's, lanes within k equal the unbanded reduce_lanes), the unbanded
+    reduce_lanes on the same operands, and the first and last k with band
+    updates every 8, 64 and 512 columns (the boundaries' share of the
+    time).  Device times by launch_ms; reps timed calls each."""
+    import torch
+    ptxas, take = [], False
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            take = "hw_adaptive_cluster_kernel" in line
+        if take:
+            ptxas.append(line.strip())
+    for line in ptxas:
+        log(f"ptxas: {line}")
+    for check in (check_adaptive_kernel, check_adaptive_cluster):
+        t1 = time.perf_counter()
+        check(rng, dev, ck)
+        log(f"{check.__name__}: equal, {time.perf_counter() - t1:.1f} s")
+
+    t_ids = rng.randint(0, 4, ADAPT_TLEN).astype(np.int32)
+    reads, _ = make_batch(rng, t_ids, 4, ADAPT_READS, ADAPT_QLEN, 0,
+                          rate=0.06)
+    nw = -(-ADAPT_QLEN // 32)
+    W = nw * 32 - ADAPT_QLEN
+    peq = ck.build_peq_device(
+        torch.from_numpy(reads).to(dev),
+        torch.full((ADAPT_READS,), ADAPT_QLEN, dtype=torch.int32,
+                   device=dev), 4, nw)
+    n = ADAPT_READS
+    tg = torch.full((1, ADAPT_TLEN + W), 4, dtype=torch.int32, device=dev)
+    tg[0, :ADAPT_TLEN] = torch.from_numpy(t_ids).to(dev)
+    lo = torch.full((n,), W, dtype=torch.int32, device=dev)
+    hi = lo + ADAPT_TLEN
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    lanes = (peq, tg, lo, hi, rows, rows * 0)
+    unbanded_ms = launch_ms(ck, lambda: ck.reduce_lanes(*lanes, 0), reps)
+    full = ck.reduce_lanes(*lanes, 0)
+    result = dict(card=card, build_s=build_s, ptxas=ptxas,
+                  unbanded_ms=unbanded_ms, ks={})
+    tiles = n // 1024
+    for k in ADAPT_KS:
+        first, per_c = None, {}
+        for cap in (16, 8, 4, 2, 1):
+            live = torch.zeros(tiles, dtype=torch.int64, device=dev)
+            plan = {}
+            out = ck.hw_adaptive(*lanes, k, 0, live=live, cluster=cap,
+                                 plan=plan)
+            got = [o.cpu() for o in out] + [live.cpu()]
+            if first is None:
+                first = got
+                within = full[0].cpu() <= k
+                for g, w in zip(got, full[:3]):
+                    if not torch.equal(g[within], w.cpu()[within]):
+                        fail(f"k={k}: a lane within k differs from the "
+                             "unbanded reduce")
+                if (got[0][~within] <= k).any():
+                    fail(f"k={k}: a lane above k reported <= k")
+            elif not all(torch.equal(a, b) for a, b in zip(got, first)):
+                fail(f"k={k} cluster<={cap}: differs from the first cap")
+            if plan["cluster"] != cap:
+                continue                     # the card took a smaller C
+            ms = launch_ms(ck, lambda: ck.hw_adaptive(
+                *lanes, k, 0, cluster=cap), reps)
+            # call_plan's bound of an hw_adaptive call.
+            live_cols = int(first[3].sum())
+            nbytes, _ = lane_call_cost(peq.shape[1] * nw, tg, hi, rows,
+                                       rows * 0, 4, 0, n * 3 * 4)
+            ops = (live_cols * 1024 * OPS_PER_WORD
+                   + int(hi.long().clamp(0, tg.shape[1]).sum())
+                   * OPS_PER_COLUMN)
+            per_c[cap] = dict(ms=ms, plan=plan,
+                              bound_ms=bound(nbytes, ops)[0],
+                              live_word_cols=live_cols)
+            log(f"k={k} C={cap}: {ms:.2f} ms, plan {plan}, bound "
+                f"{per_c[cap]['bound_ms']:.2f} ms")
+        result["ks"][k] = per_c
+    result["unbanded_lanes_within"] = {
+        k: int((full[0] <= k).sum()) for k in ADAPT_KS}
+    result["groups"] = {}
+    for k in (ADAPT_KS[0], ADAPT_KS[-1]):
+        for group in (8, 64, 512):
+            live = torch.zeros(tiles, dtype=torch.int64, device=dev)
+            ck.hw_adaptive(*lanes, k, 0, group, live=live)
+            ms = launch_ms(ck, lambda: ck.hw_adaptive(*lanes, k, 0, group),
+                           reps)
+            result["groups"][f"k{k}_g{group}"] = dict(
+                ms=ms, boundaries=-(-ADAPT_TLEN // group),
+                live_word_cols=int(live.sum()))
+            log(f"k={k} group={group}: {ms:.2f} ms, {int(live.sum())} live "
+                "word-columns")
+    return result
+
+
+# --------------------------------------------------------------------------
+# The native engine's routes and the CLI (phases 1, 3, 14-17, 24-26)
+# --------------------------------------------------------------------------
+
+
+def skipped(name: str) -> bool:
+    """Whether --skip-checks named this check (run on an earlier commit
+    that lacks what it checks)."""
+    return name in SKIP
+
+
+SKIP: set = set()
+
+
+@contextlib.contextmanager
+def without_native():
+    """The port's loader as without the library: every route takes its
+    Python fallback (the big-int engine)."""
+    from edlib_tpu_torch import native_loader as nl
+    saved = nl.get_lib, nl.get_ext
+    nl.get_lib = nl.get_ext = lambda: None
+    try:
+        yield
+    finally:
+        nl.get_lib, nl.get_ext = saved
+
+
+def build_native():
+    """Build and load the native library and its extension, each in a
+    thread of its own (beside nvcc); returns {loaded, build_s}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from edlib_tpu_torch import native_loader as nl
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        lib, ext = pool.submit(nl.get_lib), pool.submit(nl.get_ext)
+        loaded = lib.result() is not None and ext.result() is not None
+    return dict(loaded=loaded, build_s=time.perf_counter() - t0)
+
+
+def read_upload(dev, read_ids, reps: int = 5) -> dict:
+    """Phase 3's read upload both ways on the same reads: the uint8 symbols
+    with int32 lengths that map_reads sends, and the JAX package's 2-bit
+    buffer (edlib_tpu/mapping.py:674-686: 4 symbols a byte and the length
+    in two bytes, packed on the host, unpacked on the card with shifts and
+    masks), which the port declines; bytes moved and the median host wall
+    of each to a synchronise.  The two must give equal tensors."""
+    import torch
+    q_np = np.ascontiguousarray(np.stack(read_ids), np.uint8)
+    lens = np.full(len(read_ids), q_np.shape[1], np.int32)
+    B, qmax = q_np.shape
+    nb4 = -(-qmax // 4)
+
+    def plain():
+        return (torch.from_numpy(q_np).to(dev),
+                torch.from_numpy(lens).to(dev))
+
+    def pack():
+        pad4 = np.zeros((B, nb4 * 4), np.uint8)
+        pad4[:, :qmax] = q_np
+        buf = np.empty((B, nb4 + 2), np.uint8)
+        buf[:, :nb4] = (pad4[:, 0::4] | (pad4[:, 1::4] << 2)
+                        | (pad4[:, 2::4] << 4) | (pad4[:, 3::4] << 6))
+        buf[:, nb4], buf[:, nb4 + 1] = lens & 0xFF, lens >> 8
+        return buf
+
+    def packed():
+        buf = torch.from_numpy(pack()).to(dev)
+        shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=dev)
+        q = ((buf[:, :nb4, None] >> shifts) & 3).reshape(B, nb4 * 4)
+        return (q[:, :qmax].contiguous(),
+                buf[:, nb4].to(torch.int32)
+                | (buf[:, nb4 + 1].to(torch.int32) << 8))
+
+    got, want = packed(), plain()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("the 2-bit upload unpacks to other reads than the plain one")
+    out = dict(plain_bytes=q_np.nbytes + lens.nbytes,
+               packed_bytes=pack().nbytes)
+    for label, fn in (("plain", plain), ("packed", packed)):
+        walls = sorted(timed(fn)[1] for _ in range(reps))
+        out[f"{label}_ms"] = walls[reps // 2] * 1e3
+    return out
+
+
+def native_backends(et, label, calls, want) -> dict:
+    """Phases 14-16 again with backend="native" (the native engine's k
+    ladder and banded searches on the host): each answer must equal the
+    card's; each wall."""
+    out = {}
+    for name, call in calls.items():
+        got, secs = timed(call)
+        if got != want[name]:
+            fail(f"{label}: backend='native' {name} gives {got}, the card "
+                 f"{want[name]}")
+        out[f"{name}_native_s"] = secs
+    log(f"{label}: backend='native' equals the card's answers "
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in out.items())})")
+    return out
+
+
+def in_background(fn):
+    """Start fn() in a thread of its own (the native engine releases the
+    interpreter lock); returns a join() that gives fn's result or raises
+    what it raised."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:       # SystemExit from fail() included
+            box["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    return join
+
+
+def native_vs_bigint(rng, acgt, et) -> dict:
+    """Phase 17's native ops against the big-int engine's on a
+    NATIVE_CHECK_LEN-bp pair with 3% edits (past the 1 MB traceback
+    estimate: the Hirschberg split in C against the one in Python)."""
+    from edlib_tpu_torch.encode import transform_sequences
+    from edlib_tpu_torch.path import hirschberg as thb
+    q = rng.randint(0, 4, NATIVE_CHECK_LEN).astype(np.int32)
+    t = edit_copy(rng, q, LONG_EDITS, 4)
+    cq, ct, alpha = transform_sequences(acgt[q].tobytes(), acgt[t].tobytes())
+    eq = np.eye(len(alpha), dtype=bool)
+    if thb._traceback_mem_estimate(len(cq), len(ct)) < \
+            thb._TRACEBACK_MEM_LIMIT:
+        fail("the native-vs-big-int pair is under the traceback estimate")
+    d = et.nw_distance_long(acgt[q].tobytes(), acgt[t].tobytes(),
+                            backend="native")
+    ops, native_s = timed(lambda: thb.obtain_alignment(cq, ct, eq, d))
+    with without_native():
+        big, bigint_s = timed(lambda: thb.obtain_alignment(cq, ct, eq, d))
+    if not np.array_equal(ops, big):
+        fail(f"{NATIVE_CHECK_LEN} bp: the native ops differ from the big-int "
+             "engine's")
+    log(f"long_path: {NATIVE_CHECK_LEN} bp native ops equal the big-int "
+        f"engine's ({native_s:.3f} s vs {bigint_s:.2f} s)")
+    return dict(pair_len=NATIVE_CHECK_LEN, distance=d, native_s=native_s,
+                bigint_s=bigint_s)
+
+
+def host_route_phases(rng, dev, ck, rec, et, acgt, hw_batch, hw_out):
+    """Phases 24-25, the host routes at full width:
+
+    24. align_batch NW task="path" on PATH_HOST_PAIRS pairs of
+        PATH_HOST_LEN bp with 3% edits: every window is past 32,767
+        columns, so every one takes the PATH host route (the native
+        engine, pooled); every CIGAR valid, PATH_HOST_BIGINT pairs' ops
+        equal to the big-int engine's.
+    25. align_batch(backend="host") on HOST_READS of phase 7's reads,
+        task "locations": equal to phase 7's device results, no launch.
+
+    Returns the e2e summary."""
+    from edlib_tpu_torch import batch as tb
+    from edlib_tpu_torch.cigar import cigar_to_alignment
+    from edlib_tpu_torch.encode import transform_sequences
+    from edlib_tpu_torch.path import hirschberg as thb
+    summary = {}
+    pq = [rng.randint(0, 4, PATH_HOST_LEN).astype(np.int32)
+          for _ in range(PATH_HOST_PAIRS)]
+    pt = [edit_copy(rng, q, LONG_EDITS, 4) for q in pq]
+    qs, ts = to_bytes(pq, acgt), [acgt[t].tobytes() for t in pt]
+    out, counts, _, cold, warm, routes = drive(
+        ck, rec, "path_host", lambda: et.align_batch(qs, ts, task="path"),
+        ())
+    if routes != {"capture": 0, "host": PATH_HOST_PAIRS}:
+        fail(f"path_host: PATH windows took routes {routes}, not "
+             f"{PATH_HOST_PAIRS} on the host route")
+    check_cigars("path_host", out, pq, pt, shared=False)
+    bigint_s = []
+    for i in range(PATH_HOST_BIGINT):
+        cq, ct, alpha = transform_sequences(qs[i], ts[i])
+        with without_native():
+            ops, secs = timed(lambda: thb.obtain_alignment(
+                cq, ct, np.eye(len(alpha), dtype=bool),
+                out[i]["editDistance"]))
+        if not np.array_equal(ops, cigar_to_alignment(out[i]["cigar"])):
+            fail(f"path_host: pair {i}'s ops differ from the big-int "
+                 "engine's")
+        bigint_s.append(secs)
+    summary["path_host"] = dict(
+        pairs=PATH_HOST_PAIRS, pair_len=PATH_HOST_LEN, cold_s=cold,
+        warm_s=warm, routes=routes, launches={
+            k: v for k, v in counts.items() if v}, bigint_s=bigint_s,
+        threads=os.cpu_count())
+    log(f"path_host: {PATH_HOST_PAIRS} windows on the host route, CIGARs "
+        f"valid, {PATH_HOST_BIGINT} equal the big-int engine's "
+        f"({', '.join(f'{s:.1f}' for s in bigint_s)} s); warm {warm:.2f} s")
+    tb.reset_path_route_counts()
+
+    hw_q, hw_t = hw_batch
+    n = min(HOST_READS, len(hw_q))
+    got, secs, _, counts = recorded(ck, rec, lambda: et.align_batch(
+        hw_q[:n], hw_t, mode="HW", task="locations", backend="host"))
+    if any(counts.values()):
+        fail(f"host_backend launched {counts}")
+    if got != hw_out[:n]:
+        i = next(j for j in range(n) if got[j] != hw_out[j])
+        fail(f"host_backend: read {i} gives {got[i]}, the card {hw_out[i]}")
+    _, warm = timed(lambda: et.align_batch(hw_q[:n], hw_t, mode="HW",
+                                           task="locations", backend="host"))
+    summary["host_backend"] = dict(reads=n, cold_s=secs, warm_s=warm)
+    log(f"host_backend: {n} reads equal phase 7's device results "
+        f"({secs:.2f} s cold, {warm:.2f} s warm, no launch)")
+    return summary
+
+
+def cli_phase(ck, hw_ids, t_hw, acgt) -> dict:
+    """Phase 26: the CLI on FASTA files of phase 7's first CLI_READS reads
+    and its 100 kbp target, in this process (main(argv), stdout captured)
+    under --backend auto and host, byte-equal but for the Cpu time line:
+    -m HW -l and -n 10 -k 20 on CLI_READS reads (auto: the device batch,
+    which must launch kernels; host: none), -m HW -p -f CIG_EXT on
+    CLI_PATH_READS (auto takes the host loop below 256 queries, so the
+    device batch runs as --backend jax); and one python -m
+    edlib_tpu_torch.cli run, its stdout equal to the in-process one."""
+    import io
+    import subprocess
+    import tempfile
+
+    import torch
+    from edlib_tpu_torch import cli as tcli
+
+    def fasta(path, seqs):
+        path.write_bytes(b"".join(b">s%d\n%s\n" % (i, s)
+                                  for i, s in enumerate(seqs)))
+        return str(path)
+
+    def masked(out: bytes) -> bytes:
+        return b"\n".join(b"Cpu time" if ln.startswith(b"Cpu time") else ln
+                          for ln in out.split(b"\n"))
+
+    def run(argv):
+        buf = io.StringIO()
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tcli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"cli {argv}: exit code {rc}")
+        return (masked(buf.getvalue().encode("latin-1")), secs,
+                sum(ck.launch_counts().values()))
+
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        reads = to_bytes(hw_ids[:CLI_READS], acgt)
+        q512 = fasta(d / "q.fa", reads)
+        q64 = fasta(d / "q64.fa", reads[:CLI_PATH_READS])
+        tgt = fasta(d / "t.fa", [acgt[t_hw].tobytes()])
+        for label, flags, q, device_backend in (
+                ("hw_l", ["-m", "HW", "-l"], q512, "auto"),
+                ("hw_path", ["-m", "HW", "-p", "-f", "CIG_EXT"], q64, "jax"),
+                ("best_n", ["-m", "HW", "-n", "10", "-k", "20"], q512,
+                 "auto")):
+            dev_out, dev_s, dev_launches = run(
+                flags + ["--backend", device_backend, q, tgt])
+            host_out, host_s, host_launches = run(
+                flags + ["--backend", "host", q, tgt])
+            if not dev_launches or host_launches:
+                fail(f"cli {label}: {dev_launches} launches under "
+                     f"{device_backend}, {host_launches} under host")
+            if dev_out != host_out:
+                fail(f"cli {label}: --backend {device_backend} and host "
+                     "print different bytes")
+            summary[label] = {f"{device_backend}_s": dev_s, "host_s": host_s,
+                              f"{device_backend}_launches": dev_launches,
+                              "out_bytes": len(dev_out)}
+            if label == "hw_path":
+                auto_out, auto_s, auto_launches = run(flags + [q, tgt])
+                if auto_out != host_out or auto_launches:
+                    fail("cli hw_path: auto on 64 queries is not the host "
+                         "loop")
+                summary[label].update(auto_s=auto_s)
+            if label == "hw_l":
+                hw_l_out = dev_out
+            log(f"cli {label}: {device_backend} ({dev_s:.2f} s, "
+                f"{dev_launches} launches) and host ({host_s:.2f} s) print "
+                f"the same {len(dev_out)} bytes")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "edlib_tpu_torch.cli", "-m", "HW", "-l",
+             q512, tgt], cwd=REPO, capture_output=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+    if proc.returncode != 0 or masked(proc.stdout) != hw_l_out:
+        fail(f"cli: python -m edlib_tpu_torch.cli (rc {proc.returncode}) "
+             f"prints other bytes than main(argv): "
+             f"{proc.stderr.decode()[-2000:]}")
+    summary["subprocess_s"] = sub_s
+    log(f"cli: python -m edlib_tpu_torch.cli prints main(argv)'s bytes "
+        f"({sub_s:.1f} s)")
+    return summary
 
 
 # --------------------------------------------------------------------------
@@ -2870,7 +3361,27 @@ def adaptive_phase(rng, dev, ck, rec):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--skip-checks", default="", metavar="NAME,...",
+                    help="checks to leave out, for a run on an earlier "
+                         "commit that lacks them: phase-2 check functions "
+                         "(e.g. check_adaptive_cluster) and native, "
+                         "read_upload, host_routes, cli")
+    ap.add_argument("--skip-plans", default="", metavar="NAME,...",
+                    help="kernels whose reported plans (plan=, NEW_FORMS) "
+                         "an earlier commit lacks")
+    ap.add_argument("--adaptive-sweep", action="store_true",
+                    help="only build and run the adaptive reduce's sweep "
+                         "(its checks, phase 23's operands at each "
+                         "cluster cap and band-update group); prints one "
+                         "JSON line")
+    ap.add_argument("--reps", type=int, default=3,
+                    help="timed repeats of --adaptive-sweep")
     args = ap.parse_args(argv)
+    global PLANNED
+    SKIP.update(n for n in args.skip_checks.split(",") if n)
+    for name in (n for n in args.skip_plans.split(",") if n):
+        NEW_FORMS.pop(name, None)
+        PLANNED = tuple(n for n in PLANNED if n != name)
 
     import torch
     if not torch.cuda.is_available():
@@ -2896,7 +3407,13 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     rng = np.random.RandomState(args.seed)
 
-    # 1. Build.
+    # 1. Build: nvcc, and g++ for the native engine in threads beside it.
+    native = {}
+    native_thread = None
+    if not skipped("native") and not args.adaptive_sweep:
+        native_thread = threading.Thread(
+            target=lambda: native.update(build_native()))
+        native_thread.start()
     t0 = time.perf_counter()
     lib_path = _build.build()
     build_s = time.perf_counter() - t0
@@ -2904,11 +3421,20 @@ def main(argv=None) -> int:
         if "entry function" in line or "Used" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
     log(f"built {lib_path.name} in {build_s:.1f} s on {card}")
+    if args.adaptive_sweep:
+        print(json.dumps(adaptive_sweep(rng, dev, ck, card, build_s,
+                                        lib_path, args.reps)))
+        return 0
+    if native_thread is not None:
+        native_thread.join()
+        if not native["loaded"]:
+            fail("the native engine (native_loader) did not build or load")
+        log(f"native engine: {native}")
 
     # 2. Kernels vs plain versions, small shapes, each check's seconds
-    # logged.  The checks added since PR 7 draw from generators of their
-    # own (--seed + 1, ..., + 7), so the paths below see the same data as
-    # before.
+    # logged (--skip-checks leaves a check out).  The checks after the
+    # first five draw from generators of their own (--seed + 1, ..., + 7),
+    # so the paths below see the same data whichever of those run.
     phase2_s = {}
     extra = [np.random.RandomState(args.seed + i)
              for i in (1, 2, 3, 4, 5, 6, 7)]
@@ -2928,6 +3454,9 @@ def main(argv=None) -> int:
                        (check_capture_words, extra[4]),
                        (check_hits_bitplane_split, extra[5]),
                        (check_adaptive_cluster, extra[6])):
+        if skipped(check.__name__):
+            log(f"{check.__name__}: skipped")
+            continue
         t0 = time.perf_counter()
         check(gen, dev, ck)
         phase2_s[check.__name__] = time.perf_counter() - t0
@@ -2977,7 +3506,12 @@ def main(argv=None) -> int:
     if not (np.array_equal(best, best2) and np.array_equal(pos, pos2)):
         fail("a second map_reads call on the same batch disagrees")
     prof = profile_call(lambda: edlib_tpu_torch.map_reads(reads, target,
-                                                           k=-1))
+                                                           k=-1),
+                        groups={"htod": "HtoD"})
+    upload = None if skipped("read_upload") else read_upload(dev, read_ids)
+    log(f"main path sigma=4: warm {warm_s:.4f} s, host-to-device copies "
+        f"{prof['htod_device_ms']:.3f} ms in the profile; read upload "
+        f"{upload}")
     if best.shape != (B,) or (best < 0).any() or (best > QLEN).any():
         fail("map_reads returned out-of-range distances")
     r_ids, t_enc, sigma, _, t_key = mp._prep(reads, target)
@@ -3211,8 +3745,9 @@ def main(argv=None) -> int:
     del eq_ids, eq_win, st_ids, st_win
 
     # 14-17 and 20. Long single pairs, each through its public entry points.
-    long_pairs, long_calls = long_pair_phases(
-        rng, dev, ck, rec, edlib_tpu_torch, acgt)
+    long_pairs, long_calls, deferred = long_pair_phases(
+        rng, dev, ck, rec, edlib_tpu_torch, acgt,
+        np.random.RandomState(args.seed + 8))
 
     # 21-22. The sharded API on a 2 x 2 grid of the card.
     grid = tpar.make_alignment_mesh(GRID_DP * GRID_SP, dp=GRID_DP,
@@ -3327,16 +3862,33 @@ def main(argv=None) -> int:
                                          "ms", "plain_ms", "plain_cols",
                                          "cols", "bound_ms", "bound_by",
                                          "calls")})
+
+    # 24-25. The host routes at full width; 26. the CLI; the deferred
+    # backend="native" checks of phases 14-16 beside them on the host, so
+    # that nothing runs beside phase 13's timings.
+    pending = {label: in_background(fn) for label, fn in deferred.items()}
+    host_routes = cli = None
+    if not skipped("host_routes"):
+        host_routes = host_route_phases(
+            rng, dev, ck, rec, edlib_tpu_torch, acgt,
+            (to_bytes(hw_ids, acgt), acgt[t_hw].tobytes()),
+            outs["hw_shared"])
+    if not skipped("cli"):
+        cli = cli_phase(ck, hw_ids, t_hw, acgt)
+    for label, join in pending.items():
+        long_pairs[label].update(join())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {
         "card": card, "reads": B, "qlen": QLEN, "target_len": len(t_ids),
         "sigma": 4, "k": -1, "map_reads_cold_s": cold_s,
         "map_reads_warm_s": warm_s, "full_shared_sweep_s": sweep_s,
         "sigma100_target_len": len(t100), "sigma100_map_reads_cold_s":
-        cold100_s, "build_s": build_s, "phase2_s": phase2_s,
-        "warm_profile": prof,
+        cold100_s, "build_s": build_s, "native": native,
+        "phase2_s": phase2_s, "warm_profile": prof, "read_upload": upload,
         "align_batch": phases, "long_pairs": long_pairs,
-        "sharded": sharded, "adaptive": adaptive}}))
+        "sharded": sharded, "adaptive": adaptive,
+        "host_routes": host_routes, "cli": cli,
+        "whole_run_s": time.time() - START}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -36,8 +36,10 @@ Routes, as the JAX package takes them with a device:
   most max_cells() DP cells, int16-sized, sigma+1 within the per-lane
   kernels' cap) take the column-capture kernel and the batched decode and
   walk (path/batched.py), in a batch of any size; every other window takes
-  the host walker or Hirschberg (path/hirschberg.py).  The choice is made
-  by shape before any launch; path_route_counts() counts both.
+  the host route, obtain_alignment (path/hirschberg.py: the native engine,
+  else the host walker or Hirschberg), from 4 windows on a thread pool
+  unless EDLIB_TPU_THREADS is "0" or "1".  The choice is made by shape
+  before any launch; path_route_counts() counts both.
 """
 
 from __future__ import annotations
@@ -50,8 +52,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from edlib_tpu_torch import encode
-from edlib_tpu_torch.align import _neg1_candidate_exists, align
+from edlib_tpu_torch import encode, native_loader
+from edlib_tpu_torch.align import (_host_pool_map, _neg1_candidate_exists,
+                                   _threads_allowed, align)
 from edlib_tpu_torch.ops import cuda_kernel as ck
 from edlib_tpu_torch.ops.sweeper import Sweeper, decode_hit_words
 from edlib_tpu_torch.path import batched as batched_path
@@ -814,11 +817,19 @@ def _fill_paths(results, id_pairs, main_idx, sigma, eq, dev):
             [int(results[i].edit_distance) for i in dev_idx], sigma, eq, dev)
         for i, ops in zip(dev_idx, ops_list):
             results[i].alignment = ops
-    for i in host_idx:
-        q_ids, w_ids = window(i)
-        results[i].alignment = obtain_alignment(q_ids, w_ids, eq,
-                                                int(results[i].edit_distance),
-                                                dev)
+    def host_path(i):
+        results[i].alignment = obtain_alignment(
+            *window(i), eq, int(results[i].edit_distance), dev)
+
+    # Windows are independent and the native reconstruction releases the
+    # interpreter lock, so from 4 windows they share the host's cores, each
+    # window's recursion sequential (edlib_tpu/batch.py:1001-1012).
+    if (len(host_idx) >= 4 and native_loader.available()
+            and _threads_allowed()):
+        _host_pool_map(host_path, host_idx)
+    else:
+        for i in host_idx:
+            host_path(i)
     for i in dev_idx + host_idx:
         results[i].alignment_length = len(results[i].alignment)
     _PATH_ROUTES["capture"] += len(dev_idx)

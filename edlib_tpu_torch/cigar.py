@@ -1,8 +1,9 @@
 """CIGAR encoding/decoding (edlibAlignmentToCigar, edlib.cpp:303-350).
 
-Host-side numpy, copied from the JAX package: run-length encoding over the
-mapped characters, the same strings as the reference's per-op loop.  Ops
-outside 0..3 raise ValueError (the reference returns NULL,
+Copied from the JAX package: the native engine's encoder where it is loaded
+(native_loader.cigar_encode_native), else run-length encoding over the
+mapped characters in numpy; both give the reference's per-op loop's
+strings.  Ops outside 0..3 raise ValueError (the reference returns NULL,
 edlib.cpp:334-336).
 """
 
@@ -13,6 +14,7 @@ from typing import Union
 
 import numpy as np
 
+from edlib_tpu_torch import native_loader
 from edlib_tpu_torch.types import CigarFormat
 
 _EXTENDED_CHARS = np.array(list("=IDX"))
@@ -31,6 +33,10 @@ def alignment_to_cigar(alignment: Union[np.ndarray, list],
         return ""
     if ops.min() < 0 or ops.max() > 3:
         raise ValueError("alignment contains invalid op codes (must be 0..3)")
+    native = native_loader.cigar_encode_native(
+        ops, cigar_format == CigarFormat.EXTENDED)
+    if native is not None:
+        return native
     chars = (_STANDARD_CHARS if cigar_format == CigarFormat.STANDARD
              else _EXTENDED_CHARS)[ops]
     boundaries = np.nonzero(chars[1:] != chars[:-1])[0] + 1

@@ -82,7 +82,12 @@ def transform_sequences(query: bytes, target: bytes
     first-appearance order, query first (transformSequences,
     edlib.cpp:1417-1462).  Returns (query_ids uint8, target_ids uint8,
     alphabet bytes where alphabet[i] is the original char with ordinal i).
+    The native engine's table passes where it is loaded, else numpy.
     """
+    from edlib_tpu_torch import native_loader
+    out = native_loader.transform_native(bytes(query), bytes(target))
+    if out is not None:
+        return out
     q = np.frombuffer(query, dtype=np.uint8)
     t = np.frombuffer(target, dtype=np.uint8)
     letter_idx = np.full(MAX_ALPHABET, -1, dtype=np.int16)

@@ -7,8 +7,9 @@ edlib's, including the -1-above-k convention when k >= 0.
 
 backend: "auto" and "wavefront" run the wavefront on ``device`` (the card,
 or with device="cpu" the kernels' plain PyTorch versions); "native" runs the
-port's host big-int engine (ops/host.py), which takes the place of the JAX
-package's native C++ engine.
+JAX package's host routes: the native C++ engine's banded k ladder
+(native_loader.py) and its banded semiglobal search, else the host big-int
+engine (ops/host.py).
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ _BACKENDS = ("auto", "wavefront", "native")
 
 
 def _prep(query, target, backend: str, device):
-    """(q_ids, t_ids, sigma, torch device) after the alphabet transform."""
+    """(q_ids, t_ids, sigma, torch device) after the alphabet transform;
+    the "native" backend runs on the host and takes no device."""
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got "
                          f"{backend!r}")
-    dev = hw.resolve_device(device)
+    dev = None if backend == "native" else hw.resolve_device(device)
     qb = query.encode() if isinstance(query, str) else bytes(query)
     tb = target.encode() if isinstance(target, str) else bytes(target)
     q_ids, t_ids, alphabet = encode.transform_sequences(qb, tb)
@@ -34,12 +36,10 @@ def _prep(query, target, backend: str, device):
 
 
 def _host_semiglobal(q_ids, t_ids, sigma: int, mode: str, k: int):
-    """(best, all minimal end positions) on the host engine."""
-    from edlib_tpu_torch.align import _filter_locations
-    from edlib_tpu_torch.ops import host
-    peq = encode.build_peq_bigint(q_ids, np.eye(sigma, dtype=bool))
-    scores = host.semiglobal_scores(peq, t_ids, len(q_ids), mode)
-    return _filter_locations(scores, len(q_ids), float("inf") if k < 0 else k)
+    """(best, all minimal end positions) on the host engines."""
+    from edlib_tpu_torch.align import _INF, _semiglobal_best_positions
+    return _semiglobal_best_positions(q_ids, t_ids, np.eye(sigma, dtype=bool),
+                                      mode, _INF if k < 0 else k)
 
 
 def nw_distance_long(query, target, k: int = -1, backend: str = "auto",
@@ -53,10 +53,9 @@ def nw_distance_long(query, target, k: int = -1, backend: str = "auto",
         d = max(qlen, tlen)
         return d if k < 0 or d <= k else -1
     if backend == "native":
-        from edlib_tpu_torch.ops import host
-        peq = encode.build_peq_bigint(q_ids, np.eye(sigma, dtype=bool))
-        d = int(host.nw_run(peq, t_ids, qlen)[0].score)
-        return d if k < 0 or d <= k else -1
+        from edlib_tpu_torch.align import _INF, _nw_score_host
+        return _nw_score_host(q_ids, t_ids, np.eye(sigma, dtype=bool),
+                              _INF if k < 0 else k)
     from edlib_tpu_torch.ops.wavefront import BandedWavefront
     return BandedWavefront(device=dev).nw_distance(q_ids, t_ids, sigma, k=k)
 
