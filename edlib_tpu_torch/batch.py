@@ -65,24 +65,24 @@ from edlib_tpu_torch.types import (
     AlignResult,
     AlignTask,
 )
+from edlib_tpu_torch.utils import profiling
 
 _INF = float("inf")
 _CHUNK = 256               # the JAX package's scan grain (band schedule)
 _BIG_SENTINEL = 0x3FFFFFFF
-# PATH windows per route since the last reset: the capture kernel and the
-# batched decode and walk on the card, or the host walker / Hirschberg.
-_PATH_ROUTES = {"capture": 0, "host": 0}
 
 
 def path_route_counts() -> dict:
     """{"capture": windows, "host": windows} reconstructed since the last
-    reset_path_route_counts()."""
-    return dict(_PATH_ROUTES)
+    reset_path_route_counts(): the capture kernel and the batched decode
+    and walk on the card, or the host walker / Hirschberg (the counters
+    path_route.capture and path_route.host)."""
+    return {r: profiling.counter("path_route." + r)
+            for r in ("capture", "host")}
 
 
 def reset_path_route_counts() -> None:
-    for name in _PATH_ROUTES:
-        _PATH_ROUTES[name] = 0
+    profiling.reset("path_route.")
 
 
 def _pow2_at_least(x: int, floor: int = 1) -> int:
@@ -832,8 +832,8 @@ def _fill_paths(results, id_pairs, main_idx, sigma, eq, dev):
             host_path(i)
     for i in dev_idx + host_idx:
         results[i].alignment_length = len(results[i].alignment)
-    _PATH_ROUTES["capture"] += len(dev_idx)
-    _PATH_ROUTES["host"] += len(host_idx)
+    profiling.count("path_route.capture", len(dev_idx))
+    profiling.count("path_route.host", len(host_idx))
 
 
 def _fill_start_locations(results, id_pairs, main_idx, mode, sigma, eq,

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from edlib_tpu_torch import encode
-from edlib_tpu_torch.utils import hw
+from edlib_tpu_torch.utils import hw, profiling
 
 _BACKENDS = ("auto", "wavefront", "native")
 
@@ -46,18 +46,24 @@ def nw_distance_long(query, target, k: int = -1, backend: str = "auto",
                      device=None) -> int:
     """NW edit distance of one long pair; -1 when k >= 0 and the distance
     exceeds k.  The banded wavefront with a dynamic-k ladder capped at the
-    substitution bound."""
-    q_ids, t_ids, sigma, dev = _prep(query, target, backend, device)
-    qlen, tlen = len(q_ids), len(t_ids)
-    if qlen == 0 or tlen == 0:
-        d = max(qlen, tlen)
-        return d if k < 0 or d <= k else -1
-    if backend == "native":
-        from edlib_tpu_torch.align import _INF, _nw_score_host
-        return _nw_score_host(q_ids, t_ids, np.eye(sigma, dtype=bool),
-                              _INF if k < 0 else k)
-    from edlib_tpu_torch.ops.wavefront import BandedWavefront
-    return BandedWavefront(device=dev).nw_distance(q_ids, t_ids, sigma, k=k)
+    substitution bound.  Spans: nw_distance_long (the root), nw_long.prep
+    (the transform and the cap), then the ladder's (ops/wavefront.py)."""
+    with profiling.span("nw_distance_long"):
+        with profiling.span("nw_long.prep"):
+            q_ids, t_ids, sigma, dev = _prep(query, target, backend, device)
+            qlen, tlen = len(q_ids), len(t_ids)
+            cap = (encode.nw_upper_bound(q_ids, t_ids)
+                   if backend != "native" and qlen and tlen else None)
+        if qlen == 0 or tlen == 0:
+            d = max(qlen, tlen)
+            return d if k < 0 or d <= k else -1
+        if backend == "native":
+            from edlib_tpu_torch.align import _INF, _nw_score_host
+            return _nw_score_host(q_ids, t_ids, np.eye(sigma, dtype=bool),
+                                  _INF if k < 0 else k)
+        from edlib_tpu_torch.ops.wavefront import BandedWavefront
+        return BandedWavefront(device=dev).nw_distance(q_ids, t_ids, sigma,
+                                                       k=k, cap=cap)
 
 
 def shw_best_long(query, target, k: int = -1, backend: str = "auto",

@@ -25,6 +25,13 @@ Every route is exact; only speed differs.  An empty read is (0, -1) before
 any routing (0 passes every k).  EDLIB_TPU_QFILTER ("0" off, "1" forced on)
 and EDLIB_TPU_QFILTER_MAXC (candidate budget, skips the auto-tuner) mean
 what they mean to the JAX package.
+
+Spans (utils/profiling, while tracing is on): map_reads (the root),
+map_reads.prep, map_reads.index, qfilter.filter_verify,
+map_reads.stragglers, map_reads.fallback_segmented,
+map_reads.fallback_shared and map_reads.finish; the filtered route counts
+map.reads_live (reads given to the filter) and the stragglers it sends to
+each fallback (map.stragglers_segmented, map.stragglers_shared).
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from edlib_tpu_torch.ops import cuda_kernel as ck
 from edlib_tpu_torch.ops import qfilter as qf
 from edlib_tpu_torch.ops import segmented as seg
 from edlib_tpu_torch.types import AlignMode
-from edlib_tpu_torch.utils import hw
+from edlib_tpu_torch.utils import hw, profiling
 
 _SEG_FB_B = 64             # stragglers given the segmented fallback
 _CHUNK = 256               # the JAX package's scan grain (verify rows)
@@ -123,40 +130,50 @@ def map_reads(reads: Sequence, target, mode="HW", k: int = -1, device=None,
     runs the plain PyTorch versions of the kernels (slow; for tests).
     mesh: a parallel.DeviceGrid to shard HW mapping over (see the module
     docstring)."""
-    grid = None
-    if mesh is not None:
-        from edlib_tpu_torch.parallel.dist import check_grid
-        grid = check_grid(mesh)
-    dev = (grid.first if grid is not None and device is None
-           else hw.resolve_device(device))
-    mode = AlignMode.parse(mode)
-    if mode == AlignMode.NW:
-        raise ValueError("map_reads is for semiglobal modes (HW/SHW)")
-    if isinstance(target, str):
-        target = target.encode()
-    reads_b = [r.encode() if isinstance(r, str) else bytes(r) for r in reads]
-    read_ids, t_ids, sigma, flat, t_key = _prep(reads_b, bytes(target))
-    B = len(reads_b)
-    best = np.full(B, -1, dtype=np.int64)
-    pos = np.full(B, -1, dtype=np.int64)
-    if B == 0 or len(t_ids) == 0:
-        if B and len(t_ids) == 0:
-            # Empty target: best = read length at position -1 (edlib's
-            # empty-sequence convention).
-            for i, r in enumerate(read_ids):
-                if k < 0 or len(r) <= k:
-                    best[i] = len(r)
-        return best, pos
+    with profiling.span("map_reads"):
+        return _map_reads(reads, target, mode, k, device, mesh)
 
-    qlens = np.fromiter((len(r) for r in read_ids), np.int64, B)
-    live = np.nonzero(qlens)[0]
-    # An empty read aligns at cost 0 before any routing: (0, -1), within
-    # every k.
-    best[qlens == 0] = 0
-    if len(live) == 0:
-        return best, pos
-    if len(live) < B:
-        read_ids = [read_ids[i] for i in live]
+
+def _map_reads(reads, target, mode, k, device, mesh):
+    """map_reads under its root span; the spans map_reads.prep run from
+    entry to the first upload, less the index lookup (their later parts in
+    _map_reads_filtered)."""
+    with profiling.span("map_reads.prep"):
+        grid = None
+        if mesh is not None:
+            from edlib_tpu_torch.parallel.dist import check_grid
+            grid = check_grid(mesh)
+        dev = (grid.first if grid is not None and device is None
+               else hw.resolve_device(device))
+        mode = AlignMode.parse(mode)
+        if mode == AlignMode.NW:
+            raise ValueError("map_reads is for semiglobal modes (HW/SHW)")
+        if isinstance(target, str):
+            target = target.encode()
+        reads_b = [r.encode() if isinstance(r, str) else bytes(r)
+                   for r in reads]
+        read_ids, t_ids, sigma, flat, t_key = _prep(reads_b, bytes(target))
+        B = len(reads_b)
+        best = np.full(B, -1, dtype=np.int64)
+        pos = np.full(B, -1, dtype=np.int64)
+        if B == 0 or len(t_ids) == 0:
+            if B and len(t_ids) == 0:
+                # Empty target: best = read length at position -1 (edlib's
+                # empty-sequence convention).
+                for i, r in enumerate(read_ids):
+                    if k < 0 or len(r) <= k:
+                        best[i] = len(r)
+            return best, pos
+
+        qlens = np.fromiter((len(r) for r in read_ids), np.int64, B)
+        live = np.nonzero(qlens)[0]
+        # An empty read aligns at cost 0 before any routing: (0, -1), within
+        # every k.
+        best[qlens == 0] = 0
+        if len(live) == 0:
+            return best, pos
+        if len(live) < B:
+            read_ids = [read_ids[i] for i in live]
     if mode == AlignMode.SHW:
         raw = _map_reads_shw_pruned(read_ids, t_ids, t_key, sigma, k, dev)
     elif grid is not None:
@@ -175,7 +192,8 @@ def map_reads(reads: Sequence, target, mode="HW", k: int = -1, device=None,
                                   flat)
         if raw is None:
             raw = _sweep_reads_shared(read_ids, t_ids, t_key, sigma, 0, dev)
-    best[live], pos[live] = finish(raw[0], raw[1], qlens[live], k)
+    with profiling.span("map_reads.finish"):
+        best[live], pos[live] = finish(raw[0], raw[1], qlens[live], k)
     return best, pos
 
 
@@ -283,67 +301,77 @@ def _map_reads_filtered(read_ids, t_ids, t_key, sigma, k, dev, flat=None,
     tlen = len(t_ids)
     if flag != "1" and (B < 128 or tlen < 32768):
         return None  # filter overhead beats the plain sweep only at size
-    qmax = max(len(r) for r in read_ids)
-    qmin = min(len(r) for r in read_ids)
-    # k < 0: filter at a rung that resolves typical mapping reads; the
-    # rest (best above the rung) fall back to full-target sweeps.
-    rung = k if k >= 0 else max(8, qmax // 10)
-    geom = qf.window_geometry(tlen, qmax, rung)
-    if geom is None:
-        return None
-    L, stride, n_win = geom
-    # The JAX package's presence-table budget, kept so both packages pick
-    # the same (q, maxc).
-    vocab_cap = (6 << 30) // (2 * (n_win + B)) - 1
-    n_words = encode.num_words(qmax)
-    Lv = qf.verify_cols(L, n_words, _CHUNK)
-    env_maxc = os.environ.get("EDLIB_TPU_QFILTER_MAXC")
-    q = qf.choose_q(sigma, qmin, rung, L, max_vocab=vocab_cap,
-                    bump=env_maxc is not None)
-    if q is None:
-        return None
-    if env_maxc is not None:
-        maxc = min(int(env_maxc), n_win)
-        win_pres, win_syms = _target_index_cached(t_ids, t_key, sigma, q, L,
-                                                  stride, n_win, Lv, dev)
-    else:
-        tuned = _auto_tune_cached(t_ids, t_key, sigma, q, rung, qmin, L,
-                                  stride, n_win, Lv, vocab_cap, dev)
-        if tuned is None:
+    with profiling.span("map_reads.prep"):
+        qmax = max(len(r) for r in read_ids)
+        qmin = min(len(r) for r in read_ids)
+        # k < 0: filter at a rung that resolves typical mapping reads; the
+        # rest (best above the rung) fall back to full-target sweeps.
+        rung = k if k >= 0 else max(8, qmax // 10)
+        geom = qf.window_geometry(tlen, qmax, rung)
+        if geom is None:
             return None
-        q, maxc, win_pres, win_syms = tuned
+        L, stride, n_win = geom
+        # The JAX package's presence-table budget, kept so both packages
+        # pick the same (q, maxc).
+        vocab_cap = (6 << 30) // (2 * (n_win + B)) - 1
+        n_words = encode.num_words(qmax)
+        Lv = qf.verify_cols(L, n_words, _CHUNK)
+        env_maxc = os.environ.get("EDLIB_TPU_QFILTER_MAXC")
+        q = qf.choose_q(sigma, qmin, rung, L, max_vocab=vocab_cap,
+                        bump=env_maxc is not None)
+        if q is None:
+            return None
+    with profiling.span("map_reads.index"):
+        if env_maxc is not None:
+            maxc = min(int(env_maxc), n_win)
+            win_pres, win_syms = _target_index_cached(
+                t_ids, t_key, sigma, q, L, stride, n_win, Lv, dev)
+        else:
+            tuned = _auto_tune_cached(t_ids, t_key, sigma, q, rung, qmin, L,
+                                      stride, n_win, Lv, vocab_cap, dev)
+            if tuned is None:
+                return None
+            q, maxc, win_pres, win_syms = tuned
+    with profiling.span("map_reads.prep"):
+        q_np, qlens_np = _reads_array(read_ids, flat, qmax)
 
-    q_np, qlens_np = _reads_array(read_ids, flat, qmax)
-    q_arr = torch.from_numpy(q_np).to(dev)
-    qlens = torch.from_numpy(qlens_np).to(dev)
-    if grid is not None:
-        gb, gp, resolved = _filter_over_grid(
-            grid, q_np, qlens_np, t_ids, t_key, sigma, q, L, stride, n_win,
-            Lv, tlen, rung, maxc, n_words, dev)
-    else:
-        gb, gp, resolved = qf.filter_verify_batch(
-            q_arr, qlens, win_pres, win_syms, sigma=sigma, q=q, L=L,
-            stride=stride, tlen=tlen, k=rung, maxc=maxc, nw=n_words)
-    # resolved & gb > rung == k proves best > k (the post-pass reports -1);
-    # with no user cap every such read needs its true best.
-    need = ~resolved if k >= 0 else (~resolved) | (gb > rung)
-    idxs = torch.nonzero(need).flatten()
-    FB = min(_SEG_FB_B, B) if grid is None else 0
-    gb = gb.cpu().numpy().astype(np.int64)
-    gp = gp.cpu().numpy().astype(np.int64)
-    granted, rest = idxs[:FB], idxs[FB:].cpu().numpy()
+    with profiling.span("qfilter.filter_verify"):
+        q_arr = torch.from_numpy(q_np).to(dev)
+        qlens = torch.from_numpy(qlens_np).to(dev)
+        if grid is not None:
+            gb, gp, resolved = _filter_over_grid(
+                grid, q_np, qlens_np, t_ids, t_key, sigma, q, L, stride,
+                n_win, Lv, tlen, rung, maxc, n_words, dev)
+        else:
+            gb, gp, resolved = qf.filter_verify_batch(
+                q_arr, qlens, win_pres, win_syms, sigma=sigma, q=q, L=L,
+                stride=stride, tlen=tlen, k=rung, maxc=maxc, nw=n_words)
+    with profiling.span("map_reads.stragglers"):
+        # resolved & gb > rung == k proves best > k (the post-pass reports
+        # -1); with no user cap every such read needs its true best.
+        need = ~resolved if k >= 0 else (~resolved) | (gb > rung)
+        idxs = torch.nonzero(need).flatten()
+        FB = min(_SEG_FB_B, B) if grid is None else 0
+        gb = gb.cpu().numpy().astype(np.int64)
+        gp = gp.cpu().numpy().astype(np.int64)
+        granted, rest = idxs[:FB], idxs[FB:].cpu().numpy()
+    profiling.count("map.reads_live", B)
+    profiling.count("map.stragglers_segmented", len(granted))
+    profiling.count("map.stragglers_shared", len(rest))
     if len(granted):
-        fb_b, fb_p = _segmented_fallback(
-            q_arr[granted], qlens[granted], t_ids, t_key, sigma, qmax, qmin,
-            n_words, FB, dev)
-        g = granted.cpu().numpy()
-        gb[g] = fb_b.cpu().numpy()
-        gp[g] = fb_p.cpu().numpy()
+        with profiling.span("map_reads.fallback_segmented"):
+            fb_b, fb_p = _segmented_fallback(
+                q_arr[granted], qlens[granted], t_ids, t_key, sigma, qmax,
+                qmin, n_words, FB, dev)
+            g = granted.cpu().numpy()
+            gb[g] = fb_b.cpu().numpy()
+            gp[g] = fb_p.cpu().numpy()
     if len(rest):
         # More stragglers than the segmented fallback takes: the shared
         # sweep, whose padded target is cached too.
-        gb[rest], gp[rest] = _sweep_reads_shared(
-            [read_ids[i] for i in rest], t_ids, t_key, sigma, 0, dev)
+        with profiling.span("map_reads.fallback_shared"):
+            gb[rest], gp[rest] = _sweep_reads_shared(
+                [read_ids[i] for i in rest], t_ids, t_key, sigma, 0, dev)
     return gb, gp
 
 

@@ -51,7 +51,8 @@ one of them:
 
 Each wrapper checks its operands, runs the plain version when they lie on
 the CPU, and otherwise launches its kernel on the current stream, raises on
-a CUDA error, and counts the launch (launch_counts()).  A CUDA tensor never
+a CUDA error, and counts the launch (the counter launch.<wrapper> of
+utils/profiling; launch_counts() reads them).  A CUDA tensor never
 falls back to the plain version.  reduce_lanes, reduce_bitplane,
 sweep_shared, hits_lanes and hits_bitplane plan their launches here (the
 split-lane schedule: split_core and below).
@@ -80,16 +81,10 @@ import torch
 
 from edlib_tpu_torch.encode import WORD_SIZE
 from edlib_tpu_torch.ops import _build
+from edlib_tpu_torch.utils import profiling
 
 _BIG = 0x3FFFFFFF          # best of a lane that saw no column (pallas _BIG)
 _I32 = torch.int32
-# Kernel launches per wrapper, counted where each wrapper launches its kernel.
-_LAUNCHES = {"reduce_lanes": 0, "reduce_bitplane": 0, "sweep_shared": 0,
-             "hits_lanes": 0, "hits_bitplane": 0, "nw_banded": 0,
-             "shw_banded": 0, "shw_banded_hits": 0, "capture": 0,
-             "wavefront": 0, "wavefront_banded": 0, "sweep_scores": 0,
-             "reduce_eqstream": 0, "hits_eqstream": 0, "reduce_resume": 0,
-             "sweep_scores_resume": 0, "hw_adaptive": 0}
 
 # ---------------------------------------------------------------------------
 # Routing constants and the band schedule, as the JAX package computes them.
@@ -2083,7 +2078,7 @@ def _stream(dev) -> int:
 def _launch(name: str, fn: str, *args) -> None:
     lib = _build.load()
     _build.check(lib, getattr(lib, fn)(*args), name)
-    _LAUNCHES[name] += 1
+    profiling.count("launch." + name)
 
 
 def _ptrs(*tensors):
@@ -2970,12 +2965,12 @@ KERNELS = (reduce_lanes, reduce_bitplane, sweep_shared, hits_lanes,
 
 def launch_counts() -> dict:
     """{wrapper name: kernel launches since the last reset}."""
-    return dict(_LAUNCHES)
+    return {f.__name__: profiling.counter("launch." + f.__name__)
+            for f in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    profiling.reset("launch.")
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ wavefront_banded in ops/cuda_kernel.py, csrc/wavefront.cu).
   (``column_cells``), over all query words.
 * ``BandedWavefront`` — NW distance and SHW best end / all minimal ends with
   a window of word slots sliding along the band (exact within k, dynamic-k
-  doubling on the host).
+  doubling on the host).  Under an open span (utils/profiling.child), an
+  NW distance run is a span ``rung`` (attrs k and answered, as its
+  take_rungs record) and every banded run has ``rung.init`` (profile, scan
+  targets, tiles, state), ``rung.segments`` (launches and band-death
+  fetches) and ``rung.result`` (the final fetch).
 
 Both run in bounded resumable segments with the state (7 planes of one
 int32 per word slot) kept on the device between them.  Slot counts follow
@@ -33,7 +37,7 @@ import torch
 
 from edlib_tpu_torch import encode
 from edlib_tpu_torch.ops import cuda_kernel as ck
-from edlib_tpu_torch.utils import hw
+from edlib_tpu_torch.utils import hw, profiling
 
 LANES = 128
 SUB_MIN = 8
@@ -252,11 +256,12 @@ class BandedWavefront:
         """(peq, scan targets, their 16-bit tiles, initial state) of a
         banded run: the tiles (on a card; None elsewhere) made once for
         every segment's tile form."""
-        t_scan = len(t_ids) + n_words * 32 - len(q_ids)
-        t = _scan_targets(t_ids, t_scan, sigma, self.device)
-        return (_profile(q_ids, sigma, n_words, eq, self.device), t,
-                ck.tile_symbols(t, t_scan) if t.is_cuda else None,
-                initial_state(R * LANES, self.device))
+        with profiling.child("rung.init"):
+            t_scan = len(t_ids) + n_words * 32 - len(q_ids)
+            t = _scan_targets(t_ids, t_scan, sigma, self.device)
+            return (_profile(q_ids, sigma, n_words, eq, self.device), t,
+                    ck.tile_symbols(t, t_scan) if t.is_cuda else None,
+                    initial_state(R * LANES, self.device))
 
     @staticmethod
     def _band_dead(state, d: int, n_words: int, lo: int, R: int,
@@ -282,9 +287,10 @@ class BandedWavefront:
     def _run_banded(self, q_ids, t_ids, sigma: int, n_words: int, lo: int,
                     R: int, col_lo: int, col_hi: int, eq=None, k_exit=None):
         """Run the banded sweep; return the bottom word's (score, runmin,
-        runpos) as ints, the steps run and whether the band died.  k_exit: stop as soon as the frontier provably
-        exceeds it (_band_dead); hits recorded before death still count
-        (they keep the frontier <= k, so death comes after the last)."""
+        runpos) as ints, the steps run and whether the band died.  k_exit:
+        stop as soon as the frontier provably exceeds it (_band_dead); hits
+        recorded before death still count (they keep the frontier <= k, so
+        death comes after the last)."""
         qlen, tlen = len(q_ids), len(t_ids)
         WINW = R * LANES
         t_scan = tlen + n_words * 32 - qlen
@@ -293,19 +299,22 @@ class BandedWavefront:
                                           eq=eq)
         d = 0
         died = False
-        while d < n_steps_total:
-            # The JAX package runs whole segments past the last step; those
-            # steps are inert and only slide the window toward its cap,
-            # which never moves the bottom word once the window holds it.
-            n = min(self.seg_steps, n_steps_total - d)
-            state = self._segment(state, d, n, peq, t, tiled,
-                                  n_words=n_words, lo=lo, t_scan=t_scan,
-                                  col_lo=col_lo, col_hi=col_hi)
-            d += n
-            if k_exit is not None and d < n_steps_total and self._band_dead(
-                    state, d, n_words, lo, R, k_exit):
-                died = True
-                break
+        with profiling.child("rung.segments"):
+            while d < n_steps_total:
+                # The JAX package runs whole segments past the last step;
+                # those steps are inert and only slide the window toward its
+                # cap, which never moves the bottom word once the window
+                # holds it.
+                n = min(self.seg_steps, n_steps_total - d)
+                state = self._segment(state, d, n, peq, t, tiled,
+                                      n_words=n_words, lo=lo, t_scan=t_scan,
+                                      col_lo=col_lo, col_hi=col_hi)
+                d += n
+                if (k_exit is not None and d < n_steps_total
+                        and self._band_dead(state, d, n_words, lo, R,
+                                            k_exit)):
+                    died = True
+                    break
         # The bottom word's slot follows the base at the last executed step.
         slot = (n_words - 1) - ck.wavefront_base(d - 1, lo,
                                                  max(0, n_words - WINW))
@@ -313,19 +322,22 @@ class BandedWavefront:
             # Died before the window reached the bottom word: every
             # bottom-row cell is provably > k_exit, nothing was tracked.
             return _BIG, _BIG, -1, d, died
-        score, runmin, runpos = state[4:7, slot].tolist()
+        with profiling.child("rung.result"):
+            score, runmin, runpos = state[4:7, slot].tolist()
         # On death the bottom word's final column was never reached; only
         # the tracked (runmin, runpos) hits (all <= k_exit) are valid.
         return (_BIG if died else score), runmin, runpos, d, died
 
     def distance_bounded(self, q_ids, t_ids, sigma: int, k: int, eq=None):
         """NW distance if <= k else None."""
-        n_words, lo, R = self._band_geometry(len(q_ids), len(t_ids), k)
-        score, _, _, steps, died = self._run_banded(
-            q_ids, t_ids, sigma, n_words, lo, R, col_lo=0, col_hi=0, eq=eq,
-            k_exit=k)
-        return _rung("distance_bounded", k, steps, 0, died,
-                     score if score <= k else None)
+        with profiling.child("rung") as sp:
+            n_words, lo, R = self._band_geometry(len(q_ids), len(t_ids), k)
+            score, _, _, steps, died = self._run_banded(
+                q_ids, t_ids, sigma, n_words, lo, R, col_lo=0, col_hi=0,
+                eq=eq, k_exit=k)
+            sp.set(k=k, answered=score <= k)
+            return _rung("distance_bounded", k, steps, 0, died,
+                         score if score <= k else None)
 
     def shw_best_bounded(self, q_ids, t_ids, sigma: int, k: int, eq=None):
         """SHW (best score, first best end position) if the best is <= k,
@@ -464,10 +476,13 @@ class BandedWavefront:
                                    "the result")
             kk *= 2
 
-    def nw_distance(self, q_ids, t_ids, sigma: int, k: int = -1,
-                    eq=None) -> int:
-        bound = max(1, min(max(len(q_ids), len(t_ids)),
-                           self._hamming_cap(q_ids, t_ids, eq)))
+    def nw_distance(self, q_ids, t_ids, sigma: int, k: int = -1, eq=None,
+                    cap=None) -> int:
+        """NW distance; -1 when k >= 0 and it exceeds k.  cap: the pair's
+        encode.nw_upper_bound, where the caller already has it."""
+        if cap is None:
+            cap = self._hamming_cap(q_ids, t_ids, eq)
+        bound = max(1, min(max(len(q_ids), len(t_ids)), cap))
         if k < 0:
             return self._ladder(self.distance_bounded, q_ids, t_ids, sigma,
                                 bound, eq)

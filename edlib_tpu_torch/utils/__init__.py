@@ -1,5 +1,7 @@
 """Device helpers and profiling of the port."""
 
-from edlib_tpu_torch.utils.profiling import Timer, gcups, trace
+from edlib_tpu_torch.utils.profiling import (Span, child, count, counter,
+                                             enable, gcups, reset, span, take)
 
-__all__ = ["Timer", "gcups", "trace"]
+__all__ = ["Span", "child", "count", "counter", "enable", "gcups", "reset",
+           "span", "take"]

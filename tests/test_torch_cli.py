@@ -27,7 +27,7 @@ import edlib_tpu_torch.cli as tcli
 import edlib_tpu_torch.edlib_compat as tcompat
 from edlib_tpu_torch import oracle as toracle
 from edlib_tpu_torch.io import read_fasta_bytes, read_fasta_strings
-from edlib_tpu_torch.utils import Timer, gcups, trace
+from edlib_tpu_torch.utils import gcups, profiling
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -316,23 +316,26 @@ def test_oracle_matches_jax(rng, mode):
         joracle.edit_distance_simple([], [1, 2], mode)
 
 
-def test_timer_gcups_and_trace(tmp_path):
-    t = Timer()
-    for _ in range(3):
-        with t.section("a"):
-            pass
-    with pytest.raises(KeyError):
-        with t.section("b"):
-            raise KeyError("inside")
-    assert t.counts == {"a": 3, "b": 1}
-    assert t.totals["a"] >= 0 and t.totals["b"] >= 0
-    lines = t.summary().splitlines()
-    assert len(lines) == 2 and "3 calls" in t.summary()
+def test_timer_gcups_and_trace():
+    """utils/profiling: spans and take (the registry that replaced the
+    Timer and the trace context), and the GCUPS accounting."""
+    profiling.take("")
+    profiling.enable(True)
+    try:
+        for _ in range(3):
+            with profiling.span("a"):
+                pass
+        with pytest.raises(KeyError):
+            with profiling.span("b"):
+                raise KeyError("inside")
+    finally:
+        profiling.enable(False)
+    spans, counts = profiling.take("")
+    assert [s.name for s in spans] == ["a", "a", "a", "b"] and counts == {}
+    assert all(s.end_ns >= s.start_ns and s.parent_id == 0 for s in spans)
+    assert len({s.call_id for s in spans}) == 4
+    with profiling.span("c"):
+        pass
+    assert profiling.take("") == ([], {})
     assert gcups(100, 1000, 10, 0.5) == pytest.approx(2e-3)
     assert gcups(1, 1, 1, 0.0) == float("inf")
-    with trace(None):
-        pass
-    import torch
-    with trace(str(tmp_path / "tr")):
-        torch.ones(8).sum()
-    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
