@@ -12,11 +12,14 @@ wavefront_banded in ops/cuda_kernel.py, csrc/wavefront.cu).
   (``column_cells``), over all query words.
 * ``BandedWavefront`` — NW distance and SHW best end / all minimal ends with
   a window of word slots sliding along the band (exact within k, dynamic-k
-  doubling on the host).  Under an open span (utils/profiling.child), an
-  NW distance run is a span ``rung`` (attrs k and answered, as its
-  take_rungs record) and every banded run has ``rung.init`` (profile, scan
-  targets, tiles, state), ``rung.segments`` (launches and band-death
-  fetches) and ``rung.result`` (the final fetch).
+  doubling on the host).  A call builds its k-invariant operands once, on
+  the device, and hands them to every rung (_Operands: the profile, and
+  for NW the scan targets and their tiles).  Under an open span
+  (utils/profiling.child), an NW distance run is a span ``rung`` (attrs k
+  and answered, as its take_rungs record) and every banded run has
+  ``rung.init`` (the state, and in the call's first run the operands:
+  attr built), ``rung.segments`` (launches and band-death fetches) and
+  ``rung.result`` (the final fetch).
 
 Both run in bounded resumable segments with the state (7 planes of one
 int32 per word slot) kept on the device between them.  Slot counts follow
@@ -83,12 +86,23 @@ def initial_state(ns: int, device) -> torch.Tensor:
 
 
 def _profile(q_ids, sigma: int, n_words: int, eq, device) -> torch.Tensor:
-    """(sigma+1, n_words) int32 profile bit words (row sigma: wildcard)."""
-    if eq is None:
-        eq = np.eye(sigma, dtype=bool)
-    words = encode.build_peq_words(np.asarray(q_ids, np.intp), eq,
-                                   n_words=n_words)
-    return torch.from_numpy(words.view(np.int32)).to(device)
+    """(sigma+1, n_words) int32 profile bit words (row sigma: wildcard),
+    encode.build_peq_words' bit for bit, built on the device: the query goes
+    up once, a byte a symbol where sigma <= 256, and ck.build_peq_device
+    scatters each cell's bit into its symbol's word; a row of eq beyond the
+    identity then ORs in its equal symbols' rows.  Temporaries O(qlen +
+    sigma * n_words)."""
+    q = torch.from_numpy(np.asarray(
+        q_ids, np.uint8 if sigma <= 256 else np.int32)).to(device)
+    peq = ck.build_peq_device(
+        q[None], torch.full((1,), len(q), dtype=torch.int32, device=device),
+        sigma, n_words)[0]
+    extra = [] if eq is None else np.argwhere(eq & ~np.eye(sigma, dtype=bool))
+    if len(extra):
+        own = peq.clone()
+        for a, b in extra:
+            peq[a] |= own[b]
+    return peq
 
 
 def _scan_targets(t_ids, t_scan: int, sigma: int, device) -> torch.Tensor:
@@ -225,6 +239,20 @@ class Wavefront:
 # ---------------------------------------------------------------------------
 
 
+class _Operands:
+    """One call's k-invariant operands of its banded runs: the first run
+    builds them (inside its rung.init), every later rung of the call takes
+    them.  The profile always; the scan targets and their tiles only where
+    keep_targets (NW: SHW's targets end at min(tlen, qlen + k), so each
+    rung makes its own).  Lives for one call: nothing outlasts it."""
+
+    __slots__ = ("keep_targets", "peq", "t", "tiled")
+
+    def __init__(self, keep_targets: bool = False):
+        self.keep_targets = keep_targets
+        self.peq = self.t = self.tiled = None
+
+
 class BandedWavefront:
     """NW distance / SHW best-end search for one long pair with a sliding
     banded window.  Exact whenever the true result is <= k; the public
@@ -252,16 +280,29 @@ class BandedWavefront:
         hi = max(0, diff) + s
         return n_words, lo, self._rows((hi - lo + 31) // 33 + 3, n_words)
 
-    def _init(self, q_ids, t_ids, sigma: int, n_words: int, R: int, eq=None):
+    def _init(self, q_ids, t_ids, sigma: int, n_words: int, R: int, eq,
+              ops: _Operands):
         """(peq, scan targets, their 16-bit tiles, initial state) of a
         banded run: the tiles (on a card; None elsewhere) made once for
-        every segment's tile form."""
-        with profiling.child("rung.init"):
-            t_scan = len(t_ids) + n_words * 32 - len(q_ids)
-            t = _scan_targets(t_ids, t_scan, sigma, self.device)
-            return (_profile(q_ids, sigma, n_words, eq, self.device), t,
-                    ck.tile_symbols(t, t_scan) if t.is_cuda else None,
-                    initial_state(R * LANES, self.device))
+        every segment's tile form.  What ops holds is taken, the rest built
+        (and kept in ops where it is k-invariant); the span's attr built
+        says whether this run built the call's operands, and the counters
+        wf.operands_built / wf.operands_reused count it."""
+        with profiling.child("rung.init") as sp:
+            built = ops.peq is None
+            if built:
+                ops.peq = _profile(q_ids, sigma, n_words, eq, self.device)
+            t, tiled = ops.t, ops.tiled
+            if t is None:
+                t_scan = len(t_ids) + n_words * 32 - len(q_ids)
+                t = _scan_targets(t_ids, t_scan, sigma, self.device)
+                tiled = ck.tile_symbols(t, t_scan) if t.is_cuda else None
+                if ops.keep_targets:
+                    ops.t, ops.tiled = t, tiled
+            sp.set(built=built)
+            profiling.count("wf.operands_built" if built
+                            else "wf.operands_reused")
+            return ops.peq, t, tiled, initial_state(R * LANES, self.device)
 
     @staticmethod
     def _band_dead(state, d: int, n_words: int, lo: int, R: int,
@@ -285,7 +326,8 @@ class BandedWavefront:
                                    lo, col_lo, col_hi, tiled=tiled)
 
     def _run_banded(self, q_ids, t_ids, sigma: int, n_words: int, lo: int,
-                    R: int, col_lo: int, col_hi: int, eq=None, k_exit=None):
+                    R: int, col_lo: int, col_hi: int, ops: _Operands,
+                    eq=None, k_exit=None):
         """Run the banded sweep; return the bottom word's (score, runmin,
         runpos) as ints, the steps run and whether the band died.  k_exit:
         stop as soon as the frontier provably exceeds it (_band_dead); hits
@@ -296,7 +338,7 @@ class BandedWavefront:
         t_scan = tlen + n_words * 32 - qlen
         n_steps_total = t_scan + n_words - 1
         peq, t, tiled, state = self._init(q_ids, t_ids, sigma, n_words, R,
-                                          eq=eq)
+                                          eq, ops)
         d = 0
         died = False
         with profiling.child("rung.segments"):
@@ -328,18 +370,21 @@ class BandedWavefront:
         # the tracked (runmin, runpos) hits (all <= k_exit) are valid.
         return (_BIG if died else score), runmin, runpos, d, died
 
-    def distance_bounded(self, q_ids, t_ids, sigma: int, k: int, eq=None):
-        """NW distance if <= k else None."""
+    def distance_bounded(self, q_ids, t_ids, sigma: int, k: int, eq=None,
+                         ops=None):
+        """NW distance if <= k else None.  ops: the call's _Operands, shared
+        by its rungs (a new one where None)."""
         with profiling.child("rung") as sp:
             n_words, lo, R = self._band_geometry(len(q_ids), len(t_ids), k)
             score, _, _, steps, died = self._run_banded(
                 q_ids, t_ids, sigma, n_words, lo, R, col_lo=0, col_hi=0,
-                eq=eq, k_exit=k)
+                ops=ops or _Operands(), eq=eq, k_exit=k)
             sp.set(k=k, answered=score <= k)
             return _rung("distance_bounded", k, steps, 0, died,
                          score if score <= k else None)
 
-    def shw_best_bounded(self, q_ids, t_ids, sigma: int, k: int, eq=None):
+    def shw_best_bounded(self, q_ids, t_ids, sigma: int, k: int, eq=None,
+                         ops=None):
         """SHW (best score, first best end position) if the best is <= k,
         else None.  SHW cells are prefix-vs-prefix global distances, so
         cell(r, c) >= |r - c|: the band -k..+k covers every value <= k, and
@@ -352,7 +397,8 @@ class BandedWavefront:
         w_pad = n_words * 32 - qlen
         _, best, pos, steps, died = self._run_banded(
             q_ids, np.asarray(t_ids)[:tlen_eff], sigma, n_words, -k, R,
-            col_lo=w_pad, col_hi=w_pad + tlen_eff, eq=eq, k_exit=k)
+            col_lo=w_pad, col_hi=w_pad + tlen_eff,
+            ops=ops or _Operands(), eq=eq, k_exit=k)
         return _rung("shw_best_bounded", k, steps, 0, died,
                      (best, pos - w_pad) if best <= k else None)
 
@@ -377,7 +423,7 @@ class BandedWavefront:
             d += b
 
     def shw_locations_bounded(self, q_ids, t_ids, sigma: int, k: int,
-                              eq=None):
+                              eq=None, ops=None):
         """SHW (best, [ALL minimal end positions]) if best <= k, else None:
         the banded full-stream search.
 
@@ -414,8 +460,9 @@ class BandedWavefront:
             base_cap = 0
             R = _full_rows(n_words)
 
-        peq, t, tiled, state = self._init(q_ids, t_eff, sigma, n_words, R,
-                                          eq=eq)
+        peq, t, tiled, state = self._init(
+            q_ids, t_eff, sigma, n_words, R, eq,
+            ops or _Operands())
         d = 0
         for d0, b in self._landing(d_pin, d_emit, n_steps_total):
             state = self._segment(state, d0, b, peq, t, tiled,
@@ -452,7 +499,7 @@ class BandedWavefront:
         cap = max(1, min(len(q_ids), self._hamming_cap(q_ids, t_ids, eq)))
         if k < 0:
             return self._ladder(self.shw_locations_bounded, q_ids, t_ids,
-                                sigma, cap, eq)
+                                sigma, cap, eq, _Operands())
         r = self.shw_locations_bounded(q_ids, t_ids, sigma, k, eq=eq)
         return (-1, []) if r is None else r
 
@@ -463,12 +510,13 @@ class BandedWavefront:
         return encode.nw_upper_bound(q_ids, t_ids, eq)
 
     @staticmethod
-    def _ladder(bounded, q_ids, t_ids, sigma: int, cap: int, eq):
+    def _ladder(bounded, q_ids, t_ids, sigma: int, cap: int, eq,
+                ops: _Operands):
         """The dynamic-k doubling: k = 64, 128, ... up to cap, where the
-        run always succeeds."""
+        run always succeeds; every rung takes the call's operands ops."""
         kk = 64
         while True:
-            r = bounded(q_ids, t_ids, sigma, min(kk, cap), eq=eq)
+            r = bounded(q_ids, t_ids, sigma, min(kk, cap), eq=eq, ops=ops)
             if r is not None:
                 return r
             if kk >= cap:
@@ -485,7 +533,7 @@ class BandedWavefront:
         bound = max(1, min(max(len(q_ids), len(t_ids)), cap))
         if k < 0:
             return self._ladder(self.distance_bounded, q_ids, t_ids, sigma,
-                                bound, eq)
+                                bound, eq, _Operands(keep_targets=True))
         d = self.distance_bounded(q_ids, t_ids, sigma, min(k, bound), eq=eq)
         return -1 if d is None else d
 
@@ -497,6 +545,6 @@ class BandedWavefront:
         cap = max(1, min(len(q_ids), self._hamming_cap(q_ids, t_ids, eq)))
         if k < 0:
             return self._ladder(self.shw_best_bounded, q_ids, t_ids, sigma,
-                                cap, eq)
+                                cap, eq, _Operands())
         r = self.shw_best_bounded(q_ids, t_ids, sigma, k, eq=eq)
         return (-1, -1) if r is None else r

@@ -15,7 +15,10 @@ Counters are host integers counted whether or not tracing is on, from what
 the host already holds (never a device fetch): ``launch.<wrapper>`` (kernel
 launches, ops/cuda_kernel.launch_counts), ``path_route.<route>`` (PATH
 windows, batch.path_route_counts), ``map.reads_live``,
-``map.stragglers_segmented`` and ``map.stragglers_shared`` (mapping.py).
+``map.stragglers_segmented`` and ``map.stragglers_shared`` (mapping.py),
+``wf.operands_built`` and ``wf.operands_reused`` (ops/wavefront.py: banded
+runs that built their call's k-invariant operands, and rungs that took
+them from an earlier rung of the call).
 
 ``take(prefix)`` returns the spans since the last ``take()`` and the
 counters whose names start with prefix, and forgets them; the other

@@ -7,6 +7,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import edlib_tpu
 import edlib_tpu_torch
 from edlib_tpu_torch import encode
 from edlib_tpu_torch import mapping as tmp
@@ -268,10 +269,42 @@ def test_nw_distance_long_has_a_rung_span_per_rung(rng, tracing):
     assert 1 <= len(by["rung.result"]) <= len(rungs)
 
 
+def test_nw_distance_long_builds_its_operands_once_a_call(rng, tracing):
+    """One ladder call builds its profile, scan targets and tiles once, in
+    its first rung's rung.init (built=True), and every later rung takes
+    them (wf.operands_reused); a call with k >= 0 runs one rung that
+    builds; nothing is kept from one call to the next.  The answers are
+    the JAX package's."""
+    q = bytes(rng.choice(list(DNA), 300).tolist())
+    t = bytes(rng.choice(list(DNA), 400).tolist())
+    want = edlib_tpu.nw_distance_long(q, t, backend="native")
+    profiling.take("wf.")
+    for _ in range(2):
+        assert edlib_tpu_torch.nw_distance_long(q, t, device="cpu") == want
+        spans, counts = profiling.take("wf.")
+        rungs = twf.take_rungs()
+        assert len(rungs) >= 3
+        assert counts == {"wf.operands_built": 1,
+                          "wf.operands_reused": len(rungs) - 1}
+        inits = sorted((s for s in spans if s.name == "rung.init"),
+                       key=lambda s: s.start_ns)
+        assert [s.attrs["built"] for s in inits] == \
+            [True] + [False] * (len(rungs) - 1)
+    for k, got in ((want, want), (want - 1, -1), (10 * want, want)):
+        assert edlib_tpu_torch.nw_distance_long(q, t, k=k,
+                                                device="cpu") == got
+        spans, counts = profiling.take("wf.")
+        assert len(twf.take_rungs()) == 1
+        assert counts == {"wf.operands_built": 1}
+        assert [s.attrs["built"] for s in spans
+                if s.name == "rung.init"] == [True]
+
+
 def test_routes_without_a_root_span_record_none(rng, tracing):
     """The ladder's spans are children: SHW and the banded wavefront reached
     from elsewhere (align's NW route past the wavefront gate) open no root
-    and record nothing."""
+    and record no span; only the counters, always counted, count them (the
+    operands built once a call)."""
     q = bytes(rng.choice(list(DNA), 200).tolist())
     t = bytes(rng.choice(list(DNA), 300).tolist())
     edlib_tpu_torch.shw_best_long(q, t, device="cpu")
@@ -279,5 +312,9 @@ def test_routes_without_a_root_span_record_none(rng, tracing):
     wf = twf.BandedWavefront(device="cpu")
     d = wf.nw_distance(q_ids, t_ids, len(alphabet))
     assert wf.nw_distance(q_ids, t_ids, len(alphabet), cap=d) == d
-    assert len(twf.take_rungs()) >= 2
-    assert profiling.take("") == ([], {})
+    rungs = twf.take_rungs()
+    assert len(rungs) >= 2
+    spans, counts = profiling.take("")
+    assert spans == []
+    assert counts == {"wf.operands_built": 3,
+                      "wf.operands_reused": len(rungs) - 3}

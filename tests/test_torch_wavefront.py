@@ -21,10 +21,12 @@ from edlib_tpu import encode as jenc
 from edlib_tpu.ops import host as jhost
 from edlib_tpu.ops import wavefront as jwf
 from edlib_tpu_torch import convert
+from edlib_tpu_torch import encode as tenc
 from edlib_tpu_torch.ops import cuda_kernel as ck
 from edlib_tpu_torch.ops import host as thost
 from edlib_tpu_torch.ops import wavefront as twf
 from edlib_tpu_torch.path import hirschberg as thb
+from edlib_tpu_torch.utils import profiling
 
 talign = importlib.import_module("edlib_tpu_torch.align")
 CPU = torch.device("cpu")
@@ -136,6 +138,32 @@ def test_wavefront_banded_plain_matches_pallas_interpret(rng, lo, cols):
                                    t_scan, lo, col_lo, col_hi)
         assert torch.equal(ours, convert.wavefront_state_from_jax(state))
     assert ck.wavefront_base(599, lo, n_words - 128) >= 16   # it slid
+
+
+@pytest.mark.parametrize("extra_words", [0, 9])
+@pytest.mark.parametrize("equalities", [False, True])
+@pytest.mark.parametrize("sigma", [1, 4, 20, 256])
+@pytest.mark.parametrize("qlen", [1, 31, 32, 33, 1000, 100_003])
+def test_profile_on_the_device_matches_build_peq_words(rng, qlen, sigma,
+                                                       equalities,
+                                                       extra_words):
+    """The banded and unbanded runs' profile, built with tensor operations
+    on the query's device, equals encode.build_peq_words bit for bit:
+    padding cells and row sigma all ones, equalities as
+    additionalEqualities gives them, and n_words past the query's words
+    (_full_rows' padding)."""
+    alphabet = bytes(range(sigma))
+    pairs = [(int(a), int(b)) for a, b in rng.randint(0, sigma, (5, 2))]
+    eq = tenc.build_equality_matrix(alphabet, pairs if equalities else None)
+    q = rng.randint(0, sigma, qlen).astype(np.uint8)
+    n_words = tenc.num_words(qlen) + extra_words
+    want = tenc.build_peq_words(q, eq, n_words=n_words).view(np.int32)
+    got = twf._profile(q, sigma, n_words, eq, CPU)
+    assert got.dtype == torch.int32 and got.device == CPU
+    np.testing.assert_array_equal(got.numpy(), want)
+    if not equalities:
+        np.testing.assert_array_equal(
+            twf._profile(q, sigma, n_words, None, CPU).numpy(), want)
 
 
 def test_wavefront_state_round_trip(rng):
@@ -364,6 +392,42 @@ def test_shw_best_long_matches_jax(rng, backend):
         assert f(a, b, backend=backend, device="cpu") == \
             edlib_tpu.shw_best_long(a, b, backend="native"), (a[:5], b[:5])
     assert f(b"AAA", b"", k=2, device="cpu") == (-1, -1)
+
+
+@pytest.mark.parametrize("entry", ["shw_best_long", "locations_shw"])
+def test_shw_ladder_shares_its_profile(rng, monkeypatch, entry):
+    """An SHW ladder (k = -1, two rungs or more) builds its profile once and
+    hands it to every rung; each rung makes its own scan targets (they end
+    at min(tlen, qlen + k)).  The answers are the JAX package's."""
+    t = _seq(rng, 600)
+    q = _mutated(rng, t[:300], 120)
+    made = {"profile": 0, "targets": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            made[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(twf, "_profile", spy("profile", twf._profile))
+    monkeypatch.setattr(twf, "_scan_targets",
+                        spy("targets", twf._scan_targets))
+    profiling.take("wf.")
+    twf.take_rungs()
+    if entry == "shw_best_long":
+        got = edlib_tpu_torch.shw_best_long(q, t, device="cpu")
+        want = edlib_tpu.shw_best_long(q, t, backend="native")
+    else:
+        got = edlib_tpu_torch.semiglobal_locations_long(q, t, mode="SHW",
+                                                        device="cpu")
+        want = edlib_tpu.semiglobal_locations_long(q, t, mode="SHW",
+                                                   backend="native")
+    assert got == want
+    n = len(twf.take_rungs())
+    assert n >= 2
+    assert made == {"profile": 1, "targets": n}
+    assert profiling.take("wf.")[1] == {"wf.operands_built": 1,
+                                        "wf.operands_reused": n - 1}
 
 
 @pytest.mark.parametrize("mode", ["HW", "SHW"])
